@@ -1,0 +1,86 @@
+"""PCFICH: control format indicator channel (36.211 6.7, 36.212 5.3.4).
+
+Capability parity with lib/src/phy/phch/pcfich.c: the 3 fixed 32-bit CFI
+codewords, scrambling, QPSK, mapping to 4 quarter-spaced REGs of symbol
+0; decoding by correlating the received soft bits against the codewords.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops.equalizer import eq_sfbc, precode_sfbc
+from ..ops.modem import Mod, demod_soft, modulate
+from ..ops.scrambling import descramble_llrs, scramble_bits
+from ..utils.cell import Cell
+from ..utils.device import device_table
+from ..utils.sequence import cinit_pcfich
+from .regs import pcfich_regs, symbol_regs
+
+#: CFI codewords (36.212 Table 5.3.4-1): periodic 011/101/110 patterns.
+CFI_CODEWORDS = np.array(
+    [np.tile([0, 1, 1], 11)[:32], np.tile([1, 0, 1], 11)[:32],
+     np.tile([1, 1, 0], 11)[:32]], dtype=np.int8)
+
+
+@functools.lru_cache(maxsize=64)
+def _re_indices(cell: Cell) -> np.ndarray:
+    regs0 = symbol_regs(cell, 0)
+    idx = []
+    for r in pcfich_regs(cell):
+        idx.extend(regs0[r])       # symbol 0 -> flat index = subcarrier
+    return np.asarray(idx, np.int64)
+
+
+def _check_ports(cell: Cell):
+    if cell.nof_ports not in (1, 2):
+        raise NotImplementedError("4-port SFBC-FSTD control is not ported")
+
+
+def pcfich_put(grid, cfi: int, cell: Cell, sf_idx: int):
+    """Insert the CFI codeword into grid [..., P, nsymb, nre] — single
+    port or 2-port SFBC (srslte_pcfich_encode). Returns a new grid."""
+    _check_ports(cell)
+    dev = grid.device
+    bits = torch.as_tensor(CFI_CODEWORDS[cfi - 1], device=dev)
+    syms = modulate(scramble_bits(bits, cinit_pcfich(2 * sf_idx, cell.id)),
+                    Mod.QPSK)
+    if cell.nof_ports == 1:
+        port_syms = syms[None]
+    else:
+        port_syms = precode_sfbc(torch.stack([syms[0::2], syms[1::2]]))
+    idx = device_table(("pcfich_re", cell), dev, lambda: _re_indices(cell))
+    out = grid.clone()
+    flat = out.view(*grid.shape[:-2], -1)
+    flat[..., :port_syms.shape[0], idx] = port_syms.to(grid.dtype)
+    return out
+
+
+def pcfich_decode(grid, h, cell: Cell, sf_idx: int, noise_est=0.0):
+    """Decode CFI -> (cfi [...], corr [...]).
+
+    grid [..., nsymb, nre]; h [..., nsymb, nre] (single port) or
+    [..., P, nsymb, nre]: MRC / SFBC combining, then correlation against
+    the 3 codewords (srslte_pcfich_decode)."""
+    _check_ports(cell)
+    idx = device_table(("pcfich_re", cell), grid.device,
+                       lambda: _re_indices(cell))
+    y = grid[..., 0, :][..., idx]
+    has_ports = h.dim() == grid.dim() + 1
+    if not has_ports or h.shape[-3] == 1:
+        hh = (h[..., 0, 0, :] if has_ports else h[..., 0, :])[..., idx]
+        x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
+                                             min=1e-12)
+    else:
+        x, _csi = eq_sfbc(y[..., None, :], h[..., 0, 0, :][..., idx][..., None, :],
+                          h[..., 1, 0, :][..., idx][..., None, :])
+    llr = descramble_llrs(demod_soft(x, Mod.QPSK),
+                          cinit_pcfich(2 * sf_idx, cell.id))
+    signs = device_table("cfi_signs", grid.device, lambda: (
+        1.0 - 2.0 * CFI_CODEWORDS.astype(np.float32)))
+    corr = torch.einsum("...k,ck->...c", llr, signs)
+    cfi = torch.argmax(corr, dim=-1) + 1
+    return cfi, corr.max(-1).values / llr.abs().sum(-1)

@@ -1,0 +1,187 @@
+"""DL-SCH transport-channel processing (36.212 5.3.2).
+
+Capability parity with lib/src/phy/phch/sch.c: TB encode (CRC24A attach ->
+segmentation -> per-CB CRC24B -> turbo encode -> rate matching ->
+concatenation, sch.c:188-298) and decode_tb_cb (per-CB de-rate-matching
+with HARQ soft combining -> iterative turbo decode with CRC early stop ->
+reassembly -> TB CRC, sch.c:307-422).
+
+A frozen ``DlschPlan`` captures every static dimension (segmentation,
+per-CB K/E/F, RV). Decoding is one path at every batch size: code blocks
+are grouped by (K, E, F) for de-rate-matching and every same-K group is
+decoded as ONE batched turbo call over all leading dims x code blocks
+(the reference decodes CBs serially with a per-CB early stop; here the
+early stop waits for the whole batch).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import torch
+from torch.profiler import record_function
+
+from ..ops.fec.cbsegm import CbSegm, cbsegm
+from ..ops.fec.rate_matching import RateMatchTurbo
+from ..ops.fec.turbo_decoder import TurboDecoder
+from ..ops.fec.turbo_encoder import turbo_encode
+from ..utils.crc import CRC24A, CRC24B
+
+
+def _cb_e_sizes(g: int, c: int, qm: int, n_layers: int) -> tuple[int, ...]:
+    """Per-CB rate-matching output size E (36.212 5.1.4.1.2)."""
+    g_prime = g // (qm * n_layers)
+    gamma = g_prime % c
+    e_minus = qm * n_layers * (g_prime // c)
+    e_plus = qm * n_layers * (-(-g_prime // c))
+    return tuple(e_minus if i < c - gamma else e_plus for i in range(c))
+
+
+def _pick_window(k: int) -> int | None:
+    """Turbo window length: the divisor of K closest to 256 that is a
+    multiple of 16 (the renormalization group) and >= 48; None (one
+    window over the whole trellis) when K has no such divisor."""
+    best = None
+    for w in range(48, min(k, 769), 16):
+        if k % w == 0 and (best is None or abs(w - 256) < abs(best - 256)):
+            best = w
+    return best
+
+
+@dataclass(frozen=True)
+class DlschPlan:
+    """Static per-grant transport channel plan."""
+
+    tbs: int                 # transport block payload bits
+    g: int                   # total codeword bits after rate matching
+    qm: int                  # modulation order (bits/symbol)
+    rv: int = 0              # redundancy version
+    n_layers: int = 1        # layers carrying this codeword
+    max_iterations: int = 5
+    #: iterate only until every CB passes its CRC (sch.c:382 early stop,
+    #: batched); False = fixed max_iterations
+    early_stop: bool = True
+
+    @functools.cached_property
+    def segm(self) -> CbSegm:
+        return cbsegm(self.tbs)
+
+    @functools.cached_property
+    def e_sizes(self) -> tuple[int, ...]:
+        return _cb_e_sizes(self.g, self.segm.c, self.qm, self.n_layers)
+
+    @functools.cached_property
+    def cb_plans(self):
+        """Per-CB (k, e, f, offset_in_codeword)."""
+        out = []
+        off = 0
+        for i, (k, e) in enumerate(zip(self.segm.cb_sizes, self.e_sizes)):
+            f = self.segm.f if i == 0 else 0
+            out.append((k, e, f, off))
+            off += e
+        assert off == self.g, (off, self.g)
+        return tuple(out)
+
+    def rm(self, k: int, f: int) -> RateMatchTurbo:
+        return RateMatchTurbo(k, f=f)
+
+    def decoder(self, k: int) -> TurboDecoder:
+        return TurboDecoder(k=k, iterations=self.max_iterations,
+                            window=_pick_window(k))
+
+
+def dlsch_encode(tb_bits: torch.Tensor, plan: DlschPlan) -> torch.Tensor:
+    """Encode tb_bits[..., tbs] -> codeword bits [..., G] int8
+    (encode_tb_off, sch.c:188-298)."""
+    segm = plan.segm
+    lead = tb_bits.shape[:-1]
+    dev = tb_bits.device
+    tb_crc = CRC24A.compute(tb_bits).to(torch.int8)
+    full = torch.cat([tb_bits.to(torch.int8), tb_crc], dim=-1)
+
+    # segmentation: K- blocks first, filler zeros lead the first block
+    pieces = []
+    pos = 0
+    for i, k in enumerate(segm.cb_sizes):
+        f = segm.f if i == 0 else 0
+        payload = k - f - (24 if segm.c > 1 else 0)
+        cb = full[..., pos:pos + payload]
+        pos += payload
+        if f:
+            cb = torch.cat([torch.zeros((*lead, f), dtype=torch.int8,
+                                        device=dev), cb], dim=-1)
+        if segm.c > 1:
+            cb = torch.cat([cb, CRC24B.compute(cb).to(torch.int8)], dim=-1)
+        pieces.append(cb)
+    assert pos == plan.tbs + 24
+
+    out = []
+    for (k, e, f, _), cb in zip(plan.cb_plans, pieces):
+        out.append(plan.rm(k, f).tx(turbo_encode(cb), plan.rv, e))
+    return torch.cat(out, dim=-1)
+
+
+def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
+                 iters_out: list | None = None):
+    """Decode llrs[..., G] -> (tb_bits[..., tbs], crc_ok[...], softbuffers).
+
+    Mirrors decode_tb / decode_tb_cb (sch.c:307-437): per-CB
+    de-rate-match with HARQ combining into ``softbuffers`` (list of
+    per-CB tensors [..., 3*(K+4)], or None), one batched turbo decode
+    per K, CB CRC checks, reassembly, TB CRC. ``iters_out`` (a list)
+    receives each turbo call's iteration count. The three steps run in
+    the profiler ranges ``dlsch.derm``, ``dlsch.turbo_decode`` and
+    ``dlsch.crc_reassembly``.
+    """
+    segm = plan.segm
+    stop_crc = (CRC24B if segm.c > 1 else CRC24A) if plan.early_stop else None
+
+    with record_function("dlsch.derm"):
+        groups: dict = {}
+        for idx, (k, e, f, off) in enumerate(plan.cb_plans):
+            groups.setdefault((k, e, f), []).append((idx, off))
+
+        derm: dict = {}
+        for (k, e, f), members in groups.items():
+            seg = torch.stack([llrs[..., off:off + e] for _, off in members],
+                              dim=-2)                      # [..., n_cb, E]
+            sb = (torch.stack([softbuffers[idx] for idx, _ in members],
+                              dim=-2)
+                  if softbuffers is not None else None)
+            d_llr, ns = plan.rm(k, f).rx(seg, plan.rv, softbuffer=sb)
+            derm.setdefault(k, []).append((f, members, d_llr, ns))
+
+    with record_function("dlsch.turbo_decode"):
+        decoded = {}
+        for k, items in derm.items():
+            d_all = (torch.cat([d for _f, _m, d, _n in items], dim=-3)
+                     if len(items) > 1 else items[0][2])
+            decoded[k], _ = plan.decoder(k).decode(d_all, crc=stop_crc,
+                                                   iters_out=iters_out)
+
+    with record_function("dlsch.crc_reassembly"):
+        new_soft = [None] * segm.c
+        cb_bits = [None] * segm.c
+        cb_ok = []
+        for k, items in derm.items():
+            slot = 0
+            for f, members, _d, ns in items:
+                for j, (idx, _off) in enumerate(members):
+                    new_soft[idx] = ns[..., j, :]
+                    b = decoded[k][..., slot, :]
+                    slot += 1
+                    if segm.c > 1:
+                        cb_ok.append(CRC24B.check(b))
+                        cb_bits[idx] = b[..., f:k - 24]
+                    else:
+                        cb_bits[idx] = b[..., f:]
+
+        full = torch.cat(cb_bits, dim=-1)                  # [..., tbs + 24]
+        tb_ok = CRC24A.check(full)
+        # the all-zero word is a valid turbo codeword whose CRC trivially
+        # passes; a decoder collapsing to it must not report success
+        tb_ok = tb_ok & torch.any(full != 0, dim=-1)
+        for ok in cb_ok:
+            tb_ok = tb_ok & ok
+    return full[..., :plan.tbs], tb_ok, new_soft

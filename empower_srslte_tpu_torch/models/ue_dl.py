@@ -1,0 +1,225 @@
+"""UE downlink receiver: FFT -> chest -> PCFICH -> PDCCH blind search ->
+grant -> PDSCH decode.
+
+Capability parity with lib/src/phy/ue/ue_dl.c (srslte_ue_dl_decode_rnti,
+ue_dl.c:467-618): the receive path from time-domain subframe samples to
+decoded transport blocks.
+
+* ``ue_dl_decode`` decodes one subframe for one RNTI, resolving CFI and
+  DCI grants on the host (formats 1, 1A and 2, HARQ softbuffers).
+* ``ue_dl_tm4_batch`` is the batched no-genie 20 MHz 2x2 TM4 receiver —
+  the chain of the JAX package's full-chain benchmark (bench.py
+  ``bench_uedl(mimo=True)``): every stage runs once over the whole batch
+  of subframes, with both DCI sizes blind-searched in one Viterbi batch
+  each and both codewords in one turbo batch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..ops.chest import chest_dl, noise_est_pilots
+from ..ops.equalizer import MimoType
+from ..ops.modem import Mod
+from ..ops.ofdm import ofdm_rx_sf
+from ..utils.cell import Cell
+from . import dci as dci_mod
+from . import ra
+from .pcfich import pcfich_decode
+from .pdcch import (dci_crc_ok, pdcch_blind_bits, pdcch_blind_decode,
+                    pdcch_extract_llr, ue_search_candidates)
+from .pdsch import PdschConfig, pdsch_decode
+from .regs import pdcch_nof_cces
+
+
+@dataclass
+class UeDlResult:
+    """One subframe's decode outcome (per decoded grant)."""
+
+    cfi: int
+    dci: object | None = None
+    tb_bits: np.ndarray | None = None
+    crc_ok: bool = False
+    noise_est: float = 0.0
+    snr_db: float = 0.0          # wideband chest SNR (feeds CQI reports)
+    cce: int = 0                 # first CCE of the grant's PDCCH
+    cw: int = 0                  # codeword index (format 2 grants)
+
+
+def estimate_channel(grid, cell: Cell, sf_idx: int):
+    """Per-port channel estimates: grid [..., nsymb, nre] ->
+    h [..., P, nsymb, nre] and the pilot noise estimate [...]."""
+    h = torch.stack([chest_dl(grid, cell, sf_idx, port=p)
+                     for p in range(cell.nof_ports)], dim=-3)
+    return h, noise_est_pilots(grid, cell, sf_idx)
+
+
+def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
+                 mimo: MimoType = MimoType.SINGLE,
+                 max_iterations: int = 5,
+                 harq_state: dict | None = None,
+                 phich=None, llr_int8: bool = False) -> list[UeDlResult]:
+    """Decode one subframe for one RNTI (single rx antenna).
+
+    samples [sf_sample_len] complex64 (on the device to decode on) ->
+    list of per-grant results. ``harq_state``: caller-owned dict
+    pid -> {"ndi", "soft"} carrying per-process softbuffers across
+    retransmissions (srsue dl_harq.cc + softbuffer.c): an un-toggled NDI
+    reuses the combined LLRs, a CRC failure stores them back.
+    """
+    if phich is not None:
+        raise NotImplementedError("PHICH decoding is not ported")
+    if llr_int8:
+        raise NotImplementedError("the int8 LLR lane is not ported")
+    if rnti in (0xFFFF, 0xFFFE) or 1 <= rnti <= 0x3C:
+        raise NotImplementedError(
+            "common-search-space RNTIs monitor format 1C, not ported")
+    grid = ofdm_rx_sf(samples[None], cell)                 # [1, S, K]
+    h, n0 = estimate_channel(grid, cell, sf_idx)           # [1, P, S, K]
+    noise = float(n0[0])
+    h_ctrl = h[0] if cell.nof_ports >= 2 else h[0, 0]
+    cfi = int(pcfich_decode(grid, h, cell, sf_idx, noise_est=noise)[0][0])
+    hpow = float(torch.mean(h[0].abs() ** 2))
+    snr_db = float(10.0 * np.log10(max(hpow, 1e-12) / max(noise, 1e-12)))
+
+    sizes = (dci_mod.format0_1a_size(cell.nof_prb),
+             dci_mod.format1_size(cell.nof_prb))
+    f2_size = None
+    if cell.nof_ports >= 2:
+        f2_size = dci_mod.format2_size(cell.nof_prb)
+        sizes = sizes + (f2_size,)
+    hits = pdcch_blind_decode(grid[0], h_ctrl, cell, cfi, sf_idx, rnti,
+                              sizes, noise_est=noise)
+
+    grid_a = grid[:, None]                                 # [1, A=1, S, K]
+    h_a = h[:, None]                                       # [1, 1, P, S, K]
+    results: list[UeDlResult] = []
+    for hit in hits:
+        d = None
+        if len(hit.payload) == sizes[0]:
+            d = dci_mod.unpack_format1a(hit.payload, cell.nof_prb)
+            if d is None:
+                d_ul = dci_mod.unpack_format0(hit.payload, cell.nof_prb)
+                if d_ul is not None:
+                    results.append(UeDlResult(cfi=cfi, dci=d_ul,
+                                              noise_est=noise,
+                                              snr_db=snr_db, cce=hit.cce))
+                continue
+        elif len(hit.payload) == sizes[1]:
+            d = dci_mod.unpack_format1(hit.payload, cell.nof_prb)
+        if f2_size is not None and len(hit.payload) == f2_size:
+            d2 = dci_mod.unpack_format2(hit.payload, cell.nof_prb)
+            if d2 is None:
+                continue
+            try:
+                mod2, tbs0 = ra.mcs_to_tbs(d2.mcs[0], d2.n_prb)
+                _, tbs1 = ra.mcs_to_tbs(d2.mcs[1], d2.n_prb)
+            except ValueError:
+                continue     # reserved MCS: a false-positive blind decode
+            cfg = PdschConfig(cell=cell, sf_idx=sf_idx, cfi=cfi, rnti=rnti,
+                              mod=mod2, mimo=MimoType.SPATIAL_MUX,
+                              nof_layers=2, nof_codewords=2, pmi=d2.pmi,
+                              prb_mask=d2.prb_mask)
+            plan0 = cfg.plan(tbs0, rv=d2.rv[0], max_iterations=max_iterations)
+            plan1 = cfg.plan(tbs1, rv=d2.rv[1], max_iterations=max_iterations)
+            bits2, ok2, _ = pdsch_decode(grid_a, h_a, cfg, plan0,
+                                         noise_est=noise, plan2=plan1)
+            for cw in range(2):
+                results.append(UeDlResult(
+                    cfi=cfi, dci=d2, tb_bits=bits2[cw][0].cpu().numpy(),
+                    crc_ok=bool(ok2[cw][0]), noise_est=noise,
+                    snr_db=snr_db, cce=hit.cce, cw=cw))
+            continue
+        if d is None:
+            continue
+        try:
+            mod, tbs = ra.mcs_to_tbs(d.mcs, d.n_prb)
+        except ValueError:
+            continue         # reserved MCS / empty allocation
+        cfg = PdschConfig(cell=cell, sf_idx=sf_idx, cfi=cfi, rnti=rnti,
+                          mod=mod, mimo=mimo, prb_mask=d.prb_mask)
+        plan = cfg.plan(tbs, rv=d.rv, max_iterations=max_iterations)
+        soft_in, hst = None, None
+        if harq_state is not None:
+            hst = harq_state.setdefault(d.harq_pid,
+                                        {"ndi": None, "soft": None})
+            if hst["ndi"] == d.ndi and hst["soft"] is not None:
+                soft_in = hst["soft"]      # retransmission: combine
+            else:
+                hst["ndi"] = d.ndi
+                hst["soft"] = None
+        bits, ok, new_soft = pdsch_decode(grid_a, h_a, cfg, plan,
+                                          noise_est=noise,
+                                          softbuffers=soft_in)
+        ok_b = bool(ok[0])
+        if hst is not None:
+            hst["soft"] = None if ok_b else list(new_soft)
+        results.append(UeDlResult(cfi=cfi, dci=d,
+                                  tb_bits=bits[0].cpu().numpy(),
+                                  crc_ok=ok_b, noise_est=noise,
+                                  snr_db=snr_db, cce=hit.cce))
+    if not results:
+        results.append(UeDlResult(cfi=cfi, noise_est=noise, snr_db=snr_db))
+    return results
+
+
+@dataclass
+class Tm4BatchResult:
+    """Per-subframe outcome of ``ue_dl_tm4_batch``."""
+
+    cfi: torch.Tensor            # [B] decoded CFI
+    dci_hits: torch.Tensor       # [B] CRC16-RNTI passes over both sizes
+    tb_bits: tuple               # ([B, tbs] int8, [B, tbs] int8)
+    crc_ok: tuple                # ([B] bool, [B] bool)
+    iterations: list             # turbo iteration count per turbo call
+
+
+def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
+    """The no-genie 2x2 TM4 receiver over a batch of subframes.
+
+    samples [B, rx=2, sf_len] complex64 -> OFDM FFT -> CRS channel
+    estimate per (rx, port) -> pilot noise estimate on rx 0 -> PCFICH on
+    rx 0 (SFBC) -> PDCCH LLRs of the whole region (SFBC) -> blind search
+    of every candidate for both monitored DCI sizes (formats 1A and 1),
+    CRC16 with the RNTI mask -> 2x2 MMSE PDSCH decode of both codewords
+    (one DL-SCH decode, both codewords stacked).
+
+    Each stage runs in a ``torch.profiler.record_function`` range named
+    ``ue_dl.<stage>`` (``pdsch.*`` and ``dlsch.*`` inside the PDSCH
+    decode), which ``profile_main_path`` reads from one trace.
+    """
+    cell, sf_idx, cfi = cfg.cell, cfg.sf_idx, cfg.cfi
+    with record_function("ue_dl.ofdm_rx"):
+        grid = ofdm_rx_sf(samples, cell)                   # [B, rx, S, K]
+    with record_function("ue_dl.chest_noise"):
+        h = torch.stack(
+            [torch.stack([chest_dl(grid[:, r], cell, sf_idx, port=p)
+                          for p in range(2)], dim=1)
+             for r in range(2)], dim=1)                # [B, rx, port, S, K]
+        n0 = torch.clamp(noise_est_pilots(grid[:, 0], cell, sf_idx),
+                         min=1e-7)
+    grid0, h0 = grid[:, 0], h[:, 0]                        # rx 0 for control
+    with record_function("ue_dl.pcfich"):
+        cfi_hat, _ = pcfich_decode(grid0, h0, cell, sf_idx,
+                                   noise_est=n0[..., None])
+    with record_function("ue_dl.pdcch_llr"):
+        llr = pdcch_extract_llr(grid0, h0, cell, cfi, sf_idx,
+                                noise_est=n0[..., None])
+    with record_function("ue_dl.pdcch_blind_search"):
+        cands = ue_search_candidates(cfg.rnti, sf_idx,
+                                     pdcch_nof_cces(cell, cfi))
+        n_det = torch.zeros(samples.shape[0], dtype=torch.int64,
+                            device=samples.device)
+        for size in sorted({dci_mod.format1_size(cell.nof_prb),
+                            dci_mod.format0_1a_size(cell.nof_prb)}):
+            bits = pdcch_blind_bits(llr, cands, size)      # [B, n_cand, k]
+            n_det = n_det + dci_crc_ok(bits, size, cfg.rnti).sum(-1)
+    iters: list = []
+    (b1, b2), (ok1, ok2), _ = pdsch_decode(
+        grid, h, cfg, plan, noise_est=n0[:, None], plan2=plan,
+        iters_out=iters)
+    return Tm4BatchResult(cfi_hat, n_det, (b1, b2), (ok1, ok2), iters)

@@ -1,0 +1,190 @@
+"""NII max-log-MAP constituent decoder: CUDA kernel and its plain twin.
+
+Counterpart of the JAX package's Pallas kernel ``map_decode_nii``
+(empower_srslte_tpu/ops/fec/turbo_decoder_pallas2.py:220). One call runs
+one half-iteration of the LTE 8-state RSC constituent over K/l windows
+with next-iteration initialization (NII): every window starts from the
+boundary metrics its neighbours produced in the previous half-iteration
+of the same constituent, so all (code block, window) pairs are
+independent. Per window: a backward beta sweep whose metrics are stored,
+then a forward alpha sweep emitting ``ext = llr - (u + apr)``; metrics
+renormalize every 16 steps; the globally last window walks the 3 tail
+steps from the terminated state.
+
+Layout is time-major: rows (trellis steps) major, code blocks minor, so
+the kernel's threads — one per (window, code block), code block fastest —
+read and write neighbouring addresses.
+
+  u, p, apr        [K, B] float32 (systematic, parity, a-priori)
+  tail_u, tail_p   [3, B] termination rows of this constituent
+  a_st, b_st       [W+1, 8, B] boundary metrics; slot w holds window w's
+                   alpha init, slot w+1 window w's beta init (the JAX
+                   kernel's a_st[:, :W] / b_st[:, 1:] convention)
+
+On a CUDA tensor ``map_decode_nii`` launches ``csrc/turbo_nii.cu``; on a
+CPU tensor it runs ``map_decode_nii_plain``, a torch recursion
+vectorized over windows and code blocks with the same float32 operation
+order (so the two agree bit for bit on the same device).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ...utils.device import device_table
+from .turbo_encoder import trellis
+
+NEG = -1e30
+#: steps between renormalizations (the JAX kernel's ``group``)
+GROUP = 16
+
+#: kernel launches made by ``map_decode_nii`` (read by chip_smoke.py)
+LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _wiring_np():
+    t = trellis()
+    ns, par, ps = t.next_state, t.parity, t.prev_state
+    # gamma slot per (state, input): g[(0, p)] -> p, g[(1, p)] -> 2 + p
+    return (ns[:, 0].astype(np.int64), ns[:, 1].astype(np.int64),
+            par[:, 0].astype(np.int64), 2 + par[:, 1].astype(np.int64),
+            ps[:, 0].astype(np.int64), ps[:, 1].astype(np.int64))
+
+
+def _wiring(device):
+    return [device_table(("nii_wiring", i), device, lambda a=a: a)
+            for i, a in enumerate(_wiring_np())]
+
+
+def _gammas(uu, pp):
+    """[4, ...]: g(0,0), g(0,1), g(1,0), g(1,1) = g00, g01, -g01, -g00."""
+    g00 = (uu + pp) * 0.5
+    g01 = (uu - pp) * 0.5
+    return torch.stack([g00, g01, -g01, -g00])
+
+
+def _exact(shape, device):
+    e = torch.full((8, *shape), NEG, dtype=torch.float32, device=device)
+    e[0] = 0.0
+    return e
+
+
+def _check(u, p, tail_u, tail_p, a_st, b_st, l, apr):
+    k, b = u.shape
+    if k % l:
+        raise ValueError(f"K={k} is not a multiple of the window {l}")
+    w = k // l
+    want = {"u": (u, (k, b)), "p": (p, (k, b)), "tail_u": (tail_u, (3, b)),
+            "tail_p": (tail_p, (3, b)), "a_st": (a_st, (w + 1, 8, b)),
+            "b_st": (b_st, (w + 1, 8, b))}
+    if apr is not None:
+        want["apr"] = (apr, (k, b))
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {x.dtype}, want float32")
+        if x.device != u.device:
+            raise ValueError(f"{name} is on {x.device}, u on {u.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return k, b, w
+
+
+def map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, *, l: int,
+                         apr=None, bounds=None):
+    """Plain torch twin of the NII kernel (see the module docstring).
+    Returns (ext [K, B], a_next [W+1, 8, B], b_next [W+1, 8, B])."""
+    k, b, w_count = _check(u, p, tail_u, tail_p, a_st, b_st, l, apr)
+    first, last = (0, w_count - 1) if bounds is None else bounds
+    dev = u.device
+    ns0, ns1, gi0, gi1, ps0, ps1 = _wiring(dev)
+    uu_all = u + apr if apr is not None else u
+    uw = uu_all.view(w_count, l, b)
+    pw = p.view(w_count, l, b)
+
+    beta = b_st[1:].permute(1, 0, 2).clone()               # [8, W, B]
+    if 0 <= last < w_count:
+        bt = _exact((b,), dev)
+        for j in (2, 1, 0):
+            g = _gammas(tail_u[j], tail_p[j])
+            bt = torch.maximum(bt[ns0] + g[gi0], bt[ns1] + g[gi1])
+        beta[:, last] = bt - torch.amax(bt, 0)
+    betas = torch.empty((l, 8, w_count, b), dtype=torch.float32, device=dev)
+    for r in range(l - 1, -1, -1):
+        g = _gammas(uw[:, r], pw[:, r])                    # [4, W, B]
+        betas[r] = beta
+        beta = torch.maximum(beta[ns0] + g[gi0], beta[ns1] + g[gi1])
+        if r % GROUP == 0:
+            beta = beta - torch.amax(beta, 0)
+    b_next = torch.zeros_like(b_st)
+    b_next[:w_count] = beta.permute(1, 0, 2)
+
+    alpha = a_st[:w_count].permute(1, 0, 2).clone()
+    if 0 <= first < w_count:
+        alpha[:, first] = _exact((b,), dev)
+    ext = torch.empty((w_count, l, b), dtype=torch.float32, device=dev)
+    for r in range(l):
+        g = _gammas(uw[:, r], pw[:, r])
+        br0 = alpha + g[gi0]
+        br1 = alpha + g[gi1]
+        bk1 = betas[r]
+        tot0 = torch.amax(br0 + bk1[ns0], 0)
+        tot1 = torch.amax(br1 + bk1[ns1], 0)
+        ext[:, r] = tot0 - tot1 - uw[:, r]
+        alpha = torch.maximum(br0[ps0], br1[ps1])
+        if r % GROUP == GROUP - 1 or r == l - 1:
+            alpha = alpha - torch.amax(alpha, 0)
+    a_next = torch.zeros_like(a_st)
+    a_next[1:] = alpha.permute(1, 0, 2)
+    return ext.reshape(k, b), a_next, b_next
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    from ...utils.cuda_build import load
+
+    fn = load("turbo_nii").turbo_nii_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
+                   bounds=None):
+    """One NII constituent decode; see the module docstring.
+
+    ``bounds`` = (first, last): the windows holding the globally first /
+    last trellis step (default (0, W-1); (-1, -1) marks a trellis slice
+    with no edge, every boundary metric coming from a_st / b_st).
+    Returns (ext [K, B], a_next, b_next) in the slot convention above,
+    ready to pass back on the next call.
+    """
+    global LAUNCHES
+    if not u.is_cuda:
+        return map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, l=l,
+                                    apr=apr, bounds=bounds)
+    k, b, w_count = _check(u, p, tail_u, tail_p, a_st, b_st, l, apr)
+    first, last = (0, w_count - 1) if bounds is None else bounds
+    ext = torch.empty_like(u)
+    a_next = torch.empty_like(a_st)
+    b_next = torch.empty_like(b_st)
+    # stored betas of every window: [l, 8, W*B] float32 (8 x the size of u)
+    scratch = torch.empty((l, 8, w_count * b), dtype=torch.float32,
+                          device=u.device)
+    rc = _lib()(u.data_ptr(), p.data_ptr(),
+                None if apr is None else apr.data_ptr(),
+                tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
+                b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
+                b_next.data_ptr(), scratch.data_ptr(), b, l, w_count,
+                first, last, torch.cuda.current_stream(u.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return ext, a_next, b_next

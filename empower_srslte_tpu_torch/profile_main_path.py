@@ -1,0 +1,119 @@
+"""Where the main path's time goes on the card.
+
+    python3 -m empower_srslte_tpu_torch.profile_main_path
+
+Builds the 20 MHz 2x2 TM4 stimulus (models/enb_dl.py tm4_stimulus) at the
+main path's batch of 256 subframes, then
+
+1. times ``ue_dl_tm4_batch`` with CUDA events (mean of 3 calls after a
+   warm-up);
+2. traces one more call with ``torch.profiler`` and reads, for each of
+   the receiver's ``record_function`` ranges (``ue_dl.*``, ``pdsch.*``,
+   ``dlsch.*``), its host time and the device time of the kernels
+   launched in it (and the device time launched outside every range);
+   plus device time by kernel name, the kernel count and the device's
+   idle share of the traced call's wall time.
+
+Prints one JSON object and writes it to chiprun_out/profile_main_path.json.
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import time
+
+import torch
+
+from .models.enb_dl import tm4_stimulus
+from .models.ue_dl import ue_dl_tm4_batch
+
+BATCH = 256
+RANGE_PREFIXES = ("ue_dl.", "pdsch.", "dlsch.")
+
+
+def call_ms(run, reps: int = 3) -> float:
+    """Mean CUDA-event time of ``run()`` over ``reps`` calls after one
+    warm-up."""
+    run()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        run()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def trace(run) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = [e for e in events
+              if e.device_type == cpu and e.name.startswith(RANGE_PREFIXES)]
+    kernels = [e for e in events
+               if e.device_type == cuda and not e.is_user_annotation]
+    # a kernel belongs to the range its launch call (CUDA runtime API,
+    # same correlation id) was made in; the profiler's own op linking
+    # misses kernels launched outside an aten op (the ctypes kernels)
+    launch_us = {e.id: e.time_range.start for e in events
+                 if e.device_type == cpu and e.name.startswith("cu")}
+    stages = {r.name: {"host_ms": 0.0, "device_ms": 0.0} for r in ranges}
+    for r in ranges:
+        stages[r.name]["host_ms"] += r.cpu_time_total / 1e3
+    outside_ms = 0.0
+    for k in kernels:
+        t = launch_us.get(k.id)
+        owner = next((r for r in ranges if t is not None
+                      and r.time_range.start <= t <= r.time_range.end), None)
+        if owner is None:
+            outside_ms += k.device_time / 1e3
+        else:
+            stages[owner.name]["device_ms"] += k.device_time / 1e3
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": len(kernels),
+            "stages": stages, "device_ms_outside_stages": outside_ms,
+            "top_kernels": [{"name": n[:80], "ms": t, "count": c}
+                            for n, (t, c) in top]}
+
+
+def main() -> int:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    st = tm4_stimulus(BATCH, device="cuda")
+    iters: list = []
+
+    def run():
+        iters[:] = ue_dl_tm4_batch(st.samples, st.cfg, st.plan).iterations
+
+    out = {"card": card, "batch": BATCH, "ms_per_batch": call_ms(run),
+           "trace": trace(run), "turbo_iterations": iters}
+    print(json.dumps(out, indent=1))
+    path = pathlib.Path("chiprun_out") / "profile_main_path.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,35 @@
+"""Device selection and per-device constant tables.
+
+Every entry point that creates tensors takes ``device``: None means the
+CUDA card, and raises when there is none — the port never drops to the
+CPU unless the caller asks for it with ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """None -> the current CUDA device (raises without one); else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available: pass device='cpu' to run on "
+                "the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+_TABLES: dict = {}
+
+
+def device_table(key, device: torch.device, build):
+    """Host-built constant (numpy array from ``build()``) as a tensor on
+    ``device``, cached per (key, device) so static index tables cross the
+    host-device boundary once."""
+    k = (key, str(device))
+    t = _TABLES.get(k)
+    if t is None:
+        t = _TABLES[k] = torch.tensor(build(), device=device)
+    return t
