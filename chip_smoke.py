@@ -1,8 +1,13 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: builds the CUDA kernels, holds each
-against its plain PyTorch twin on the card, then drives the main path —
-the no-genie 20 MHz 2x2 TM4 two-codeword UE downlink receiver — on a
-batch of 256 subframes and checks what it decodes.
+against its plain PyTorch twin on the card, then drives the port's paths
+on a batch of 256 subframes each and checks what they decode:
+
+* the no-genie 20 MHz 2x2 TM4 two-codeword UE downlink receiver
+  (NII turbo kernel, Viterbi kernel);
+* the 20 MHz eNB PUSCH receiver with UCI (windowed turbo kernel, Viterbi
+  kernel for the CQI), at a high and at a mid SNR;
+* the recursion-rate probe tool (its own kernel).
 
     python3 chip_smoke.py
 
@@ -32,16 +37,34 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 33.5e12
 
 BATCH = 256
+#: the uplink path's noise per grid RE: high SNR, and a mid SNR at which
+#: the early stop iterates (bench.py MIDSNR_N0["20ul"])
+UL_N0, UL_N0_MID = 1e-3, 0.045
 #: float32 adds/subs/maxes per trellis step and window in the NII kernel,
 #: counted from csrc/turbo_nii.cu: backward step 2 gamma + 2 scale
 #: + 1 apr add + 16 adds + 8 maxes + 1 (renorm share) = 30; forward step
 #: 2 + 2 + 1 + 16 (branch) + 16 (totals) + 14 maxes + 2 (ext) + 8 maxes
 #: + 1 (renorm share) = 62
 NII_OPS_PER_STEP = 92
+#: float32 operations per step and window in the windowed kernel, counted
+#: from csrc/turbo_win.cu: every step of either sweep 2 (halving) + 2
+#: (gammas) + 16 adds + 8 maxes = 28; each emit step adds 16 adds + 14
+#: maxes + 1 sub = 31; each 8-step group of either sweep renormalizes
+#: with 7 maxes + 8 subs = 15
+WIN_OPS_STEP, WIN_OPS_EMIT, WIN_OPS_RENORM = 28, 31, 15
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """Least time for the work: bytes over the HBM rate or float32
+    operations over the non-FMA rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -77,7 +100,8 @@ def phase_build():
     from empower_srslte_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    took = cuda_build.build(["turbo_nii", "viterbi37"])
+    took = cuda_build.build(["turbo_nii", "viterbi37", "turbo_win",
+                             "recursion_probe"])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = {}
     for name, log in cuda_build.BUILD_LOGS.items():
@@ -126,8 +150,6 @@ def turbo_kernel_check():
     # compulsory traffic: u, p, apr, tails, a_st, b_st in; ext, a/b out
     nbytes = 4 * (4 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b)
     ops = NII_OPS_PER_STEP * k * b
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
 
     # full decode: 64 CRC24B-protected code blocks in AWGN
     nb = 64
@@ -153,13 +175,14 @@ def turbo_kernel_check():
           "plain_ms": plain_ms, "decode_cbs": nb, "decode_iterations": it_k,
           "decode_bit_errors": n_err, "hard_bits_equal": True})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                **bound(nbytes, ops))
 
 
-def viterbi_kernel_check(n_cand: int):
-    """Both DCI sizes of the main path's blind search (K=55 and K=44,
-    ``BATCH * n_cand`` words each) against the plain twin."""
+def viterbi_kernel_check(phase: str, sizes, seed: int):
+    """The Viterbi kernel against its plain twin on noisy codewords, for
+    each (K, words) in ``sizes``: 0 mismatched bits. The downlink's blind
+    search decodes K=55 and K=44; the uplink's CQI decode K=38, where the
+    training halo is clamped to K."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.convcoder import (
@@ -168,12 +191,11 @@ def viterbi_kernel_check(n_cand: int):
         viterbi_decode_cuda, viterbi_regs_cuda)
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-    words = BATCH * n_cand
+    g = torch.Generator(device=dev).manual_seed(seed)
     ms = plain_ms = err = 0.0
     nbytes = ops = 0
     mism = 0
-    for k in (55, 44):
+    for k, words in sizes:
         u = torch.randint(0, 2, (words, k), generator=g, device=dev)
         d = conv_encode(u).to(torch.float32)
         llr = (1.0 - 2.0 * d
@@ -194,15 +216,10 @@ def viterbi_kernel_check(n_cand: int):
         # on the K middle steps, 1 (select) on the flush halo
         ops += words * (steps * (64 * 5 + 8) + 64 * n_regs * (4 * k + halo))
     assert mism == 0, f"Viterbi kernel decisions differ in {mism} bits"
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    emit({"phase": "kernel_viterbi", "words_per_size": words,
-          "ks": [55, 44], "mismatched_bits": mism, "ms": ms,
-          "plain_ms": plain_ms})
+    emit({"phase": phase, "sizes": [list(s) for s in sizes],
+          "mismatched_bits": mism, "ms": ms, "plain_ms": plain_ms})
     return dict(max_abs_err=err, mismatched_bits=mism, ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                plain_ms=plain_ms, **bound(nbytes, ops))
 
 
 def phase_main_path():
@@ -264,6 +281,213 @@ def phase_main_path():
     return launches
 
 
+def turbo_win_kernel_check():
+    """One map_decode_win call at the uplink path's geometry (256 x 7
+    code blocks of K=5824, window 224, overlap 40) against the plain
+    twin, then one full windowed decode of 64 code blocks near threshold
+    where hard bits and iteration counts must be equal."""
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.models.sch import _pick_window
+    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
+    from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
+    from empower_srslte_tpu_torch.ops.fec.turbo_win import (
+        DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain)
+    from empower_srslte_tpu_torch.utils.crc import CRC24B
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    k, b, o = 5824, BATCH * 7, DEFAULT_OVERLAP
+    l = _pick_window(k)
+    w = k // l
+    lsa = torch.randn(k + 3, b, generator=g, device=dev) * 4.0
+    lp = torch.randn(k + 3, b, generator=g, device=dev) * 4.0
+    kw = dict(k=k, l=l, o=o)
+    got = map_decode_win(lsa, lp, **kw)
+    ref = map_decode_win_plain(lsa, lp, **kw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / (1.0 + ref.abs())).max())
+    # same float32 operations in the same order on both sides
+    assert rel <= 1e-5, f"windowed kernel vs plain twin: rel err {rel}"
+    ms = cuda_ms(lambda: map_decode_win(lsa, lp, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: map_decode_win_plain(lsa, lp, **kw), reps=1)
+    # compulsory traffic: lsa, lp in; llr out
+    nbytes = 4 * (2 * (k + 3) + k) * b
+    ops = w * b * ((l + o) * 2 * WIN_OPS_STEP + l * WIN_OPS_EMIT
+                   + 2 * ((l + o) // 8) * WIN_OPS_RENORM)
+
+    nb = 64
+    rng = np.random.default_rng(5)
+    payload = torch.as_tensor(rng.integers(0, 2, (nb, k - 24)), device=dev)
+    u = torch.cat([payload, CRC24B.compute(payload)], -1).to(torch.int8)
+    d = turbo_encode(u).to(torch.float32)
+    n0 = 3.0 / 10 ** (0.9 / 10)
+    y = 1.0 - 2.0 * d + (n0 / 2) ** 0.5 * torch.randn(d.shape, generator=g,
+                                                       device=dev)
+    llr = 4.0 / n0 * y
+    dec = TurboDecoder(k=k, iterations=8, window=l, impl="windowed")
+    it_k, it_p = [], []
+    bits_k, _ = dec.decode(llr, crc=CRC24B, iters_out=it_k)
+    bits_p, _ = dec.decode(llr, crc=CRC24B, iters_out=it_p,
+                           map_decode=map_decode_win_plain)
+    assert torch.equal(bits_k, bits_p), "windowed hard bits differ from twin"
+    assert it_k == it_p, (it_k, it_p)
+    emit({"phase": "kernel_turbo_win", "cbs": b, "k": k, "window": l,
+          "overlap": o, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+          "plain_ms": plain_ms, "decode_cbs": nb, "decode_iterations": it_k,
+          "decode_bit_errors": int((bits_k != u).sum()),
+          "hard_bits_equal": True})
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **bound(nbytes, ops))
+
+
+def recursion_kernel_check():
+    """The probe kernel against its twin, bit for bit after 64 steps for
+    each type; then the tool's own entry point at 4096 steps, which is
+    the path its launch count is read from."""
+    import torch
+
+    from empower_srslte_tpu_torch.tools import microbench_recursion as mr
+
+    mism = {}
+    err = 0.0
+    for name, *_ in mr.TYPES:
+        x = mr.probe_input(name, mr.DEFAULT_LANES, "cuda", seed=3)
+        got = mr.recursion_probe(x, 64)
+        ref = mr.recursion_plain(x, 64)
+        torch.cuda.synchronize()
+        mism[name] = int((got != ref).sum())
+        err = max(err, float((got.float() - ref.float()).abs().max()))
+    assert not any(mism.values()), f"recursion probe differs: {mism}"
+    x = mr.probe_input("f32", mr.DEFAULT_LANES, "cuda")
+    steps = mr.DEFAULT_STEPS
+    plain_ms = cuda_ms(lambda: mr.recursion_plain(x, steps), reps=1)
+    mr.LAUNCHES = 0
+    rates = mr.run(steps)
+    launches = mr.LAUNCHES
+    f32 = rates[0]
+    emit({"phase": "kernel_recursion", "mismatched": mism,
+          "rates": rates, "launches": launches, "plain_ms": plain_ms})
+    assert launches > 0
+    return launches, dict(max_abs_err=err, ms=f32["ms"], plain_ms=plain_ms,
+                          **bound(2 * x.numel() * 4, f32["ops"]))
+
+
+def run_uplink(st, n0: float):
+    """One receiver call on the stimulus: grid, then PUSCH + UCI decode."""
+    from empower_srslte_tpu_torch.models.pusch import pusch_decode_uci
+    from empower_srslte_tpu_torch.models.ue_ul import enb_ul_receive_grid
+
+    its: list = []
+    out = pusch_decode_uci(enb_ul_receive_grid(st.samples, st.cfg.cell),
+                           st.cfg, st.plan, noise_est=n0, iters_out=its)
+    return out, its
+
+
+def uci_errors(out, plan) -> dict:
+    import torch
+
+    uci = plan.uci
+    sent = torch.as_tensor(uci.cqi_bits, device=out["cqi_bits"].device)
+    return {"ack": sum(int((a != v).sum()) for a, v in zip(out["ack"],
+                                                           uci.ack)),
+            "ri": int((out["ri"] != uci.ri).sum()),
+            "cqi": int((out["cqi_bits"] != sent).any(-1).sum()),
+            "cqi_crc_fail": int((~out["cqi_ok"]).sum())}
+
+
+def phase_uplink():
+    """The uplink path: UE PUSCH+UCI transmitter (plain PyTorch) ->
+    channel + AWGN -> eNB receiver, 256 subframes at n0 = UL_N0."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.ue_ul import ul_uci_stimulus
+    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
+        viterbi37
+
+    t0 = time.perf_counter()
+    st = ul_uci_stimulus(BATCH, UL_N0, device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    run_uplink(st, UL_N0)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    turbo_nii.LAUNCHES = turbo_win.LAUNCHES = viterbi37.LAUNCHES = 0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out, its = run_uplink(st, UL_N0)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = {"turbo_win": turbo_win.LAUNCHES,
+                "viterbi37": viterbi37.LAUNCHES,
+                "turbo_nii": turbo_nii.LAUNCHES}
+    ms_first = e0.elapsed_time(e1)
+    errs = uci_errors(out, st.plan)
+    checks = {
+        "crc_ok": bool(out["crc_ok"].all()),
+        "bits_equal": bool(torch.equal(out["tb"], st.tb)),
+        "ack_equal": errs["ack"] == 0, "ri_equal": errs["ri"] == 0,
+        "cqi_equal": errs["cqi"] == 0, "cqi_crc_ok": errs["cqi_crc_fail"] == 0,
+        "turbo_win_2_per_iteration": launches["turbo_win"] == 2 * sum(its),
+        "viterbi_launched": launches["viterbi37"] > 0,
+        "no_nii_launch": launches["turbo_nii"] == 0,
+    }
+    # the CQI decode's Viterbi shape: one word of O + 8 bits per subframe
+    vit = viterbi_kernel_check(
+        "kernel_viterbi_uplink", [(len(st.plan.uci.cqi_bits) + 8, BATCH)],
+        seed=7)
+    reps = 3
+    e0.record()
+    for _ in range(reps):
+        run_uplink(st, UL_N0)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / reps
+    tbs = st.plan.tbs
+    emit({"phase": "uplink_path", "batch": BATCH, "nof_prb": 100,
+          "n_prb": st.cfg.n_prb, "mcs": 20, "tbs": tbs, "n0": UL_N0,
+          "q_cqi": st.plan.q_cqi, "q_ri": st.plan.q_ri,
+          "q_ack": st.plan.q_ack, "tx_s": round(tx_s, 3),
+          "ms_per_batch": ms, "ms_counted_run": ms_first,
+          "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": its, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    assert not failed, f"uplink path checks failed: {failed}"
+    return launches, vit
+
+
+def phase_uplink_midsnr():
+    """The uplink path at a mid SNR, where the early stop iterates.
+    UCI errors are reported, not gated (its codes may fail here)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.ue_ul import ul_uci_stimulus
+
+    st = ul_uci_stimulus(BATCH, UL_N0_MID, device="cuda")
+    run_uplink(st, UL_N0_MID)                              # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out, its = run_uplink(st, UL_N0_MID)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    bler = 1.0 - float(out["crc_ok"].float().mean())
+    good = int(out["crc_ok"].sum())
+    emit({"phase": "uplink_midsnr", "batch": BATCH, "n0": UL_N0_MID,
+          "ms_per_batch": ms, "bler": bler,
+          "mbps_decoded": good * st.plan.tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": its, "uci_errors": uci_errors(out, st.plan)})
+    assert its[0] > 1, f"mid-SNR run did not iterate: {its}"
+    assert bler <= 0.5, f"mid-SNR BLER {bler}"
+
+
 def n_candidates() -> int:
     """Blind-search candidates of the main path (20 MHz, cfi 1, sf 1,
     RNTI 0x1234): the Viterbi batch is BATCH x this many words."""
@@ -286,8 +510,14 @@ def main() -> int:
     phase_device()
     phase_build()
     turbo = turbo_kernel_check()
-    vit = viterbi_kernel_check(n_candidates())
+    words = BATCH * n_candidates()
+    vit = viterbi_kernel_check("kernel_viterbi", [(55, words), (44, words)],
+                               seed=3)
+    win = turbo_win_kernel_check()
+    rec_launches, rec = recursion_kernel_check()
     launches = phase_main_path()
+    ul_launches, vit_ul = phase_uplink()
+    phase_uplink_midsnr()
     emit({"kernels": [
         {"name": "turbo_nii", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/turbo_nii.cu",
@@ -296,7 +526,16 @@ def main() -> int:
         {"name": "viterbi37", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/viterbi37.cu",
          "replaces": "empower_srslte_tpu/ops/fec/viterbi_pallas.py:146",
-         "launches": launches["viterbi37"], **vit, "library_ms": None},
+         "launches": launches["viterbi37"], **vit, "library_ms": None,
+         "uplink": {"launches": ul_launches["viterbi37"], **vit_ul}},
+        {"name": "turbo_win", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/turbo_win.cu",
+         "replaces": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas.py:196",
+         "launches": ul_launches["turbo_win"], **win, "library_ms": None},
+        {"name": "recursion_probe", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",
+         "replaces": "tools/microbench_vpu.py:55",
+         "launches": rec_launches, **rec, "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,9 @@ class DlschPlan:
     #: iterate only until every CB passes its CRC (sch.c:382 early stop,
     #: batched); False = fixed max_iterations
     early_stop: bool = True
+    #: turbo constituent decoder: "nii" (ops/fec/turbo_nii.py) or
+    #: "windowed" (ops/fec/turbo_win.py); see ``TurboDecoder.impl``
+    decoder_impl: str = "nii"
 
     @functools.cached_property
     def segm(self) -> CbSegm:
@@ -88,7 +91,7 @@ class DlschPlan:
 
     def decoder(self, k: int) -> TurboDecoder:
         return TurboDecoder(k=k, iterations=self.max_iterations,
-                            window=_pick_window(k))
+                            window=_pick_window(k), impl=self.decoder_impl)
 
 
 def dlsch_encode(tb_bits: torch.Tensor, plan: DlschPlan) -> torch.Tensor:

@@ -1,17 +1,26 @@
-"""Batched iterative turbo decoder over the NII constituent kernel.
+"""Batched iterative turbo decoder over the hand-written constituent kernels.
 
 Capability parity with lib/src/phy/fec/turbodecoder*.c: max-log-MAP with a
 beta backward sweep then an alpha+LLR forward sweep, windowed, with
 renormalization, and the CRC early stop between iterations (sch.c:382).
 
-Counterpart of the JAX package's ``TurboDecoder`` NII path
-(empower_srslte_tpu/ops/fec/turbo_decoder.py:319-506): the unit of work
-is a batch of equal-size code blocks ``[..., 3, K+4]``; the trellis is cut
-into K/l windows decoded in parallel, each initialized from its
-neighbours' boundary metrics of the previous half-iteration (NII,
-ops/fec/turbo_nii.py). Extrinsics move between the two constituents
-through the QPP (de)interleaver as row gathers of time-major [K, B]
-arrays. Metrics are float32.
+Counterpart of the JAX package's ``TurboDecoder``
+(empower_srslte_tpu/ops/fec/turbo_decoder.py:293-639): the unit of work
+is a batch of equal-size code blocks ``[..., 3, K+4]`` whose trellis is
+cut into K/l windows decoded in parallel. Two constituent decoders:
+
+* ``impl="nii"`` (the JAX ``"pallas2"`` path, :319-506): each window is
+  initialized from its neighbours' boundary metrics of the previous
+  half-iteration (NII, ops/fec/turbo_nii.py); iterations run in
+  ``decode_tm``.
+* ``impl="windowed"`` (the JAX ``"pallas"`` path, :539-639): each window
+  trains over ``overlap`` steps on either side (srsLTE's
+  turbodecoder_win.h, ops/fec/turbo_win.py); iterations run in
+  ``decode_win``.
+
+Extrinsics move between the two constituents through the QPP
+(de)interleaver as row gathers of time-major [K, B] arrays. Metrics are
+float32.
 
 LLR convention: positive LLR <=> bit 0.
 """
@@ -26,6 +35,7 @@ import torch
 from ...utils.device import device_table
 from .tables import qpp_deinterleaver, qpp_interleaver
 from .turbo_nii import map_decode_nii
+from .turbo_win import DEFAULT_OVERLAP, map_decode_win
 
 
 def _perm(name: str, k: int, device):
@@ -49,12 +59,21 @@ class TurboDecoder:
     """Iterative turbo decoder for one CB size K.
 
     ``window``: trellis window length l (K % l == 0); None decodes the
-    whole trellis as one window.
+    whole trellis as one window (NII only: the windowed decoder raises
+    ``NotImplementedError`` there, where the JAX package falls back to
+    its XLA full sweep). ``impl``: ``"nii"`` or ``"windowed"``;
+    ``overlap``: the windowed decoder's training length.
     """
 
     k: int
     iterations: int = 5
     window: int | None = None
+    impl: str = "nii"
+    overlap: int = DEFAULT_OVERLAP
+
+    def __post_init__(self):
+        if self.impl not in ("nii", "windowed"):
+            raise ValueError(f"impl {self.impl!r}: 'nii' or 'windowed'")
 
     def _split_streams(self, d_llr):
         """d_llr[..., 3, K+4] -> per-constituent (sys1, par1, sys2_tail,
@@ -121,12 +140,59 @@ class TurboDecoder:
             ext2 = ext2i[pinv]
         return llr_int, n_it
 
+    def decode_win(self, sys1, par1, sys2_tail, par2, *, crc=None,
+                   map_decode=map_decode_win):
+        """Windowed-overlap iteration loop on time-major arrays (the JAX
+        package's v1 loop, turbo_decoder.py:558-635).
+
+        sys1/par1/par2 [K+3, B] (payload plus termination rows),
+        sys2_tail [3, B]. Per iteration: ``lsa1 = sys + ext2``,
+        ``ext1 = map(lsa1, par1) - lsa1``; ``lsa2 = (sys + ext1)[pi]``,
+        ``ext2 = (map(lsa2, par2) - lsa2)[pinv]``. With ``crc`` iterate
+        until every code block's natural-order hard bits pass (one host
+        read per iteration) or ``iterations`` is reached.
+
+        Returns (llr [K, B] natural-order a-posteriori LLRs, n_iterations).
+        """
+        k = self.k
+        if self.window is None:
+            raise NotImplementedError(
+                f"K={k} has no turbo window: the full-trellis sweep of the "
+                "windowed decoder is not ported")
+        dev = sys1.device
+        pi = _perm("pi", k, dev)
+        pinv = _perm("pinv", k, dev)
+        run = lambda lsa_pay, tail, par: map_decode(
+            torch.cat([lsa_pay, tail]), par, k=k, l=self.window,
+            o=self.overlap)
+        h = None if crc is None else crc.parity_tensor(k, dev).t()
+        sys_pay = sys1[:k]
+        ext2 = torch.zeros_like(sys_pay)
+        n_it = 0
+        while True:
+            lsa1 = sys_pay + ext2
+            ext1 = run(lsa1, sys1[k:], par1) - lsa1
+            lsa2 = (sys_pay + ext1)[pi]
+            llr2 = run(lsa2, sys2_tail, par2)
+            n_it += 1
+            ext2 = (llr2 - lsa2)[pinv]
+            llr = llr2[pinv]
+            if n_it >= self.iterations:
+                break
+            if h is not None:
+                bits = (llr < 0).to(torch.float32)
+                snd = torch.remainder(torch.mm(h, bits), 2.0)
+                if not bool(torch.any(snd != 0.0)):
+                    break
+        return llr, n_it
+
     def decode(self, d_llr, crc=None, iters_out: list | None = None,
-               map_decode=map_decode_nii):
+               map_decode=None):
         """Decode d_llr[..., 3, K+4] -> (bits[..., K] int8, llr[..., K]).
 
         Leading dims are batch. ``iters_out`` (a list) receives the
-        iteration count.
+        iteration count. ``map_decode`` replaces the constituent kernel
+        wrapper of ``impl`` (with its plain twin, to compare the two).
         """
         k = self.k
         d_llr = d_llr.to(torch.float32)
@@ -135,10 +201,17 @@ class TurboDecoder:
         b = int(np.prod(lead)) if lead else 1
         tm = lambda x: x.reshape(b, x.shape[-1]).t().contiguous()
         sys1_tm, par1_tm, par2_tm = tm(sys1), tm(par1), tm(par2)
-        llr_int, n_it = self.decode_tm(
-            sys1_tm[:k], par1_tm[:k], par2_tm[:k], sys1_tm[k:], par1_tm[k:],
-            tm(sys2_tail), par2_tm[k:], crc=crc, map_decode=map_decode)
+        if self.impl == "windowed":
+            llr, n_it = self.decode_win(
+                sys1_tm, par1_tm, tm(sys2_tail), par2_tm, crc=crc,
+                map_decode=map_decode or map_decode_win)
+        else:
+            llr_int, n_it = self.decode_tm(
+                sys1_tm[:k], par1_tm[:k], par2_tm[:k], sys1_tm[k:],
+                par1_tm[k:], tm(sys2_tail), par2_tm[k:], crc=crc,
+                map_decode=map_decode or map_decode_nii)
+            llr = llr_int[_perm("pinv", k, d_llr.device)]
         if iters_out is not None:
             iters_out.append(n_it)
-        llr = llr_int[_perm("pinv", k, d_llr.device)].t().reshape(*lead, k)
+        llr = llr.t().reshape(*lead, k)
         return (llr < 0).to(torch.int8), llr

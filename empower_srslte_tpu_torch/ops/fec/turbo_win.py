@@ -1,0 +1,173 @@
+"""Windowed-overlap max-log-MAP constituent decoder: CUDA kernel and twin.
+
+Counterpart of the JAX package's Pallas kernel ``map_decode_fused`` (body
+``_half_iter_kernel``, empower_srslte_tpu/ops/fec/turbo_decoder_pallas.py:
+62-235), the windowed scheme of srsLTE's turbodecoder_win.h: one call is
+one constituent decode. The K payload steps are cut into W = K/L windows,
+all decoded in parallel. Each window trains its alpha recursion over the O
+steps before it and its beta recursion over the O steps after it, starting
+from uniform metrics; window 0's alpha and the last window's beta start
+from the exact boundary metric {0, -1e30 x 7}. Trellis rows outside
+[0, K+3) are padding: the systematic/a-priori rows read as ``PAD_LLR``
+and the parity rows as 0, so the exact boundary metric survives the
+padded steps (turbo_decoder.py:136-144 of the JAX package).
+
+Arithmetic copied from the JAX kernel, for bit parity: real rows are
+halved at load (the JAX decoder halves before padding; x0.5 is exact),
+gammas are g00 = ls + lp, g01 = ls - lp, g10 = -g01, g11 = -g00; both
+sweeps renormalize once per 8-step group by the 8-state maximum; the beta
+sweep stores the carry that enters each step (only the first of each
+group is normalized); the alpha sweep emits
+``llr = max_s(a_s + g(0) + b_ns0) - max_s(a_s + g(1) + b_ns1)``
+after its O training steps.
+
+Layout is time-major: ``lsa``, ``lp`` [K+3, B] float32 full-scale
+(payload plus the 3 termination rows), code blocks minor; the output is
+the full-scale a-posteriori ``llr`` [K, B].
+
+On a CUDA tensor ``map_decode_win`` launches ``csrc/turbo_win.cu``; on a
+CPU tensor it runs ``map_decode_win_plain``, the same recursion in torch
+vectorized over (window, code block).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ...utils.device import device_table
+from .turbo_encoder import trellis
+
+NEG = -1e30
+#: steps per renormalization (the JAX kernel's GROUP)
+GROUP = 8
+#: systematic LLR of the padding rows, in the pre-halved domain
+PAD_LLR = 1e5
+#: overlap training length (turbodecoder_win.h win_overlap_len)
+DEFAULT_OVERLAP = 40
+
+#: kernel launches made by ``map_decode_win`` (read by chip_smoke.py)
+LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _wiring_np():
+    t = trellis()
+    ns, par, ps = t.next_state, t.parity, t.prev_state
+    # gamma slot per (state, input): g[(0, p)] -> p, g[(1, p)] -> 2 + p
+    return (ns[:, 0].astype(np.int64), ns[:, 1].astype(np.int64),
+            par[:, 0].astype(np.int64), 2 + par[:, 1].astype(np.int64),
+            ps[:, 0].astype(np.int64), ps[:, 1].astype(np.int64))
+
+
+def _check(lsa, lp, k: int, l: int, o: int) -> int:
+    if k % l or l % GROUP or o % GROUP or not 3 <= o <= l:
+        raise ValueError(f"K={k}, window {l}, overlap {o}: need K % L == 0 "
+                         f"and L, O multiples of {GROUP} with 3 <= O <= L")
+    for name, x in (("lsa", lsa), ("lp", lp)):
+        if tuple(x.shape) != (k + 3, lsa.shape[1]):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, "
+                             f"want ({k + 3}, B)")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {x.dtype}, want float32")
+        if x.device != lsa.device:
+            raise ValueError(f"{name} is on {x.device}, lsa on {lsa.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return lsa.shape[1]
+
+
+def _window_rows(x, pad: float, k: int, l: int, o: int):
+    """[K+3, B] full-scale -> halved, padded rows per window
+    [L+2O, W*B] (row r of window w is trellis row w*L - O + r)."""
+    b = x.shape[1]
+    w = k // l
+    lead = x.new_full((o, b), pad)
+    trail = x.new_full((o - 3, b), pad)
+    pd = torch.cat([lead, x * 0.5, trail])                 # [K+2O, B]
+    idx = device_table(("win_rows", k, l, o), x.device, lambda: (
+        np.arange(w)[None, :] * l + np.arange(l + 2 * o)[:, None]))
+    return pd[idx].reshape(l + 2 * o, w * b)
+
+
+def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
+    """Plain torch twin of the windowed kernel (see the module docstring)."""
+    b = _check(lsa, lp, k, l, o)
+    w = k // l
+    n = w * b
+    dev = lsa.device
+    ns0, ns1, gi0, gi1, ps0, ps1 = [
+        device_table(("win_wiring", i), dev, lambda a=a: a)
+        for i, a in enumerate(_wiring_np())]
+    ls = _window_rows(lsa, PAD_LLR, k, l, o)
+    lq = _window_rows(lp, 0.0, k, l, o)
+
+    def gammas(r):
+        g00 = ls[r] + lq[r]
+        g01 = ls[r] - lq[r]
+        return torch.stack([g00, g01, -g01, -g00])
+
+    def edge(first: bool):
+        m = torch.zeros((8, w, b), dtype=torch.float32, device=dev)
+        m[1:, 0 if first else w - 1] = NEG
+        return m.reshape(8, n)
+
+    beta = edge(False)
+    betas = torch.empty((l, 8, n), dtype=torch.float32, device=dev)
+    for i in range(l + o - 1, -1, -1):
+        g = gammas(o + i)
+        if i < l:
+            betas[i] = beta
+        beta = torch.maximum(beta[ns0] + g[gi0], beta[ns1] + g[gi1])
+        if i % GROUP == 0:
+            beta = beta - torch.amax(beta, 0)
+
+    alpha = edge(True)
+    llr = torch.empty((l, n), dtype=torch.float32, device=dev)
+    for i in range(l + o):
+        g = gammas(i)
+        br0 = alpha + g[gi0]
+        br1 = alpha + g[gi1]
+        if i >= o:
+            bk1 = betas[i - o]
+            llr[i - o] = (torch.amax(br0 + bk1[ns0], 0)
+                          - torch.amax(br1 + bk1[ns1], 0))
+        alpha = torch.maximum(br0[ps0], br1[ps1])
+        if i % GROUP == GROUP - 1:
+            alpha = alpha - torch.amax(alpha, 0)
+    return llr.view(l, w, b).transpose(0, 1).reshape(k, b)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    from ...utils.cuda_build import load
+
+    fn = load("turbo_win").turbo_win_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
+    """One windowed constituent decode: lsa, lp [K+3, B] -> llr [K, B]
+    (see the module docstring)."""
+    global LAUNCHES
+    if not lsa.is_cuda:
+        return map_decode_win_plain(lsa, lp, k=k, l=l, o=o)
+    b = _check(lsa, lp, k, l, o)
+    w = k // l
+    llr = torch.empty((k, b), dtype=torch.float32, device=lsa.device)
+    # stored betas of every window: [L, 8, W*B] float32
+    scratch = torch.empty((l, 8, w * b), dtype=torch.float32,
+                          device=lsa.device)
+    rc = _lib()(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
+                scratch.data_ptr(), b, k, l, o,
+                torch.cuda.current_stream(lsa.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"turbo_win kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return llr

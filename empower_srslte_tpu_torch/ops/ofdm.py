@@ -1,4 +1,5 @@
-"""Batched OFDM modulation/demodulation with cyclic prefix.
+"""Batched OFDM modulation/demodulation with cyclic prefix, and the
+uplink half-subcarrier shift.
 
 Capability parity with lib/src/phy/dft/ofdm.c (srslte_ofdm_rx_sf /
 srslte_ofdm_tx_sf): per-symbol FFTs with the unequal first-symbol CP and
@@ -73,3 +74,15 @@ def ofdm_tx_sf(grid: torch.Tensor, cell: Cell) -> torch.Tensor:
         pieces.append(s[..., fft - cp_len:])
         pieces.append(s)
     return torch.cat(pieces, dim=-1)
+
+
+def freq_shift_half_subcarrier(samples: torch.Tensor, cell: Cell,
+                               direction: int = 1) -> torch.Tensor:
+    """Multiply by exp(j*2*pi*0.5*n/fft): the UL half-subcarrier shift
+    (ofdm.c:363-381). direction=+1 TX, -1 RX."""
+    n = samples.shape[-1]
+    ph = device_table(
+        ("half_sc", cell.fft_size, n, direction), samples.device,
+        lambda: np.exp(direction * 2j * np.pi * 0.5 * np.arange(n)
+                       / cell.fft_size).astype(np.complex64))
+    return samples * ph

@@ -1,25 +1,31 @@
-"""Where the main path's time goes on the card.
+"""Where a path's time goes on the card.
 
-    python3 -m empower_srslte_tpu_torch.profile_main_path
+    python3 -m empower_srslte_tpu_torch.profile_main_path [--path uplink]
 
-Builds the 20 MHz 2x2 TM4 stimulus (models/enb_dl.py tm4_stimulus) at the
-main path's batch of 256 subframes, then
+``--path downlink`` (the default) builds the 20 MHz 2x2 TM4 stimulus
+(models/enb_dl.py tm4_stimulus) and profiles ``ue_dl_tm4_batch``;
+``--path uplink`` builds the 20 MHz PUSCH+UCI stimulus at n0 1e-3
+(models/ue_ul.py ul_uci_stimulus) and profiles the eNB receiver
+(``enb_ul_receive_grid`` + ``pusch_decode_uci``). Both at a batch of 256
+subframes:
 
-1. times ``ue_dl_tm4_batch`` with CUDA events (mean of 3 calls after a
+1. times the receiver with CUDA events (mean of 3 calls after a
    warm-up);
 2. traces one more call with ``torch.profiler`` and reads, for each of
    the receiver's ``record_function`` ranges (``ue_dl.*``, ``pdsch.*``,
-   ``dlsch.*``), its host time and the device time of the kernels
-   launched in it (and the device time launched outside every range);
-   plus device time by kernel name, the kernel count and the device's
-   idle share of the traced call's wall time.
+   ``enb_ul.*``, ``pusch.*``, ``uci.*``, ``dlsch.*``), its host time and
+   the device time of the kernels launched in it (and the device time
+   launched outside every range); plus device time by kernel name, the
+   kernel count and the device's idle share of the traced call's wall
+   time.
 
-Prints one JSON object and writes it to chiprun_out/profile_main_path.json.
-Needs a CUDA card.
+Prints one JSON object and writes it to
+chiprun_out/profile_<path>.json. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import subprocess
@@ -27,11 +33,8 @@ import time
 
 import torch
 
-from .models.enb_dl import tm4_stimulus
-from .models.ue_dl import ue_dl_tm4_batch
-
 BATCH = 256
-RANGE_PREFIXES = ("ue_dl.", "pdsch.", "dlsch.")
+RANGE_PREFIXES = ("ue_dl.", "pdsch.", "enb_ul.", "pusch.", "uci.", "dlsch.")
 
 
 def call_ms(run, reps: int = 3) -> float:
@@ -95,23 +98,51 @@ def trace(run) -> dict:
                             for n, (t, c) in top]}
 
 
-def main() -> int:
+def receiver(path: str):
+    """The path's receiver call on its stimulus; it records the turbo
+    iteration counts into the returned list."""
+    iters: list = []
+    if path == "downlink":
+        from .models.enb_dl import tm4_stimulus
+        from .models.ue_dl import ue_dl_tm4_batch
+
+        st = tm4_stimulus(BATCH, device="cuda")
+
+        def run():
+            iters[:] = ue_dl_tm4_batch(st.samples, st.cfg,
+                                       st.plan).iterations
+    else:
+        from .models.pusch import pusch_decode_uci
+        from .models.ue_ul import enb_ul_receive_grid, ul_uci_stimulus
+
+        n0 = 1e-3
+        st = ul_uci_stimulus(BATCH, n0, device="cuda")
+
+        def run():
+            iters.clear()
+            pusch_decode_uci(enb_ul_receive_grid(st.samples, st.cfg.cell),
+                             st.cfg, st.plan, noise_est=n0, iters_out=iters)
+    return run, iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("downlink", "uplink"),
+                    default="downlink")
+    path = ap.parse_args(argv).path
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    st = tm4_stimulus(BATCH, device="cuda")
-    iters: list = []
-
-    def run():
-        iters[:] = ue_dl_tm4_batch(st.samples, st.cfg, st.plan).iterations
-
-    out = {"card": card, "batch": BATCH, "ms_per_batch": call_ms(run),
-           "trace": trace(run), "turbo_iterations": iters}
+    run, iters = receiver(path)
+    out = {"card": card, "path": path, "batch": BATCH,
+           "ms_per_batch": call_ms(run), "trace": trace(run),
+           "turbo_iterations": iters}
     print(json.dumps(out, indent=1))
-    path = pathlib.Path("chiprun_out") / "profile_main_path.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(json.dumps(out, indent=1))
+    name = "main_path" if path == "downlink" else path
+    out_file = pathlib.Path("chiprun_out") / f"profile_{name}.json"
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    out_file.write_text(json.dumps(out, indent=1))
     return 0
 
 
