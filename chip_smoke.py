@@ -9,7 +9,13 @@ on a batch of 256 subframes each and checks what they decode:
   kernel for the CQI), at a high and at a mid SNR;
 * the recursion-rate probe tool (its own kernel).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline FILE]
+
+``--baseline FILE`` names a Python file that defines ``map_decode_nii``
+and ``map_decode_win`` with the wrappers' signatures (another design of
+the two turbo kernels) and ``PTXAS`` (its ptxas log per kernel name): the
+turbo checks then time it and the port's kernel in turns (baseline, port,
+port, baseline) and put both on their phase lines.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
 one JSON line per phase, the card's name and power limit as nvidia-smi
@@ -40,18 +46,23 @@ BATCH = 256
 #: the uplink path's noise per grid RE: high SNR, and a mid SNR at which
 #: the early stop iterates (bench.py MIDSNR_N0["20ul"])
 UL_N0, UL_N0_MID = 1e-3, 0.045
-#: float32 adds/subs/maxes per trellis step and window in the NII kernel,
-#: counted from csrc/turbo_nii.cu: backward step 2 gamma + 2 scale
-#: + 1 apr add + 16 adds + 8 maxes + 1 (renorm share) = 30; forward step
-#: 2 + 2 + 1 + 16 (branch) + 16 (totals) + 14 maxes + 2 (ext) + 8 maxes
-#: + 1 (renorm share) = 62
+#: float32 adds/subs/maxes per trellis step and window of the NII
+#: algorithm: backward step 2 gamma + 2 scale + 1 apr add + 16 adds + 8
+#: maxes + 1 (renorm share) = 30; forward step 2 + 2 + 1 + 16 (branch)
+#: + 16 (totals) + 14 maxes + 2 (ext) + 8 maxes + 1 (renorm share) = 62.
+#: A bound counts the algorithm's work, whatever implements it: the
+#: kernel's recompute of the stored betas (~30 more per step) is not in it
 NII_OPS_PER_STEP = 92
-#: float32 operations per step and window in the windowed kernel, counted
-#: from csrc/turbo_win.cu: every step of either sweep 2 (halving) + 2
-#: (gammas) + 16 adds + 8 maxes = 28; each emit step adds 16 adds + 14
-#: maxes + 1 sub = 31; each 8-step group of either sweep renormalizes
-#: with 7 maxes + 8 subs = 15
+#: float32 operations per step and window of the windowed algorithm:
+#: every step of either sweep 2 (halving) + 2 (gammas) + 16 adds + 8 maxes
+#: = 28; each emit step adds 16 adds + 14 maxes + 1 sub = 31; each 8-step
+#: group of either sweep renormalizes with 7 maxes + 8 subs = 15. As for
+#: NII, the kernel's recompute is not counted
 WIN_OPS_STEP, WIN_OPS_EMIT, WIN_OPS_RENORM = 28, 31, 15
+#: ptxas report of each built kernel (phase_build), for the phase lines
+PTXAS: dict = {}
+#: the --baseline module, or None
+BASELINE = None
 
 
 def emit(obj):
@@ -82,6 +93,50 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def ptxas_summary(log: str) -> dict:
+    """{entry function: registers, static shared bytes, spill bytes} from
+    an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[fn].update(registers=int(m.group(1)),
+                           smem_static=int(sm.group(1)) if sm else 0)
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def paired_ms(new_fn, old_fn, reps: int) -> dict:
+    """The port's kernel timed alone, or beside a baseline in turns
+    (baseline, port, port, baseline) when one is given."""
+    if old_fn is None:
+        return {"ms": cuda_ms(new_fn, reps)}
+    o1 = cuda_ms(old_fn, reps)
+    n1 = cuda_ms(new_fn, reps)
+    n2 = cuda_ms(new_fn, reps)
+    o2 = cuda_ms(old_fn, reps)
+    return {"ms": (n1 + n2) / 2, "baseline_ms": (o1 + o2) / 2,
+            "turns_ms": [o1, n1, n2, o2]}
+
+
+def max_abs_err(got, ref) -> float:
+    if isinstance(got, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(got, ref))
+    return float((got - ref).abs().max())
+
+
 def phase_device():
     import torch
 
@@ -103,53 +158,74 @@ def phase_build():
     took = cuda_build.build(["turbo_nii", "viterbi37", "turbo_win",
                              "recursion_probe"])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = {}
     for name, log in cuda_build.BUILD_LOGS.items():
         (OUT_DIR / f"build_{name}.log").write_text(log)
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
+        PTXAS[name] = ptxas_summary(log)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source_s": {k: round(v, 3) for k, v in took.items()},
-          "ptxas": ptxas})
+          "ptxas": PTXAS})
 
 
 def turbo_kernel_check():
-    """One map_decode_nii call at the main path's geometry (5120 code
-    blocks of K=5760, l=240) against the plain twin, then one full
-    decode of 64 code blocks where the hard bits must be equal."""
+    """map_decode_nii against the plain twin, max abs error exactly 0, at
+    the geometries the kernel's code paths take: the main path's (5120
+    code blocks of K=5760, l=240, with apr), a ragged single window
+    (K=56, l=K, no apr: the top segment is 8 rows) and a trellis slice
+    with no edge (bounds (-1, -1)); then one full decode of 64 code
+    blocks where the hard bits and iteration counts must be equal."""
     import numpy as np
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
     from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
     from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
-        map_decode_nii, map_decode_nii_plain)
+        map_decode_nii, map_decode_nii_plain, nii_plan)
     from empower_srslte_tpu_torch.utils.crc import CRC24B
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
+    rn = lambda *s, sc=4.0: torch.randn(*s, generator=g, device=dev) * sc
+
+    def case(k, l, b, apr, bounds):
+        w = k // l
+        args = (rn(k, b), rn(k, b), rn(3, b), rn(3, b),
+                rn(w + 1, 8, b, sc=2.0), rn(w + 1, 8, b, sc=2.0))
+        kw = dict(l=l, apr=rn(k, b) if apr else None, bounds=bounds)
+        return args, kw
+
     k, l, b = 5760, 240, 2 * BATCH * 10
     w = k // l
-    rn = lambda *s, sc=4.0: torch.randn(*s, generator=g, device=dev) * sc
-    args = (rn(k, b), rn(k, b), rn(3, b), rn(3, b), rn(w + 1, 8, b, sc=2.0),
-            rn(w + 1, 8, b, sc=2.0))
-    apr = rn(k, b)
-    got = map_decode_nii(*args, l=l, apr=apr)
-    ref = map_decode_nii_plain(*args, l=l, apr=apr)
-    torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
-    rel = max(float(((x - y).abs() / (1.0 + y.abs())).max())
-              for x, y in zip(got, ref))
-    # same float32 operations in the same order on both sides: agreement
-    # to float32 rounding (rtol 1e-5 relative to 1 + |value|)
-    assert rel <= 1e-5, f"NII kernel vs plain twin: rel err {rel}"
+    geos = {"main": (k, l, b, True, None),
+            "ragged_single_window": (56, 56, b, False, None),
+            "no_edge": (k, l, 512, True, (-1, -1))}
+    errs = {}
+    for name, geo in geos.items():
+        args, kw = case(*geo)
+        got = map_decode_nii(*args, **kw)
+        ref = map_decode_nii_plain(*args, **kw)
+        torch.cuda.synchronize()
+        # the same float32 adds in the same order on both sides
+        errs[name] = max_abs_err(got, ref)
+        if name == "main":
+            main_args, main_kw, main_ref = args, kw, ref
+    assert not any(errs.values()), f"NII kernel vs plain twin: {errs}"
+    err = max(errs.values())
 
-    ms = cuda_ms(lambda: map_decode_nii(*args, l=l, apr=apr), reps=10)
-    plain_ms = cuda_ms(lambda: map_decode_nii_plain(*args, l=l, apr=apr),
+    base = None
+    if BASELINE is not None:
+        base_fn = BASELINE.map_decode_nii
+        base_err = max_abs_err(base_fn(*main_args, **main_kw), main_ref)
+        base = lambda: base_fn(*main_args, **main_kw)
+    times = paired_ms(lambda: map_decode_nii(*main_args, **main_kw), base,
+                      reps=10)
+    ms = times["ms"]
+    plain_ms = cuda_ms(lambda: map_decode_nii_plain(*main_args, **main_kw),
                        reps=1)
     # compulsory traffic: u, p, apr, tails, a_st, b_st in; ext, a/b out
     nbytes = 4 * (4 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b)
     ops = NII_OPS_PER_STEP * k * b
+    # what this design moves: u, p, apr read by both sweeps, ext written
+    moved = 4 * (7 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b)
 
     # full decode: 64 CRC24B-protected code blocks in AWGN
     nb = 64
@@ -170,10 +246,19 @@ def turbo_kernel_check():
     assert torch.equal(bits_k, bits_p), "turbo hard bits differ from twin"
     assert it_k == it_p, (it_k, it_p)
     n_err = int((bits_k != u).sum())
-    emit({"phase": "kernel_turbo", "cbs": b, "k": k, "window": l,
-          "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-          "plain_ms": plain_ms, "decode_cbs": nb, "decode_iterations": it_k,
-          "decode_bit_errors": n_err, "hard_bits_equal": True})
+    line = {"phase": "kernel_turbo", "cbs": b, "k": k, "window": l,
+            "max_abs_err": err, "max_abs_err_by_geometry": errs,
+            **times, "plain_ms": plain_ms,
+            "smem_dynamic": nii_plan(l, True).smem,
+            "ptxas": PTXAS.get("turbo_nii"), "moved_gb": moved / 1e9,
+            "moved_tb_s": moved / (ms * 1e-3) / 1e12,
+            "decode_cbs": nb, "decode_iterations": it_k,
+            "decode_bit_errors": n_err, "hard_bits_equal": True}
+    if BASELINE is not None:
+        line.update(baseline_max_abs_err=base_err,
+                    baseline_ptxas=ptxas_summary(
+                        BASELINE.PTXAS.get("turbo_nii", "")))
+    emit(line)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 **bound(nbytes, ops))
 
@@ -282,10 +367,11 @@ def phase_main_path():
 
 
 def turbo_win_kernel_check():
-    """One map_decode_win call at the uplink path's geometry (256 x 7
-    code blocks of K=5824, window 224, overlap 40) against the plain
-    twin, then one full windowed decode of 64 code blocks near threshold
-    where hard bits and iteration counts must be equal."""
+    """map_decode_win against the plain twin, max abs error exactly 0, at
+    the uplink path's geometry (256 x 7 code blocks of K=5824, window 224,
+    overlap 40) and at K=1024 with its decoder window; then one full
+    windowed decode of 64 code blocks near threshold where hard bits and
+    iteration counts must be equal."""
     import numpy as np
     import torch
 
@@ -293,30 +379,46 @@ def turbo_win_kernel_check():
     from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
     from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
     from empower_srslte_tpu_torch.ops.fec.turbo_win import (
-        DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain)
+        DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain, win_plan)
     from empower_srslte_tpu_torch.utils.crc import CRC24B
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
-    k, b, o = 5824, BATCH * 7, DEFAULT_OVERLAP
-    l = _pick_window(k)
+    o = DEFAULT_OVERLAP
+    errs = {}
+    for name, (kk, bb) in {"uplink": (5824, BATCH * 7),
+                           "k1024": (1024, BATCH)}.items():
+        kw = dict(k=kk, l=_pick_window(kk), o=o)
+        lsa = torch.randn(kk + 3, bb, generator=g, device=dev) * 4.0
+        lp = torch.randn(kk + 3, bb, generator=g, device=dev) * 4.0
+        got = map_decode_win(lsa, lp, **kw)
+        ref = map_decode_win_plain(lsa, lp, **kw)
+        torch.cuda.synchronize()
+        # the same float32 adds in the same order on both sides
+        errs[name] = max_abs_err(got, ref)
+        if name == "uplink":
+            k, b, l, main = kk, bb, kw["l"], (lsa, lp, kw, ref)
+    assert not any(errs.values()), f"windowed kernel vs plain twin: {errs}"
+    err = max(errs.values())
     w = k // l
-    lsa = torch.randn(k + 3, b, generator=g, device=dev) * 4.0
-    lp = torch.randn(k + 3, b, generator=g, device=dev) * 4.0
-    kw = dict(k=k, l=l, o=o)
-    got = map_decode_win(lsa, lp, **kw)
-    ref = map_decode_win_plain(lsa, lp, **kw)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    rel = float(((got - ref).abs() / (1.0 + ref.abs())).max())
-    # same float32 operations in the same order on both sides
-    assert rel <= 1e-5, f"windowed kernel vs plain twin: rel err {rel}"
-    ms = cuda_ms(lambda: map_decode_win(lsa, lp, **kw), reps=10)
+    lsa, lp, kw, ref = main
+    base = None
+    if BASELINE is not None:
+        base_fn = BASELINE.map_decode_win
+        base_err = max_abs_err(base_fn(lsa, lp, **kw), ref)
+        base = lambda: base_fn(lsa, lp, **kw)
+    times = paired_ms(lambda: map_decode_win(lsa, lp, **kw), base, reps=10)
+    ms = times["ms"]
     plain_ms = cuda_ms(lambda: map_decode_win_plain(lsa, lp, **kw), reps=1)
     # compulsory traffic: lsa, lp in; llr out
     nbytes = 4 * (2 * (k + 3) + k) * b
     ops = w * b * ((l + o) * 2 * WIN_OPS_STEP + l * WIN_OPS_EMIT
                    + 2 * ((l + o) // 8) * WIN_OPS_RENORM)
+    # what this design moves: every window's rows twice and its 2O
+    # overlap rows once more (lsa, lp), llr written once, and the
+    # 32-byte checkpoints of the segments above the first written and read
+    moved = 4 * (2 * (2 * k + 2 * o * w) + k) * b \
+        + 2 * 32 * (l // 8 - 1) * w * b
 
     nb = 64
     rng = np.random.default_rng(5)
@@ -334,11 +436,20 @@ def turbo_win_kernel_check():
                            map_decode=map_decode_win_plain)
     assert torch.equal(bits_k, bits_p), "windowed hard bits differ from twin"
     assert it_k == it_p, (it_k, it_p)
-    emit({"phase": "kernel_turbo_win", "cbs": b, "k": k, "window": l,
-          "overlap": o, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-          "plain_ms": plain_ms, "decode_cbs": nb, "decode_iterations": it_k,
-          "decode_bit_errors": int((bits_k != u).sum()),
-          "hard_bits_equal": True})
+    line = {"phase": "kernel_turbo_win", "cbs": b, "k": k, "window": l,
+            "overlap": o, "max_abs_err": err,
+            "max_abs_err_by_geometry": errs, **times, "plain_ms": plain_ms,
+            "smem_dynamic": win_plan(l, o).smem,
+            "ptxas": PTXAS.get("turbo_win"), "moved_gb": moved / 1e9,
+            "moved_tb_s": moved / (ms * 1e-3) / 1e12,
+            "decode_cbs": nb, "decode_iterations": it_k,
+            "decode_bit_errors": int((bits_k != u).sum()),
+            "hard_bits_equal": True}
+    if BASELINE is not None:
+        line.update(baseline_max_abs_err=base_err,
+                    baseline_ptxas=ptxas_summary(
+                        BASELINE.PTXAS.get("turbo_win", "")))
+    emit(line)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 **bound(nbytes, ops))
 
@@ -504,9 +615,17 @@ def main() -> int:
 
     import empower_srslte_tpu_torch  # noqa: F401  (fails outside the repo)
 
+    global BASELINE
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--baseline" in sys.argv:
+        import importlib.util
+
+        path = sys.argv[sys.argv.index("--baseline") + 1]
+        spec = importlib.util.spec_from_file_location("baseline", path)
+        BASELINE = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(BASELINE)
     phase_device()
     phase_build()
     turbo = turbo_kernel_check()

@@ -24,13 +24,17 @@ read and write neighbouring addresses.
 On a CUDA tensor ``map_decode_nii`` launches ``csrc/turbo_nii.cu``; on a
 CPU tensor it runs ``map_decode_nii_plain``, a torch recursion
 vectorized over windows and code blocks with the same float32 operation
-order (so the two agree bit for bit on the same device).
+order (so the two agree bit for bit on the same device). The kernel keeps
+no beta store in device memory: it checkpoints the backward carry once
+per 16-row segment and recomputes each segment's betas on chip;
+``nii_plan`` gives its block size, segments and shared-memory bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -44,6 +48,47 @@ GROUP = 16
 
 #: kernel launches made by ``map_decode_nii`` (read by chip_smoke.py)
 LAUNCHES = 0
+
+#: shared memory one block may use on sm_90 (227 KB)
+MAX_SMEM = 232_448
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """Geometry of one kernel launch: ``threads`` per block (one code
+    block each), ``segments`` ([lo, hi) window rows, bottom up; the
+    backward sweep checkpoints its carry entering each one above the
+    first), and the block's dynamic shared-memory ``smem`` bytes."""
+
+    threads: int
+    segments: tuple
+    smem: int
+
+    @property
+    def checkpoints(self) -> tuple:
+        """Window rows whose entering backward carry is kept: the top row
+        of every segment but the first."""
+        return tuple(hi - 1 for _, hi in self.segments[1:])
+
+
+def nii_plan(l: int, apr: bool) -> LaunchPlan:
+    """Launch plan of ``csrc/turbo_nii.cu`` for window ``l`` (with or
+    without an a-priori input). Segments are the 16-row renormalization
+    groups, the top one 8 rows when l % 16 == 8. Shared memory per thread:
+    32 B per checkpoint and a two-slot ring of 16 staged rows of u, p (and
+    apr); the segment's betas stay in registers. Raises ``ValueError``
+    when the window does not fit."""
+    if l % 8 or l < GROUP:
+        raise ValueError(f"window {l}: the kernel needs a multiple of 8 "
+                         f">= {GROUP}")
+    threads = 32
+    segments = tuple((lo, min(lo + GROUP, l)) for lo in range(0, l, GROUP))
+    per_thread = 32 * (len(segments) - 1) + 4 * 2 * GROUP * (3 if apr else 2)
+    smem = threads * per_thread
+    if smem > MAX_SMEM:
+        raise ValueError(f"window {l}: {smem} B of shared memory per block "
+                         f"exceeds {MAX_SMEM}")
+    return LaunchPlan(threads, segments, smem)
 
 
 @functools.lru_cache(maxsize=1)
@@ -150,7 +195,7 @@ def _lib():
     from ...utils.cuda_build import load
 
     fn = load("turbo_nii").turbo_nii_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -172,18 +217,16 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
                                     apr=apr, bounds=bounds)
     k, b, w_count = _check(u, p, tail_u, tail_p, a_st, b_st, l, apr)
     first, last = (0, w_count - 1) if bounds is None else bounds
+    plan = nii_plan(l, apr is not None)
     ext = torch.empty_like(u)
     a_next = torch.empty_like(a_st)
     b_next = torch.empty_like(b_st)
-    # stored betas of every window: [l, 8, W*B] float32 (8 x the size of u)
-    scratch = torch.empty((l, 8, w_count * b), dtype=torch.float32,
-                          device=u.device)
     rc = _lib()(u.data_ptr(), p.data_ptr(),
                 None if apr is None else apr.data_ptr(),
                 tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
                 b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
-                b_next.data_ptr(), scratch.data_ptr(), b, l, w_count,
-                first, last, torch.cuda.current_stream(u.device).cuda_stream)
+                b_next.data_ptr(), b, l, w_count, first, last, plan.threads,
+                plan.smem, torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -27,7 +27,11 @@ the full-scale a-posteriori ``llr`` [K, B].
 
 On a CUDA tensor ``map_decode_win`` launches ``csrc/turbo_win.cu``; on a
 CPU tensor it runs ``map_decode_win_plain``, the same recursion in torch
-vectorized over (window, code block).
+vectorized over (window, code block). The kernel keeps no beta store: it
+checkpoints the beta carry once per 8-row segment (32 B per segment and
+window, in a device-memory buffer the wrapper allocates) and recomputes
+each segment's betas in registers; ``win_plan`` gives its block size,
+segments and shared-memory bytes.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 
 from ...utils.device import device_table
 from .turbo_encoder import trellis
+from .turbo_nii import LaunchPlan
 
 NEG = -1e30
 #: steps per renormalization (the JAX kernel's GROUP)
@@ -78,6 +83,22 @@ def _check(lsa, lp, k: int, l: int, o: int) -> int:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return lsa.shape[1]
+
+
+def win_plan(l: int, o: int) -> LaunchPlan:
+    """Launch plan of ``csrc/turbo_win.cu`` for window ``l`` and overlap
+    ``o``: 32 threads per block, the window's rows in 8-row segments (the
+    renormalization group; the backward sweep checkpoints its carry
+    entering each one above the first, into a device-memory buffer of
+    ``[len(segments) - 1, 8, W*B]`` float32 that the wrapper allocates),
+    and a two-slot shared-memory ring of 8 staged rows x 4 values per
+    thread. Raises ``ValueError`` when the geometry does not fit."""
+    if l % GROUP or o % GROUP or not GROUP <= o <= l:
+        raise ValueError(f"window {l}, overlap {o}: need multiples of "
+                         f"{GROUP} with {GROUP} <= O <= L")
+    threads = 32
+    segments = tuple((lo, lo + GROUP) for lo in range(0, l, GROUP))
+    return LaunchPlan(threads, segments, threads * 4 * 2 * GROUP * 4)
 
 
 def _window_rows(x, pad: float, k: int, l: int, o: int):
@@ -146,7 +167,7 @@ def _lib():
     from ...utils.cuda_build import load
 
     fn = load("turbo_win").turbo_win_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -159,13 +180,13 @@ def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     if not lsa.is_cuda:
         return map_decode_win_plain(lsa, lp, k=k, l=l, o=o)
     b = _check(lsa, lp, k, l, o)
-    w = k // l
+    plan = win_plan(l, o)
     llr = torch.empty((k, b), dtype=torch.float32, device=lsa.device)
-    # stored betas of every window: [L, 8, W*B] float32
-    scratch = torch.empty((l, 8, w * b), dtype=torch.float32,
-                          device=lsa.device)
+    # the beta carry entering each segment above the first, per window
+    ckpt = torch.empty((len(plan.checkpoints), 8, k // l * b),
+                       dtype=torch.float32, device=lsa.device)
     rc = _lib()(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
-                scratch.data_ptr(), b, k, l, o,
+                ckpt.data_ptr(), b, k, l, o, plan.threads, plan.smem,
                 torch.cuda.current_stream(lsa.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_win kernel launch failed: CUDA error {rc}")

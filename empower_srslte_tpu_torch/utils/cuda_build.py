@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: ptxas resource report (registers, shared memory, spills) per kernel
+#: ptxas resource report (registers, shared memory, spills) per source,
+#: kept beside each library so that a cached build reports it too
 BUILD_LOGS: dict[str, str] = {}
 
 
@@ -56,6 +57,8 @@ def build(names) -> dict[str, float]:
     for name in names:
         out = _target(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            BUILD_LOGS[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -71,6 +74,7 @@ def build(names) -> dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
