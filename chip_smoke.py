@@ -11,11 +11,13 @@ on a batch of 256 subframes each and checks what they decode:
 
     python3 chip_smoke.py [--baseline FILE]
 
-``--baseline FILE`` names a Python file that defines ``map_decode_nii``
-and ``map_decode_win`` with the wrappers' signatures (another design of
-the two turbo kernels) and ``PTXAS`` (its ptxas log per kernel name): the
-turbo checks then time it and the port's kernel in turns (baseline, port,
-port, baseline) and put both on their phase lines.
+``--baseline FILE`` names a Python file that defines ``PTXAS`` (its ptxas
+log per kernel name) and any of ``map_decode_nii``, ``map_decode_win``
+and ``viterbi_regs``, with the signatures of the port's
+``map_decode_nii``, ``map_decode_win`` and ``viterbi_regs_cuda`` (another
+design of those kernels): each kernel check with a baseline then times it
+and the port's kernel in turns (baseline, port, port, baseline) and puts
+both on its phase line.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
 one JSON line per phase, the card's name and power limit as nvidia-smi
@@ -59,6 +61,12 @@ NII_OPS_PER_STEP = 92
 #: group of either sweep renormalizes with 7 maxes + 8 subs = 15. As for
 #: NII, the kernel's recompute is not counted
 WIN_OPS_STEP, WIN_OPS_EMIT, WIN_OPS_RENORM = 28, 31, 15
+#: operations per trellis step and word of the Viterbi algorithm: 64
+#: states x (2 adds, compare, select, renormalizing sub) + 8 branch
+#: metrics; per survivor step (middle and flush), the traceback's word
+#: select, shift, mask and next state. Survivor bookkeeping beyond that
+#: (register exchange) is a design's cost, not the algorithm's
+VIT_OPS_STEP, VIT_OPS_TRACE = 64 * 5 + 8, 4
 #: ptxas report of each built kernel (phase_build), for the phase lines
 PTXAS: dict = {}
 #: the --baseline module, or None
@@ -93,6 +101,31 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time per call of a kernel shorter than its host call: ``reps``
+    calls captured in one CUDA graph and replayed, so that the launches
+    run back to back on the card (the wrapper's Python cost per call would
+    otherwise be what a timing of ``cuda_ms`` reads)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (reps * replays)
+
+
 def ptxas_summary(log: str) -> dict:
     """{entry function: registers, static shared bytes, spill bytes} from
     an ``nvcc -Xptxas -v`` log."""
@@ -118,15 +151,15 @@ def ptxas_summary(log: str) -> dict:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
-def paired_ms(new_fn, old_fn, reps: int) -> dict:
+def paired_ms(new_fn, old_fn, reps: int, timer=cuda_ms) -> dict:
     """The port's kernel timed alone, or beside a baseline in turns
     (baseline, port, port, baseline) when one is given."""
     if old_fn is None:
-        return {"ms": cuda_ms(new_fn, reps)}
-    o1 = cuda_ms(old_fn, reps)
-    n1 = cuda_ms(new_fn, reps)
-    n2 = cuda_ms(new_fn, reps)
-    o2 = cuda_ms(old_fn, reps)
+        return {"ms": timer(new_fn, reps)}
+    o1 = timer(old_fn, reps)
+    n1 = timer(new_fn, reps)
+    n2 = timer(new_fn, reps)
+    o2 = timer(old_fn, reps)
     return {"ms": (n1 + n2) / 2, "baseline_ms": (o1 + o2) / 2,
             "turns_ms": [o1, n1, n2, o2]}
 
@@ -212,8 +245,8 @@ def turbo_kernel_check():
     err = max(errs.values())
 
     base = None
-    if BASELINE is not None:
-        base_fn = BASELINE.map_decode_nii
+    base_fn = getattr(BASELINE, "map_decode_nii", None)
+    if base_fn is not None:
         base_err = max_abs_err(base_fn(*main_args, **main_kw), main_ref)
         base = lambda: base_fn(*main_args, **main_kw)
     times = paired_ms(lambda: map_decode_nii(*main_args, **main_kw), base,
@@ -254,7 +287,7 @@ def turbo_kernel_check():
             "moved_tb_s": moved / (ms * 1e-3) / 1e12,
             "decode_cbs": nb, "decode_iterations": it_k,
             "decode_bit_errors": n_err, "hard_bits_equal": True}
-    if BASELINE is not None:
+    if base_fn is not None:
         line.update(baseline_max_abs_err=base_err,
                     baseline_ptxas=ptxas_summary(
                         BASELINE.PTXAS.get("turbo_nii", "")))
@@ -263,47 +296,89 @@ def turbo_kernel_check():
                 **bound(nbytes, ops))
 
 
-def viterbi_kernel_check(phase: str, sizes, seed: int):
+def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     """The Viterbi kernel against its plain twin on noisy codewords, for
-    each (K, words) in ``sizes``: 0 mismatched bits. The downlink's blind
-    search decodes K=55 and K=44; the uplink's CQI decode K=38, where the
-    training halo is clamped to K."""
+    each (K, words) in ``sizes``, timed there by CUDA-graph replay (in
+    turns with a baseline's ``viterbi_regs`` when one is given;
+    ``ms_ungraphed`` times the same call launch by launch, which at the
+    CQI's shape reads the wrapper's host cost); then at each (K, words, train,
+    kind) of ``extra``, checked only (kind "ints": LLRs in {-1, 0, 1},
+    which tie often). Every geometry must read 0 mismatched bits. The
+    downlink's blind search decodes K=55 and K=44; the uplink's CQI decode
+    K=38, where the training halo is clamped to K."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.convcoder import (
-        TRAIN_LEN, conv_encode, viterbi_decode_plain)
+        TRAIN_LEN, conv_encode, unpack_regs, viterbi_decode_plain)
     from empower_srslte_tpu_torch.ops.fec.viterbi37 import (
-        viterbi_decode_cuda, viterbi_regs_cuda)
+        viterbi_decode_cuda, viterbi_regs_cuda, vit_plan)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    ms = plain_ms = err = 0.0
-    nbytes = ops = 0
-    mism = 0
-    for k, words in sizes:
+    base_fn = getattr(BASELINE, "viterbi_regs", None)
+
+    def inputs(k, words, kind="noisy"):
+        if kind == "ints":
+            return torch.randint(-1, 2, (words, 3, k), generator=g,
+                                 device=dev).to(torch.float32)
         u = torch.randint(0, 2, (words, k), generator=g, device=dev)
         d = conv_encode(u).to(torch.float32)
-        llr = (1.0 - 2.0 * d
-               + 0.8 * torch.randn(d.shape, generator=g, device=dev))
+        return (1.0 - 2.0 * d
+                + 0.8 * torch.randn(d.shape, generator=g, device=dev))
+
+    mism, base_mism, per_k = {}, {}, {}
+    ms = plain_ms = err = 0.0
+    nbytes = ops = 0
+    for k, words in sizes:
+        llr = inputs(k, words)
         got = viterbi_decode_cuda(llr)
         ref = viterbi_decode_plain(llr)
         torch.cuda.synchronize()
-        mism += int((got != ref).sum())
+        mism[f"k{k}"] = int((got != ref).sum())
         err = max(err, float((got.int() - ref.int()).abs().max()))
         halo = min(TRAIN_LEN, k)
-        ms += cuda_ms(lambda: viterbi_regs_cuda(llr, halo), reps=20)
-        plain_ms += cuda_ms(lambda: viterbi_decode_plain(llr), reps=1)
-        n_regs = (k - 1) // 32 + 1
+        base = None
+        if base_fn is not None:
+            base_bits = unpack_regs(base_fn(llr, halo), k)
+            base_mism[f"k{k}"] = int((base_bits != ref).sum())
+            base = lambda: base_fn(llr, halo)
+        times = paired_ms(lambda: viterbi_regs_cuda(llr, halo), base,
+                          reps=20, timer=graph_ms)
+        host_ms = cuda_ms(lambda: viterbi_regs_cuda(llr, halo), reps=20)
+        k_plain = cuda_ms(lambda: viterbi_decode_plain(llr), reps=1)
         steps = 2 * halo + k
-        nbytes += 4 * words * (3 * k + n_regs)
-        # per step and word: 64 states x (2 adds, compare, select, sub)
-        # + 8 branch metrics; register exchange: 4 ops per word and state
-        # on the K middle steps, 1 (select) on the flush halo
-        ops += words * (steps * (64 * 5 + 8) + 64 * n_regs * (4 * k + halo))
-    assert mism == 0, f"Viterbi kernel decisions differ in {mism} bits"
-    emit({"phase": phase, "sizes": [list(s) for s in sizes],
-          "mismatched_bits": mism, "ms": ms, "plain_ms": plain_ms})
-    return dict(max_abs_err=err, mismatched_bits=mism, ms=ms,
+        k_bytes = 4 * words * (3 * k + (k - 1) // 32 + 1)
+        k_ops = words * (steps * VIT_OPS_STEP + (k + halo) * VIT_OPS_TRACE)
+        plan = vit_plan(k, halo)
+        per_k[f"k{k}"] = {"words": words, "halo": halo, "steps": steps,
+                          **times, "ms_ungraphed": host_ms,
+                          "plain_ms": k_plain,
+                          "ns_per_step": times["ms"] * 1e6 / steps,
+                          "warps_per_block": plan.warps,
+                          "smem_dynamic": plan.smem,
+                          **bound(k_bytes, k_ops)}
+        ms += times["ms"]
+        plain_ms += k_plain
+        nbytes += k_bytes
+        ops += k_ops
+    for k, words, train, kind in extra:
+        llr = inputs(k, words, kind)
+        got = viterbi_decode_cuda(llr, train=train)
+        ref = viterbi_decode_plain(llr, train=train)
+        torch.cuda.synchronize()
+        mism[f"k{k}_{kind}_train_{train}"] = int((got != ref).sum())
+    total = sum(mism.values())
+    line = {"phase": phase, "sizes": [list(s) for s in sizes],
+            "mismatched_bits": total, "mismatched_bits_by_geometry": mism,
+            "ms": ms, "plain_ms": plain_ms, "by_k": per_k,
+            "ptxas": PTXAS.get("viterbi37"), **bound(nbytes, ops)}
+    if base_fn is not None:
+        line.update(baseline_mismatched_bits=base_mism,
+                    baseline_ptxas=ptxas_summary(
+                        BASELINE.PTXAS.get("viterbi37", "")))
+    emit(line)
+    assert total == 0, f"Viterbi kernel decisions differ: {mism}"
+    return dict(max_abs_err=err, mismatched_bits=total, ms=ms,
                 plain_ms=plain_ms, **bound(nbytes, ops))
 
 
@@ -403,8 +478,8 @@ def turbo_win_kernel_check():
     w = k // l
     lsa, lp, kw, ref = main
     base = None
-    if BASELINE is not None:
-        base_fn = BASELINE.map_decode_win
+    base_fn = getattr(BASELINE, "map_decode_win", None)
+    if base_fn is not None:
         base_err = max_abs_err(base_fn(lsa, lp, **kw), ref)
         base = lambda: base_fn(lsa, lp, **kw)
     times = paired_ms(lambda: map_decode_win(lsa, lp, **kw), base, reps=10)
@@ -445,7 +520,7 @@ def turbo_win_kernel_check():
             "decode_cbs": nb, "decode_iterations": it_k,
             "decode_bit_errors": int((bits_k != u).sum()),
             "hard_bits_equal": True}
-    if BASELINE is not None:
+    if base_fn is not None:
         line.update(baseline_max_abs_err=base_err,
                     baseline_ptxas=ptxas_summary(
                         BASELINE.PTXAS.get("turbo_win", "")))
@@ -522,6 +597,12 @@ def phase_uplink():
     st = ul_uci_stimulus(BATCH, UL_N0, device="cuda")
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
+    # the CQI decode's Viterbi shape: one word of O + 8 bits per subframe.
+    # Checked before the warm-up: its graph captures empty PyTorch's
+    # allocator cache, which the timed runs would pay to refill
+    vit = viterbi_kernel_check(
+        "kernel_viterbi_uplink", [(len(st.plan.uci.cqi_bits) + 8, BATCH)],
+        seed=7)
     run_uplink(st, UL_N0)                                  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -546,10 +627,6 @@ def phase_uplink():
         "viterbi_launched": launches["viterbi37"] > 0,
         "no_nii_launch": launches["turbo_nii"] == 0,
     }
-    # the CQI decode's Viterbi shape: one word of O + 8 bits per subframe
-    vit = viterbi_kernel_check(
-        "kernel_viterbi_uplink", [(len(st.plan.uci.cqi_bits) + 8, BATCH)],
-        seed=7)
     reps = 3
     e0.record()
     for _ in range(reps):
@@ -614,6 +691,7 @@ def main() -> int:
     import torch
 
     import empower_srslte_tpu_torch  # noqa: F401  (fails outside the repo)
+    from empower_srslte_tpu_torch.ops.fec.convcoder import TRAIN_LEN
 
     global BASELINE
     if not torch.cuda.is_available():
@@ -630,8 +708,12 @@ def main() -> int:
     phase_build()
     turbo = turbo_kernel_check()
     words = BATCH * n_candidates()
-    vit = viterbi_kernel_check("kernel_viterbi", [(55, words), (44, words)],
-                               seed=3)
+    vit = viterbi_kernel_check(
+        "kernel_viterbi", [(55, words), (44, words)], seed=3,
+        extra=[(20, 512, TRAIN_LEN, "noisy"), (64, 512, TRAIN_LEN, "noisy"),
+               (256, 512, TRAIN_LEN, "noisy"), (55, 512, None, "noisy"),
+               (256, 256, None, "noisy"), (55, 512, TRAIN_LEN, "ints"),
+               (20, 512, None, "ints")])
     win = turbo_win_kernel_check()
     rec_launches, rec = recursion_kernel_check()
     launches = phase_main_path()

@@ -4,25 +4,54 @@ Counterpart of the JAX package's Pallas kernel ``viterbi_regs_pallas``
 (empower_srslte_tpu/ops/fec/viterbi_pallas.py:146) and its host wrapper
 ``viterbi_decode_pallas`` (:171). The kernel (csrc/viterbi37.cu) runs the
 same three-segment recursion as the plain twin
-``convcoder.viterbi_decode_plain``: one block of 64 threads per code
-word, one thread per trellis state, metrics and survivor registers
-double-buffered in shared memory. It returns the winning state's
-survivor registers; unpacking them to bits is a tensor op here.
+``convcoder.viterbi_decode_plain``: one warp per code word (lane j holds
+states j and j+32), several words per block, no block barrier; it keeps
+each step's decisions as two ballot words and recovers the winner's
+survivor bits by traceback instead of register exchange. It returns them
+packed as the twin's winner registers; unpacking them to bits is a tensor
+op here. ``vit_plan`` gives the launch geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from .convcoder import TRAIN_LEN, unpack_regs
+from .turbo_nii import MAX_SMEM
 
 #: kernel launches made by ``viterbi_decode_cuda`` (read by chip_smoke.py)
 LAUNCHES = 0
-#: largest K the kernel takes (its register file holds 8 words per state)
-MAX_K = 256
+#: code words (warps) per block
+WARPS = 4
+#: shared bytes per warp besides the per-column and per-step arrays: the
+#: double-buffered 64-float metric array
+_METRIC_BYTES = 2 * 64 * 4
+#: largest K the kernel takes: a block's WARPS words with halo = K fit
+MAX_K = (MAX_SMEM // WARPS - _METRIC_BYTES) // (32 + 2 * 8)
+
+
+@dataclass(frozen=True)
+class VitPlan:
+    """Geometry of one kernel launch: code words (``warps``) per block and
+    the block's dynamic shared-memory ``smem`` bytes."""
+
+    warps: int
+    smem: int
+
+
+def vit_plan(k: int, halo: int) -> VitPlan:
+    """Launch plan of ``csrc/viterbi37.cu`` for K and a circular halo:
+    ``WARPS`` words per block; shared memory per warp: the metric array,
+    8 float32 branch-metric combinations per column (32·K) and two
+    decision words per middle and flush step (8·(K + halo)). Raises
+    ``ValueError`` out of range."""
+    if not 0 < k <= MAX_K or not 0 <= halo <= k:
+        raise ValueError(f"K={k}, halo={halo} out of range (K <= {MAX_K})")
+    return VitPlan(WARPS, WARPS * (_METRIC_BYTES + 32 * k + 8 * (k + halo)))
 
 
 @functools.lru_cache(maxsize=1)
@@ -30,8 +59,8 @@ def _lib():
     from ...utils.cuda_build import load
 
     fn = load("viterbi37").viterbi37_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -47,13 +76,13 @@ def viterbi_regs_cuda(llr: torch.Tensor, halo: int) -> torch.Tensor:
     if llr.dim() != 3 or llr.shape[1] != 3:
         raise ValueError(f"llr shape {tuple(llr.shape)}, want [B, 3, K]")
     b, _, k = llr.shape
-    if not 0 < k <= MAX_K or not 0 <= halo <= k:
-        raise ValueError(f"K={k}, halo={halo} out of range")
+    plan = vit_plan(k, halo)
     n_regs = (k - 1) // 32 + 1
     regs = torch.empty((b, n_regs), dtype=torch.int32, device=llr.device)
     if b == 0:
         return regs
     rc = _lib()(llr.data_ptr(), regs.data_ptr(), b, k, halo, n_regs,
+                plan.warps, plan.smem,
                 torch.cuda.current_stream(llr.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"viterbi37 kernel launch failed: CUDA error {rc}")

@@ -157,6 +157,27 @@ def test_full_decode_matches_jax(rng, k, ebn0_db):
     np.testing.assert_array_equal(bits.numpy(), u)
 
 
+@pytest.mark.parametrize("k", [40, 56])
+def test_no_window_decode_matches_jax_full_sweep(rng, k):
+    """A K without a turbo window: the port decodes it as one NII window
+    of l = K, the JAX package with its XLA full-trellis sweep
+    (``_map_decode``). Hard bits must be equal; LLRs agree within 0.1,
+    since the two renormalize at different points (every step in the
+    JAX sweep, every 16 rows in the NII recursion) in float32."""
+    assert _pick_window(k) is None
+    u = rng.integers(0, 2, size=(16, k)).astype(np.int8)
+    coded = _awgn_llr(rng, turbo_encode_np(u), 0.5)
+    noise = (3.0 * rng.normal(size=coded.shape)).astype(np.float32)
+    llr = np.concatenate([coded, noise])
+    bits_j, llr_j = JaxTurbo(k=k, iterations=4, window=None, impl="xla",
+                             dtype="float32").decode(jnp.asarray(llr))
+    bits, llr_p = TurboDecoder(k=k, iterations=4, window=None).decode(
+        torch.as_tensor(llr))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_j))
+    np.testing.assert_allclose(llr_p.numpy(), np.asarray(llr_j), rtol=0,
+                               atol=0.1)
+
+
 @pytest.mark.parametrize("k", [40, 512, 6144])
 def test_turbo_encoder_matches_numpy(rng, k):
     u = rng.integers(0, 2, size=(3, k)).astype(np.int8)
