@@ -7,7 +7,13 @@ on a batch of 256 subframes each and checks what they decode:
   (NII turbo kernel, Viterbi kernel);
 * the 20 MHz eNB PUSCH receiver with UCI (windowed turbo kernel, Viterbi
   kernel for the CQI), at a high and at a mid SNR;
-* the recursion-rate probe tool (its own kernel).
+* the recursion-rate probe tool (its own kernel);
+* the PDSCH in TM2 on 4 ports (SFBC-FSTD) on the float32 and the int8
+  LLR lanes and in TM3 (CDD, 2 codewords), genie channel (NII kernel);
+* the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
+  of a 4-port TM2 cell with PHICH, an SI-RNTI format 1C grant and an
+  int8-lane HARQ retransmission (both kernels);
+* ``pusch_decode`` on the int8 lane (windowed turbo kernel).
 
     python3 chip_smoke.py [--baseline FILE]
 
@@ -48,6 +54,9 @@ BATCH = 256
 #: the uplink path's noise per grid RE: high SNR, and a mid SNR at which
 #: the early stop iterates (bench.py MIDSNR_N0["20ul"])
 UL_N0, UL_N0_MID = 1e-3, 0.045
+#: the genie-channel downlink phases: noise per RE (bench.py:149), the
+#: TM2 grant's MCS and the TM3 grant's (the "20mimo" MCS, bench.py:153)
+DL_N0, TM2_MCS, TM3_MCS = 1e-3, 20, 27
 #: float32 adds/subs/maxes per trellis step and window of the NII
 #: algorithm: backward step 2 gamma + 2 scale + 1 apr add + 16 adds + 8
 #: maxes + 1 (renorm share) = 30; forward step 2 + 2 + 1 + 16 (branch)
@@ -71,6 +80,9 @@ VIT_OPS_STEP, VIT_OPS_TRACE = 64 * 5 + 8, 4
 PTXAS: dict = {}
 #: the --baseline module, or None
 BASELINE = None
+#: per kernel, the error against the twin at each geometry that a path
+#: phase gives the kernel (``nii_path_check``, ``vit_path_check``)
+PATH_TWIN: dict = {"turbo_nii": {}, "viterbi37": {}}
 
 
 def emit(obj):
@@ -170,6 +182,50 @@ def max_abs_err(got, ref) -> float:
     return float((got - ref).abs().max())
 
 
+def counted_run(run, reps: int = 3):
+    """``run()`` once to warm up, once with every kernel's launch count at
+    0 (CUDA events around it), then ``reps`` times for the time per call.
+    -> (its result, launches, ms of the counted run, ms per call, peak
+    device memory GB over the counted run and the timed repeats)."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
+        viterbi37
+
+    mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
+            "viterbi37": viterbi37}
+    run()                                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = run()
+    e1.record()
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    ms_first = e0.elapsed_time(e1)
+    e0.record()
+    for _ in range(reps):
+        run()
+    e1.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return out, launches, ms_first, e0.elapsed_time(e1) / reps, peak
+
+
+def check(phase: str, checks: dict):
+    failed = [k for k, v in checks.items() if not v]
+    assert not failed, f"{phase} checks failed: {failed}"
+
+
+def soft_bytes_per_tb(soft) -> int:
+    """HARQ softbuffer bytes one TB keeps: every code block's buffer."""
+    return sum(s.shape[-1] * s.element_size() for s in soft)
+
+
 def phase_device():
     import torch
 
@@ -199,13 +255,68 @@ def phase_build():
           "ptxas": PTXAS})
 
 
+def nii_inputs(g, k: int, l: int, b: int, apr: bool = True, bounds=None):
+    """Random inputs of one ``map_decode_nii`` call on ``b`` code blocks
+    of K=``k`` in windows of ``l``: (args, kwargs)."""
+    import torch
+
+    rn = lambda *s, sc=4.0: torch.randn(*s, generator=g,
+                                        device=g.device) * sc
+    w = k // l
+    args = (rn(k, b), rn(k, b), rn(3, b), rn(3, b),
+            rn(w + 1, 8, b, sc=2.0), rn(w + 1, 8, b, sc=2.0))
+    return args, dict(l=l, apr=rn(k, b) if apr else None, bounds=bounds)
+
+
+def nii_twin(args, kw):
+    """The NII kernel and its plain twin on the same inputs: -> (max abs
+    error, the twin's output). Both do the same float32 adds in the same
+    order, so the error must be exactly 0."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
+        map_decode_nii, map_decode_nii_plain)
+
+    got = map_decode_nii(*args, **kw)
+    ref = map_decode_nii_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return max_abs_err(got, ref), ref
+
+
+def nii_path_check(phase: str, cb_sizes, tbs_per_call: int,
+                   seed: int) -> dict:
+    """The NII kernel against its twin at each geometry a ``dlsch_decode``
+    on ``tbs_per_call`` TBs of code blocks ``cb_sizes`` (its plan's
+    segmentation) gives it: one launch shape per code block size K, with
+    the decoder's window and K's share of the code blocks, apr given as
+    the iteration loop gives it. Launches made here are not counted: no
+    phase's launch count is open while they run."""
+    import collections
+
+    import torch
+
+    from empower_srslte_tpu_torch.models.sch import _pick_window
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {}
+    for k, n in sorted(collections.Counter(cb_sizes).items()):
+        l = _pick_window(k) or k
+        name = f"{phase}_k{k}_l{l}_cbs{n * tbs_per_call}"
+        errs[name] = nii_twin(*nii_inputs(g, k, l, n * tbs_per_call))[0]
+    PATH_TWIN["turbo_nii"].update(errs)
+    assert not any(errs.values()), f"NII kernel vs plain twin: {errs}"
+    return errs
+
+
 def turbo_kernel_check():
     """map_decode_nii against the plain twin, max abs error exactly 0, at
     the geometries the kernel's code paths take: the main path's (5120
     code blocks of K=5760, l=240, with apr), a ragged single window
     (K=56, l=K, no apr: the top segment is 8 rows) and a trellis slice
     with no edge (bounds (-1, -1)); then one full decode of 64 code
-    blocks where the hard bits and iteration counts must be equal."""
+    blocks where the hard bits and iteration counts must be equal. The
+    other paths' geometries are checked in their phases
+    (``nii_path_check``)."""
     import numpy as np
     import torch
 
@@ -217,14 +328,6 @@ def turbo_kernel_check():
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
-    rn = lambda *s, sc=4.0: torch.randn(*s, generator=g, device=dev) * sc
-
-    def case(k, l, b, apr, bounds):
-        w = k // l
-        args = (rn(k, b), rn(k, b), rn(3, b), rn(3, b),
-                rn(w + 1, 8, b, sc=2.0), rn(w + 1, 8, b, sc=2.0))
-        kw = dict(l=l, apr=rn(k, b) if apr else None, bounds=bounds)
-        return args, kw
 
     k, l, b = 5760, 240, 2 * BATCH * 10
     w = k // l
@@ -233,12 +336,8 @@ def turbo_kernel_check():
             "no_edge": (k, l, 512, True, (-1, -1))}
     errs = {}
     for name, geo in geos.items():
-        args, kw = case(*geo)
-        got = map_decode_nii(*args, **kw)
-        ref = map_decode_nii_plain(*args, **kw)
-        torch.cuda.synchronize()
-        # the same float32 adds in the same order on both sides
-        errs[name] = max_abs_err(got, ref)
+        args, kw = nii_inputs(g, *geo)
+        errs[name], ref = nii_twin(args, kw)
         if name == "main":
             main_args, main_kw, main_ref = args, kw, ref
     assert not any(errs.values()), f"NII kernel vs plain twin: {errs}"
@@ -296,6 +395,54 @@ def turbo_kernel_check():
                 **bound(nbytes, ops))
 
 
+def vit_inputs(g, k: int, words: int, kind: str = "noisy"):
+    """LLRs [words, 3, K] for the Viterbi kernel: noisy codewords, or
+    (kind "ints") values in {-1, 0, 1}, which tie often."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.convcoder import conv_encode
+
+    if kind == "ints":
+        return torch.randint(-1, 2, (words, 3, k), generator=g,
+                             device=g.device).to(torch.float32)
+    u = torch.randint(0, 2, (words, k), generator=g, device=g.device)
+    d = conv_encode(u).to(torch.float32)
+    return (1.0 - 2.0 * d
+            + 0.8 * torch.randn(d.shape, generator=g, device=g.device))
+
+
+def vit_twin_mismatch(llr, train) -> int:
+    """Bits where the Viterbi kernel and its plain twin disagree."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.convcoder import (
+        viterbi_decode_plain)
+    from empower_srslte_tpu_torch.ops.fec.viterbi37 import (
+        viterbi_decode_cuda)
+
+    got = viterbi_decode_cuda(llr, train=train)
+    ref = viterbi_decode_plain(llr, train=train)
+    torch.cuda.synchronize()
+    return int((got != ref).sum())
+
+
+def vit_path_check(phase: str, geos, seed: int) -> dict:
+    """The Viterbi kernel against its twin at each (K, words) a path's
+    blind search gives it (training length as the blind search decodes),
+    0 mismatched bits. Launches made here are not counted: no phase's
+    launch count is open while they run."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.convcoder import TRAIN_LEN
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mism = {f"{phase}_k{k}_words{words}": vit_twin_mismatch(
+        vit_inputs(g, k, words), TRAIN_LEN) for k, words in sorted(geos)}
+    PATH_TWIN["viterbi37"].update(mism)
+    assert not any(mism.values()), f"Viterbi kernel vs plain twin: {mism}"
+    return mism
+
+
 def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     """The Viterbi kernel against its plain twin on noisy codewords, for
     each (K, words) in ``sizes``, timed there by CUDA-graph replay (in
@@ -305,11 +452,12 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     kind) of ``extra``, checked only (kind "ints": LLRs in {-1, 0, 1},
     which tie often). Every geometry must read 0 mismatched bits. The
     downlink's blind search decodes K=55 and K=44; the uplink's CQI decode
-    K=38, where the training halo is clamped to K."""
+    K=38, where the training halo is clamped to K. The per-subframe
+    receiver's shapes are checked in its phase (``vit_path_check``)."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.convcoder import (
-        TRAIN_LEN, conv_encode, unpack_regs, viterbi_decode_plain)
+        TRAIN_LEN, unpack_regs, viterbi_decode_plain)
     from empower_srslte_tpu_torch.ops.fec.viterbi37 import (
         viterbi_decode_cuda, viterbi_regs_cuda, vit_plan)
 
@@ -317,20 +465,11 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     g = torch.Generator(device=dev).manual_seed(seed)
     base_fn = getattr(BASELINE, "viterbi_regs", None)
 
-    def inputs(k, words, kind="noisy"):
-        if kind == "ints":
-            return torch.randint(-1, 2, (words, 3, k), generator=g,
-                                 device=dev).to(torch.float32)
-        u = torch.randint(0, 2, (words, k), generator=g, device=dev)
-        d = conv_encode(u).to(torch.float32)
-        return (1.0 - 2.0 * d
-                + 0.8 * torch.randn(d.shape, generator=g, device=dev))
-
     mism, base_mism, per_k = {}, {}, {}
     ms = plain_ms = err = 0.0
     nbytes = ops = 0
     for k, words in sizes:
-        llr = inputs(k, words)
+        llr = vit_inputs(g, k, words)
         got = viterbi_decode_cuda(llr)
         ref = viterbi_decode_plain(llr)
         torch.cuda.synchronize()
@@ -362,11 +501,8 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
         nbytes += k_bytes
         ops += k_ops
     for k, words, train, kind in extra:
-        llr = inputs(k, words, kind)
-        got = viterbi_decode_cuda(llr, train=train)
-        ref = viterbi_decode_plain(llr, train=train)
-        torch.cuda.synchronize()
-        mism[f"k{k}_{kind}_train_{train}"] = int((got != ref).sum())
+        mism[f"k{k}_{kind}_train_{train}"] = vit_twin_mismatch(
+            vit_inputs(g, k, words, kind), train)
     total = sum(mism.values())
     line = {"phase": phase, "sizes": [list(s) for s in sizes],
             "mismatched_bits": total, "mismatched_bits_by_geometry": mism,
@@ -388,29 +524,14 @@ def phase_main_path():
 
     from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
     from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii, viterbi37
 
     t0 = time.perf_counter()
     st = tm4_stimulus(BATCH, device="cuda")
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
 
-    run = lambda: ue_dl_tm4_batch(st.samples, st.cfg, st.plan)
-    run()                                              # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    turbo_nii.LAUNCHES = 0
-    viterbi37.LAUNCHES = 0
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    res = run()
-    e1.record()
-    torch.cuda.synchronize()
-    launches = {"turbo_nii": turbo_nii.LAUNCHES,
-                "viterbi37": viterbi37.LAUNCHES}
-    ms_first = e0.elapsed_time(e1)
-
+    res, launches, ms_first, ms, peak = counted_run(
+        lambda: ue_dl_tm4_batch(st.samples, st.cfg, st.plan))
     b1, b2 = res.tb_bits
     ok1, ok2 = res.crc_ok
     checks = {
@@ -421,23 +542,14 @@ def phase_main_path():
         "turbo_launched": launches["turbo_nii"] > 0,
         "viterbi_launched": launches["viterbi37"] > 0,
     }
-    reps = 3
-    e0.record()
-    for _ in range(reps):
-        run()
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / reps
     tbs = st.plan.tbs
     emit({"phase": "main_path", "batch": BATCH, "nof_prb": 100,
           "mcs": 25, "tbs": tbs, "codewords": 2, "tx_s": round(tx_s, 3),
           "ms_per_batch": ms, "ms_counted_run": ms_first,
           "mbps": BATCH * 2 * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": res.iterations, "launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "checks": checks})
-    failed = [k for k, v in checks.items() if not v]
-    assert not failed, f"main path checks failed: {failed}"
+          "peak_mem_gb": peak, "checks": checks})
+    check("main path", checks)
     return launches
 
 
@@ -590,8 +702,6 @@ def phase_uplink():
     import torch
 
     from empower_srslte_tpu_torch.models.ue_ul import ul_uci_stimulus
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
-        viterbi37
 
     t0 = time.perf_counter()
     st = ul_uci_stimulus(BATCH, UL_N0, device="cuda")
@@ -603,20 +713,8 @@ def phase_uplink():
     vit = viterbi_kernel_check(
         "kernel_viterbi_uplink", [(len(st.plan.uci.cqi_bits) + 8, BATCH)],
         seed=7)
-    run_uplink(st, UL_N0)                                  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    turbo_nii.LAUNCHES = turbo_win.LAUNCHES = viterbi37.LAUNCHES = 0
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out, its = run_uplink(st, UL_N0)
-    e1.record()
-    torch.cuda.synchronize()
-    launches = {"turbo_win": turbo_win.LAUNCHES,
-                "viterbi37": viterbi37.LAUNCHES,
-                "turbo_nii": turbo_nii.LAUNCHES}
-    ms_first = e0.elapsed_time(e1)
+    (out, its), launches, ms_first, ms, peak = counted_run(
+        lambda: run_uplink(st, UL_N0))
     errs = uci_errors(out, st.plan)
     checks = {
         "crc_ok": bool(out["crc_ok"].all()),
@@ -627,13 +725,6 @@ def phase_uplink():
         "viterbi_launched": launches["viterbi37"] > 0,
         "no_nii_launch": launches["turbo_nii"] == 0,
     }
-    reps = 3
-    e0.record()
-    for _ in range(reps):
-        run_uplink(st, UL_N0)
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / reps
     tbs = st.plan.tbs
     emit({"phase": "uplink_path", "batch": BATCH, "nof_prb": 100,
           "n_prb": st.cfg.n_prb, "mcs": 20, "tbs": tbs, "n0": UL_N0,
@@ -642,10 +733,8 @@ def phase_uplink():
           "ms_per_batch": ms, "ms_counted_run": ms_first,
           "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": its, "launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "checks": checks})
-    failed = [k for k, v in checks.items() if not v]
-    assert not failed, f"uplink path checks failed: {failed}"
+          "peak_mem_gb": peak, "checks": checks})
+    check("uplink path", checks)
     return launches, vit
 
 
@@ -674,6 +763,264 @@ def phase_uplink_midsnr():
           "turbo_iterations": its, "uci_errors": uci_errors(out, st.plan)})
     assert its[0] > 1, f"mid-SNR run did not iterate: {its}"
     assert bler <= 0.5, f"mid-SNR BLER {bler}"
+
+
+def phase_tm2():
+    """TM2 on 4 ports (SFBC-FSTD) through ``pdsch_decode`` with a genie
+    channel: 256 subframes on the float32 lane (``tm2_path``), then the
+    same draws on the int8 lane (``tm2_int8_path``), whose bits must equal
+    the float32 lane's."""
+    import dataclasses
+
+    import torch
+
+    from empower_srslte_tpu_torch.models import ra
+    from empower_srslte_tpu_torch.models.enb_dl import genie_stimulus
+    from empower_srslte_tpu_torch.models.pdsch import (PdschConfig,
+                                                       pdsch_decode)
+    from empower_srslte_tpu_torch.ops.equalizer import MimoType
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    mod, tbs = ra.mcs_to_tbs(TM2_MCS, 100)
+    cfg = PdschConfig(cell=Cell(nof_prb=100, nof_ports=4, id=1), sf_idx=1,
+                      cfi=1, rnti=0x1234, mod=mod, mimo=MimoType.DIVERSITY,
+                      nof_layers=4)
+    t0 = time.perf_counter()
+    st = genie_stimulus(cfg, cfg.plan(tbs), BATCH, DL_N0, seed=21,
+                        device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    # both lanes decode in float32 at the same turbo geometry
+    twin = nii_path_check("tm2", st.plan.segm.cb_sizes, BATCH, seed=31)
+    out = {}
+    for phase, c in (("tm2_path", cfg),
+                     ("tm2_int8_path", dataclasses.replace(cfg,
+                                                           llr_int8=True))):
+        its: list = []
+
+        def run():
+            its.clear()
+            return pdsch_decode(st.y, st.h, c, st.plan, noise_est=DL_N0,
+                                iters_out=its)
+
+        (bits, ok, soft), launches, ms_first, ms, peak = counted_run(run)
+        out[phase] = dict(bits=bits, launches=launches)
+        checks = {"crc_ok": bool(ok.all()),
+                  "bits_equal": bool(torch.equal(bits, st.tbs[0])),
+                  "turbo_launched": launches["turbo_nii"] > 0}
+        if c.llr_int8:
+            checks["bits_equal_f32_lane"] = bool(
+                torch.equal(bits, out["tm2_path"]["bits"]))
+            checks["int8_softbuffers"] = all(s.dtype == torch.int8
+                                             for s in soft)
+        emit({"phase": phase, "batch": BATCH, "nof_prb": 100, "ports": 4,
+              "rx": 2, "mimo": "diversity", "mcs": TM2_MCS, "tbs": tbs,
+              "n0": DL_N0, "channel": "iid per PRB and symbol",
+              "llr_int8": c.llr_int8, "tx_s": round(tx_s, 3),
+              "ms_per_batch": ms, "ms_counted_run": ms_first,
+              "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
+              "turbo_iterations": list(its), "launches": launches,
+              "nii_twin_max_abs_err": twin,
+              "softbuffer_bytes_per_tb": soft_bytes_per_tb(
+                  [s[0] for s in soft]),
+              "peak_mem_gb": peak, "checks": checks})
+        check(phase, checks)
+    return {k: v["launches"] for k, v in out.items()}
+
+
+def phase_tm3():
+    """TM3 large-delay CDD, 2 layers, 2 codewords, through
+    ``pdsch_decode`` with the "20mimo" genie channel (i.i.d. per RE)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import ra
+    from empower_srslte_tpu_torch.models.enb_dl import genie_stimulus
+    from empower_srslte_tpu_torch.models.pdsch import (PdschConfig,
+                                                       pdsch_decode)
+    from empower_srslte_tpu_torch.ops.equalizer import MimoType
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    mod, tbs = ra.mcs_to_tbs(TM3_MCS, 100)
+    cfg = PdschConfig(cell=Cell(nof_prb=100, nof_ports=2, id=1), sf_idx=1,
+                      cfi=1, rnti=0x1234, mod=mod, mimo=MimoType.CDD,
+                      nof_layers=2, nof_codewords=2)
+    plan = cfg.plan(tbs)
+    t0 = time.perf_counter()
+    st = genie_stimulus(cfg, plan, BATCH, DL_N0, seed=23, device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    # both codewords share the plan: one turbo batch of 2 x BATCH TBs
+    twin = nii_path_check("tm3", plan.segm.cb_sizes, 2 * BATCH, seed=32)
+    its: list = []
+
+    def run():
+        its.clear()
+        return pdsch_decode(st.y, st.h, cfg, plan, noise_est=DL_N0,
+                            plan2=plan, iters_out=its)
+
+    (bits, ok, _), launches, ms_first, ms, peak = counted_run(run)
+    checks = {"crc_ok": bool(ok[0].all() and ok[1].all()),
+              "bits_equal": all(bool(torch.equal(b, t))
+                                for b, t in zip(bits, st.tbs)),
+              "turbo_launched": launches["turbo_nii"] > 0}
+    emit({"phase": "tm3_path", "batch": BATCH, "nof_prb": 100, "ports": 2,
+          "rx": 2, "mimo": "cdd", "codewords": 2, "mcs": TM3_MCS,
+          "tbs": tbs, "n0": DL_N0, "channel": "iid per RE",
+          "tx_s": round(tx_s, 3), "ms_per_batch": ms,
+          "ms_counted_run": ms_first,
+          "mbps": BATCH * 2 * tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": list(its), "launches": launches,
+          "nii_twin_max_abs_err": twin,
+          "peak_mem_gb": peak, "checks": checks})
+    check("tm3_path", checks)
+    return launches
+
+
+def phase_ue_dl_frame():
+    """The no-genie per-subframe receiver ``ue_dl_decode`` over a radio
+    frame of the 4-port TM2 cell (``tm2_frame_stimulus``): CFI, the C-RNTI
+    grant, its PDSCH and the PHICH in every subframe, the SI-RNTI format
+    1C grant in sf 5 (a second call), and the int8-lane HARQ pair of sf 2
+    (fails alone) and sf 3 (decodes combined)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import dci as dci_mod
+    from empower_srslte_tpu_torch.models import enb_dl
+    from empower_srslte_tpu_torch.models.dci import DciDl, DciDl1C
+    from empower_srslte_tpu_torch.models.pdcch import ue_search_candidates
+    from empower_srslte_tpu_torch.models.regs import pdcch_nof_cces
+    from empower_srslte_tpu_torch.models.ue_dl import ue_dl_decode
+    from empower_srslte_tpu_torch.ops.equalizer import MimoType
+    from empower_srslte_tpu_torch.ops.fec.cbsegm import cbsegm
+
+    t0 = time.perf_counter()
+    fr = enb_dl.tm2_frame_stimulus(device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    harq_sfs = enb_dl.FRAME_HARQ_SFS
+
+    # the kernels against their twins at the frame's shapes: one TB per
+    # call (the C-RNTI's, and the SI-RNTI's in sf 5), and each call's
+    # blind search, one Viterbi batch per DCI size over its candidates
+    # (formats 1A, 1 and 2, or 1C for the SI-RNTI, as ue_dl_decode picks)
+    nii_twin = {**nii_path_check("frame", cbsegm(fr.tb[0].numel()).cb_sizes,
+                                 1, seed=33),
+                **nii_path_check("frame_si", cbsegm(fr.si_tb.numel()).cb_sizes,
+                                 1, seed=34)}
+    prb = fr.cell.nof_prb
+    n_cce = pdcch_nof_cces(fr.cell, enb_dl.FRAME_CFI)
+    vit_geos = set()
+    for sf, rnti in [(sf, fr.rnti) for sf in range(10)] \
+            + [(enb_dl.FRAME_SI_SF, 0xFFFF)]:
+        last = (dci_mod.format1c_size(prb) if rnti == 0xFFFF
+                else dci_mod.format2_size(prb))
+        words = len(ue_search_candidates(rnti, sf, n_cce))
+        vit_geos |= {(size + 16, words) for size in (
+            dci_mod.format0_1a_size(prb), dci_mod.format1_size(prb), last)}
+    vit_twin = vit_path_check("frame", vit_geos, seed=35)
+
+    def run():
+        harq: dict = {}
+        out = []
+        for sf in range(10):
+            out.append(ue_dl_decode(
+                fr.samples[sf], fr.cell, sf, fr.rnti,
+                mimo=MimoType.DIVERSITY, harq_state=harq, phich=fr.phich,
+                llr_int8=sf in harq_sfs))
+            if sf == enb_dl.FRAME_SI_SF:
+                out.append(ue_dl_decode(fr.samples[sf], fr.cell, sf, 0xFFFF,
+                                        mimo=MimoType.DIVERSITY))
+        return out
+
+    res, launches, ms_first, ms, peak = counted_run(run)
+    calls = len(res)
+    per_sf, checks = [], {}
+    ok_all = {"cfi": True, "dci": True, "crc": True, "bits": True,
+              "phich": True}
+    by_call = iter(res)
+    for sf in range(10):
+        r = next(by_call)
+        hit = [x for x in r if isinstance(x.dci, DciDl)]
+        want_ok = sf != harq_sfs[0]
+        crc = bool(hit) and hit[0].crc_ok
+        ok_all["cfi"] &= all(x.cfi == enb_dl.FRAME_CFI for x in r)
+        ok_all["dci"] &= len(hit) == 1
+        ok_all["crc"] &= crc == want_ok
+        ok_all["bits"] &= (not want_ok or crc and bool(
+            (torch.as_tensor(hit[0].tb_bits) == fr.tb[sf].cpu()).all()))
+        ok_all["phich"] &= all(x.phich_ack == bool(fr.acks[sf]) for x in r)
+        per_sf.append({"sf": sf, "crc_ok": crc, "ack_sent": fr.acks[sf],
+                       "snr_db": fr.snr_db[sf]})
+        if sf == enb_dl.FRAME_SI_SF:
+            si = next(by_call)
+            hit1c = [x for x in si if isinstance(x.dci, DciDl1C)]
+            checks["si_1c_decoded"] = (
+                len(hit1c) == 1 and hit1c[0].crc_ok and bool(
+                    (torch.as_tensor(hit1c[0].tb_bits)
+                     == fr.si_tb.cpu()).all()))
+    checks.update({f"{k}_all_subframes": v for k, v in ok_all.items()})
+    checks["harq_sf2_fails_alone"] = per_sf[harq_sfs[0]]["crc_ok"] is False
+    checks["harq_sf3_combined_ok"] = per_sf[harq_sfs[1]]["crc_ok"] is True
+    checks["turbo_launched"] = launches["turbo_nii"] > 0
+    checks["viterbi_launched"] = launches["viterbi37"] > 0
+    # the TBs whose CRC passed: sf 2's copy fails, sf 3 decodes that TB
+    decoded_bits = sum(int(fr.tb[x["sf"]].numel()) for x in per_sf
+                       if x["crc_ok"]) \
+        + int(fr.si_tb.numel()) * checks["si_1c_decoded"]
+    emit({"phase": "ue_dl_frame", "nof_prb": enb_dl.FRAME_NOF_PRB,
+          "ports": 4, "rx": 1, "cfi": enb_dl.FRAME_CFI,
+          "mcs": enb_dl.FRAME_MCS, "subframes": 10, "calls": calls,
+          "snr_db": enb_dl.FRAME_SNR_DB,
+          "harq_snr_db": enb_dl.FRAME_HARQ_SNR_DB,
+          "harq_subframes": list(harq_sfs), "phich": list(fr.phich),
+          "tbs": int(fr.tb[0].numel()), "tx_s": round(tx_s, 3),
+          "ms_per_frame": ms, "ms_per_call": ms / calls,
+          "ms_counted_run": ms_first,
+          "mbps": decoded_bits / (ms * 1e-3) / 1e6,
+          "launches": launches, "nii_twin_max_abs_err": nii_twin,
+          "viterbi_twin_mismatched_bits": vit_twin, "peak_mem_gb": peak,
+          "per_subframe": per_sf, "checks": checks})
+    check("ue_dl_frame", checks)
+    return launches
+
+
+def phase_uplink_int8():
+    """The uplink path's grant without UCI (``ul_stimulus``: 256 subframes,
+    n0 1e-3) through ``pusch_decode`` on the int8 LLR lane."""
+    import dataclasses
+
+    import torch
+
+    from empower_srslte_tpu_torch.models.pusch import pusch_decode
+    from empower_srslte_tpu_torch.models.ue_ul import (enb_ul_receive_grid,
+                                                       ul_stimulus)
+
+    st = ul_stimulus(BATCH, UL_N0, device="cuda")
+    cfg = dataclasses.replace(st.cfg, llr_int8=True)
+    its: list = []
+
+    def run():
+        its.clear()
+        return pusch_decode(enb_ul_receive_grid(st.samples, cfg.cell), cfg,
+                            st.plan, noise_est=UL_N0, iters_out=its)
+
+    (bits, ok, soft), launches, ms_first, ms, peak = counted_run(run)
+    checks = {"crc_ok": bool(ok.all()),
+              "bits_equal": bool(torch.equal(bits, st.tb)),
+              "int8_softbuffers": all(s.dtype == torch.int8 for s in soft),
+              "turbo_win_launched": launches["turbo_win"] > 0,
+              "no_nii_launch": launches["turbo_nii"] == 0}
+    tbs = st.plan.tbs
+    emit({"phase": "uplink_int8", "batch": BATCH, "nof_prb": 100,
+          "n_prb": st.cfg.n_prb, "mcs": 20, "tbs": tbs, "n0": UL_N0,
+          "ms_per_batch": ms, "ms_counted_run": ms_first,
+          "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": list(its), "launches": launches,
+          "softbuffer_bytes_per_tb": soft_bytes_per_tb(
+              [s[0] for s in soft]),
+          "peak_mem_gb": peak, "checks": checks})
+    check("uplink_int8", checks)
+    return launches
 
 
 def n_candidates() -> int:
@@ -710,7 +1057,8 @@ def main() -> int:
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
         "kernel_viterbi", [(55, words), (44, words)], seed=3,
-        extra=[(20, 512, TRAIN_LEN, "noisy"), (64, 512, TRAIN_LEN, "noisy"),
+        extra=[(20, 512, TRAIN_LEN, "noisy"), (31, 512, TRAIN_LEN, "noisy"),
+               (64, 512, TRAIN_LEN, "noisy"),
                (256, 512, TRAIN_LEN, "noisy"), (55, 512, None, "noisy"),
                (256, 256, None, "noisy"), (55, 512, TRAIN_LEN, "ints"),
                (20, 512, None, "ints")])
@@ -719,24 +1067,47 @@ def main() -> int:
     launches = phase_main_path()
     ul_launches, vit_ul = phase_uplink()
     phase_uplink_midsnr()
+    tm2 = phase_tm2()
+    tm3 = phase_tm3()
+    frame = phase_ue_dl_frame()
+    ul8 = phase_uplink_int8()
+    # every path geometry was asserted exact in its phase; fold it in
+    turbo["max_abs_err"] = max([turbo["max_abs_err"],
+                                *PATH_TWIN["turbo_nii"].values()])
+    by_path = {"main_path": launches, "uplink_path": ul_launches, **tm2,
+               "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8}
+
+    def per_path(name):
+        return {k: v[name] for k, v in by_path.items() if v.get(name)}
+
     emit({"kernels": [
         {"name": "turbo_nii", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/turbo_nii.cu",
          "replaces": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas2.py:220",
-         "launches": launches["turbo_nii"], **turbo, "library_ms": None},
+         "launches": launches["turbo_nii"],
+         "launches_by_path": per_path("turbo_nii"), **turbo,
+         "max_abs_err_by_path_geometry": PATH_TWIN["turbo_nii"],
+         "library_ms": None},
         {"name": "viterbi37", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/viterbi37.cu",
          "replaces": "empower_srslte_tpu/ops/fec/viterbi_pallas.py:146",
-         "launches": launches["viterbi37"], **vit, "library_ms": None,
+         "launches": launches["viterbi37"],
+         "launches_by_path": per_path("viterbi37"), **vit,
+         "mismatched_bits_by_path_geometry": PATH_TWIN["viterbi37"],
+         "library_ms": None,
          "uplink": {"launches": ul_launches["viterbi37"], **vit_ul}},
         {"name": "turbo_win", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/turbo_win.cu",
          "replaces": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas.py:196",
-         "launches": ul_launches["turbo_win"], **win, "library_ms": None},
+         "launches": ul_launches["turbo_win"],
+         "launches_by_path": per_path("turbo_win"), **win,
+         "library_ms": None},
         {"name": "recursion_probe", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",
          "replaces": "tools/microbench_vpu.py:55",
-         "launches": rec_launches, **rec, "library_ms": None},
+         "launches": rec_launches,
+         "launches_by_path": {"microbench_recursion": rec_launches}, **rec,
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 """PyTorch + CUDA port of the LTE PHY framework: the UE downlink receiver
-and the eNB PUSCH receiver with UCI.
+in every transmission mode (with PHICH, the common search space and the
+int8 LLR lane), measurement reporting, and the eNB PUSCH receiver with
+UCI.
 
 A second package beside the JAX reference (``empower_srslte_tpu``, left
 unchanged); it imports torch and numpy and nothing of the reference.

@@ -128,10 +128,16 @@ def uci_plan_from_fields(f: dict) -> UciPlan:
 
 
 def softbuffers_from_numpy(softbuffers, device=None) -> list[torch.Tensor]:
-    """Per-CB numpy softbuffers [..., 3*(K+4)] -> float32 tensors."""
+    """Per-CB numpy softbuffers [..., 3*(K+4)] -> tensors: int8 HARQ state
+    (the 8-bit LLR lane's) stays int8, any other float32."""
     dev = resolve_device(device)
-    return [torch.tensor(np.asarray(s, np.float32), device=dev)
-            for s in softbuffers]
+
+    def one(s):
+        s = np.asarray(s)
+        return torch.tensor(s if s.dtype == np.int8 else s.astype(np.float32),
+                            device=dev)
+
+    return [one(s) for s in softbuffers]
 
 
 def softbuffers_to_numpy(softbuffers) -> list[np.ndarray]:

@@ -1,4 +1,4 @@
-"""eNB downlink subframe composition, and the 2x2 TM4 test transmitter.
+"""eNB downlink subframe composition, and the test transmitters.
 
 Capability parity with lib/src/phy/enb/enb_dl.c: an empty grid with the
 CRS placed (put_base, enb_dl.c:323-388), the control and shared channels
@@ -9,7 +9,11 @@ enb_dl.c:389). Batched: every function takes/returns leading batch dims.
 20 MHz 2x2 TM4 two-codeword subframes with PCFICH, one DCI and PDSCH,
 through a per-subframe 2x2 channel and AWGN — the same construction and
 the same numpy random draws as the JAX package's full-chain UE receiver
-benchmark (bench.py ``bench_uedl(mimo=True)``).
+benchmark (bench.py ``bench_uedl(mimo=True)``). ``enb_dl_subframe``
+composes one subframe of any cell; ``genie_stimulus`` builds PDSCH batches
+through a genie channel (the benchmark's "20mimo" construction) and
+``tm2_frame_stimulus`` a radio frame of a 4-port TM2 cell with PHICH, a
+format 1C grant and a HARQ retransmission.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from ..ops.ofdm import ofdm_tx_sf
 from ..utils.cell import Cell
 from ..utils.device import device_table, resolve_device
+from . import ra
 from .refsignal import crs_pilots
 
 
@@ -135,7 +140,6 @@ def tm4_stimulus(batch: int, *, device=None) -> Tm4Stimulus:
     RNTI 0x1234, one format-1 DCI at L=4, CCE 0) at the ``TM4_*``
     settings, drawing bits, channel and noise in the JAX benchmark's
     order."""
-    from . import ra
     from .dci import format1_size
     from .pdsch import PdschConfig
     from ..ops.equalizer import MimoType
@@ -158,3 +162,191 @@ def tm4_stimulus(batch: int, *, device=None) -> Tm4Stimulus:
                          noise, cfg, plan,
                          torch.as_tensor(d["dci_bits"], device=dev), 0, 4)
     return Tm4Stimulus(cfg, plan, samples, tb_t, tb2_t)
+
+
+def enb_dl_subframe(cell: Cell, sf_idx: int, cfi: int, *, dcis=(),
+                    phichs=(), pdschs=(), device=None):
+    """One subframe's per-port grid [P, nsymb, nre] (enb_dl.c put_base,
+    put_pcfich, put_pdcch_dl, put_phich, put_pdsch): CRS, the CFI, each
+    DCI of ``dcis`` as (bits, rnti, cce, L), each PHICH of ``phichs`` as
+    (ack, group, seq) and each PDSCH of ``pdschs`` as (tb_bits [tbs],
+    PdschConfig, DlschPlan) on the ports its scheme uses."""
+    from .pcfich import pcfich_put
+    from .pdcch import pdcch_encode
+    from .pdsch import pdsch_encode
+    from .phich import phich_put
+
+    grid = pcfich_put(enb_dl_base_grid(cell, sf_idx, device=device), cfi,
+                      cell, sf_idx)
+    for bits, rnti, cce, l in dcis:
+        grid = grid + pdcch_encode(torch.as_tensor(bits, device=grid.device),
+                                   rnti, cce, l, cell, cfi, sf_idx)
+    for ack, group, seq in phichs:
+        grid = phich_put(grid, ack, cell, sf_idx, group, seq)
+    for tb, cfg, plan in pdschs:
+        ports = pdsch_encode(tb[None], cfg, plan)[0]
+        grid = torch.cat([grid[:ports.shape[0]] + ports,
+                          grid[ports.shape[0]:]])
+    return grid
+
+
+@dataclass
+class GenieStimulus:
+    """A genie-channel PDSCH batch: what ``pdsch_decode`` receives, with
+    the channel it is given, and the TBs it must decode to."""
+
+    cfg: object                  # PdschConfig
+    plan: object                 # DlschPlan (every codeword)
+    y: torch.Tensor              # [B, rx, nsymb, nre] complex64
+    h: torch.Tensor              # [B, rx, P, nsymb, nre] complex64
+    tbs: list                    # per codeword [B, tbs] int8
+    n0: float                    # noise per received RE
+
+
+def genie_stimulus(cfg, plan, batch: int, n0: float, *, seed: int = 0,
+                   device=None) -> GenieStimulus:
+    """``batch`` PDSCH subframes of ``cfg`` (one TB per codeword) through
+    an i.i.d. complex normal channel h [B, rx=2, port, nsymb, nre] (unit
+    variance per component) plus AWGN of ``n0`` per RE: the construction
+    of the JAX package's "20mimo" receiver benchmark (bench.py:160-172).
+    For TM2 (``MimoType.DIVERSITY``) h is drawn once per (PRB, symbol) and
+    held over the PRB's 12 subcarriers: SFBC combines a pair (a quad with
+    SFBC-FSTD) of REs under one channel, which an i.i.d.-per-RE draw would
+    break. TB bits, h and noise are drawn on the device from ``seed``."""
+    from .pdsch import pdsch_encode
+    from ..ops.equalizer import MimoType
+
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cell = cfg.cell
+    tbs = [torch.randint(0, 2, (batch, plan.tbs), generator=g, device=dev,
+                         dtype=torch.int8)
+           for _ in range(cfg.nof_codewords)]
+    extra = (tbs[1], plan) if cfg.nof_codewords == 2 else ()
+    ports = pdsch_encode(tbs[0], cfg, plan, *extra)     # [B, P, S, K]
+
+    def cn(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device=dev),
+                             torch.randn(shape, generator=g, device=dev))
+
+    n_rx, n_tx = 2, ports.shape[1]
+    if cfg.mimo is MimoType.DIVERSITY:
+        h = torch.repeat_interleave(
+            cn(batch, n_rx, n_tx, cell.nsymb_sf, cell.nof_prb), 12, dim=-1)
+    else:
+        h = cn(batch, n_rx, n_tx, cell.nsymb_sf, cell.nof_re)
+    y = torch.einsum("brpsk,bpsk->brsk", h, ports) \
+        + float(np.sqrt(n0 / 2)) * cn(batch, n_rx, cell.nsymb_sf,
+                                      cell.nof_re)
+    return GenieStimulus(cfg, plan, y, h, tbs, n0)
+
+
+#: the 4-port TM2 frame: Cell(100 PRB, 4 ports, id 1), cfi 2, C-RNTI
+#: 0x1234 with a format 1 grant (MCS 16) on SFBC-FSTD in every subframe,
+#: an SI-RNTI format 1C grant (i_tbs 9, 4 PRB) in sf 5, one PHICH; SNR
+#: 25 dB, the HARQ pair (sf 2 rv 0, sf 3 rv 2) at FRAME_HARQ_SNR_DB
+FRAME_NOF_PRB, FRAME_CFI, FRAME_MCS, FRAME_SEED = 100, 2, 16, 11
+FRAME_SNR_DB, FRAME_SI_SF, FRAME_HARQ_SFS = 25.0, 5, (2, 3)
+#: per-subframe SNR of the HARQ pair: the rv 0 copy alone fails on the
+#: int8 lane, the two combined decode (chosen on the CPU with the port)
+FRAME_HARQ_SNR_DB = 5.0
+#: flat per-port gains of the one rx antenna's channel
+FRAME_GAINS = (0.9 + 0.3j, -0.4 + 0.8j, 0.7 - 0.6j, 0.2 + 0.9j)
+#: the UL allocation whose PHICH the UE expects (lowest PRB)
+FRAME_UL_PRB_START = 8
+
+
+@dataclass
+class DlFrame:
+    """Ten subframes of the TM2 frame and what each must decode to."""
+
+    cell: Cell
+    rnti: int
+    samples: torch.Tensor        # [10, sf_len] complex64, one rx antenna
+    tb: list                     # per subframe [tbs] int8 (C-RNTI grant)
+    si_tb: torch.Tensor          # [tbs] int8 (SI-RNTI grant, FRAME_SI_SF)
+    phich: tuple                 # (group, seq) of the expected PHICH
+    acks: list                   # per subframe the PHICH bit sent
+    snr_db: list                 # per subframe
+
+
+def tm2_frame_stimulus(*, device=None) -> DlFrame:
+    """A radio frame (sf 0-9) of the 4-port TM2 cell at the ``FRAME_*``
+    settings as time samples at one rx antenna. Every subframe carries
+    PCFICH, the C-RNTI's format 1 grant (HARQ process sf % 8; sf 3
+    retransmits sf 2's TB with rv 2 under its process and NDI) and a
+    PHICH; sf 5 also carries an SI-RNTI format 1C grant, whose PRBs the
+    C-RNTI's allocation leaves free in every subframe. Bits and noise are
+    numpy draws from ``FRAME_SEED``."""
+    from . import dci as dci_mod
+    from .pdcch import ue_search_candidates
+    from .pdsch import PdschConfig
+    from .phich import phich_resource
+    from .regs import pdcch_nof_cces
+    from ..ops.equalizer import MimoType
+    from ..ops.modem import Mod
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(FRAME_SEED)
+    cell = Cell(nof_prb=FRAME_NOF_PRB, nof_ports=4, id=1)
+    rnti, si_rnti, cfi = 0x1234, 0xFFFF, FRAME_CFI
+    n_cce = pdcch_nof_cces(cell, cfi)
+    step = ra.type2_n_rb_step(cell.nof_prb)
+    si_bits = dci_mod.pack_format1c(cell.nof_prb, 0, step, 9)
+    si = dci_mod.unpack_format1c(si_bits, cell.nof_prb)
+    si_prbs = np.asarray(si.prb_mask) | np.asarray(si.prb_mask_slot1)
+    rbg = ra.rbg_size(cell.nof_prb)
+    n_rbg = -(-cell.nof_prb // rbg)
+    bitmap = sum(1 << (n_rbg - 1 - r) for r in range(n_rbg)
+                 if not si_prbs[r * rbg:(r + 1) * rbg].any())
+    mask = ra.prb_mask_type0(cell.nof_prb, bitmap)
+    mod, tbs = ra.mcs_to_tbs(FRAME_MCS, sum(mask))
+    si_tbs = int(ra.tbs_format1c_table()[si.i_tbs])
+    phich = phich_resource(cell, FRAME_UL_PRB_START)
+    gains = torch.tensor(FRAME_GAINS, dtype=torch.complex64, device=dev)
+
+    tb_list, acks, snrs, samples = [], [], [], []
+    si_tb = torch.as_tensor(rng.integers(0, 2, si_tbs).astype(np.int8),
+                            device=dev)
+    for sf in range(10):
+        retx = sf == FRAME_HARQ_SFS[1]
+        pid = (FRAME_HARQ_SFS[0] if retx else sf) % 8
+        ndi = (sf // 8) & 1
+        rv = 2 if retx else 0
+        tb = tb_list[-1] if retx else torch.as_tensor(
+            rng.integers(0, 2, tbs).astype(np.int8), device=dev)
+        ack = int(rng.integers(0, 2))
+        cfg = PdschConfig(cell=cell, sf_idx=sf, cfi=cfi, rnti=rnti, mod=mod,
+                          mimo=MimoType.DIVERSITY, nof_layers=4,
+                          prb_mask=mask)
+        bits = dci_mod.pack_format1(cell.nof_prb, bitmap, FRAME_MCS,
+                                    harq_pid=pid, ndi=ndi, rv=rv)
+        # the C-RNTI's PDCCH: an L=4 candidate clear of the SI's CCEs 0-3
+        l, cce = next(c for c in ue_search_candidates(rnti, sf, n_cce)
+                      if c[0] == 4 and c[1] >= 4)
+        dcis = [(bits, rnti, cce, l)]
+        pdschs = [(tb, cfg, cfg.plan(tbs, rv=rv))]
+        if sf == FRAME_SI_SF:
+            si_cfg = PdschConfig(cell=cell, sf_idx=sf, cfi=cfi, rnti=si_rnti,
+                                 mod=Mod.QPSK, mimo=MimoType.DIVERSITY,
+                                 nof_layers=4, prb_mask=si.prb_mask,
+                                 prb_mask_slot1=si.prb_mask_slot1)
+            dcis.append((si_bits, si_rnti, 0, 4))
+            pdschs.append((si_tb, si_cfg, si_cfg.plan(si_tbs)))
+        grid = enb_dl_subframe(cell, sf, cfi, dcis=dcis,
+                               phichs=[(ack, *phich)], pdschs=pdschs,
+                               device=dev)
+        # flat per-port gains at the one rx antenna, AWGN at ``snr`` of
+        # the mean received power
+        x = torch.einsum("p,pt->t", gains, enb_dl_gen_signal(grid, cell))
+        snr = FRAME_HARQ_SNR_DB if sf in FRAME_HARQ_SFS else FRAME_SNR_DB
+        sigma = torch.sqrt(torch.mean(x.abs() ** 2) * 10 ** (-snr / 10) / 2)
+        nz = rng.normal(size=(2, cell.sf_sample_len)).astype(np.float32)
+        samples.append(x + sigma * torch.complex(
+            torch.as_tensor(nz[0], device=dev),
+            torch.as_tensor(nz[1], device=dev)))
+        tb_list.append(tb)
+        acks.append(ack)
+        snrs.append(snr)
+    return DlFrame(cell, rnti, torch.stack(samples), tb_list, si_tb, phich,
+                   acks, snrs)

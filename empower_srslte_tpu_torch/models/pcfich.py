@@ -1,7 +1,8 @@
 """PCFICH: control format indicator channel (36.211 6.7, 36.212 5.3.4).
 
 Capability parity with lib/src/phy/phch/pcfich.c: the 3 fixed 32-bit CFI
-codewords, scrambling, QPSK, mapping to 4 quarter-spaced REGs of symbol
+codewords, scrambling, QPSK, single-port, 2-port SFBC or 4-port
+SFBC-FSTD transmit diversity, mapping to 4 quarter-spaced REGs of symbol
 0; decoding by correlating the received soft bits against the codewords.
 """
 
@@ -12,7 +13,8 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.equalizer import eq_sfbc, precode_sfbc
+from ..ops.equalizer import (eq_sfbc, eq_sfbc_fstd, precode_sfbc,
+                             precode_sfbc_fstd)
 from ..ops.modem import Mod, demod_soft, modulate
 from ..ops.scrambling import descramble_llrs, scramble_bits
 from ..utils.cell import Cell
@@ -35,23 +37,21 @@ def _re_indices(cell: Cell) -> np.ndarray:
     return np.asarray(idx, np.int64)
 
 
-def _check_ports(cell: Cell):
-    if cell.nof_ports not in (1, 2):
-        raise NotImplementedError("4-port SFBC-FSTD control is not ported")
-
-
 def pcfich_put(grid, cfi: int, cell: Cell, sf_idx: int):
     """Insert the CFI codeword into grid [..., P, nsymb, nre] — single
-    port or 2-port SFBC (srslte_pcfich_encode). Returns a new grid."""
-    _check_ports(cell)
+    port, 2-port SFBC or 4-port SFBC-FSTD (srslte_pcfich_encode). Returns
+    a new grid."""
     dev = grid.device
     bits = torch.as_tensor(CFI_CODEWORDS[cfi - 1], device=dev)
     syms = modulate(scramble_bits(bits, cinit_pcfich(2 * sf_idx, cell.id)),
                     Mod.QPSK)
     if cell.nof_ports == 1:
         port_syms = syms[None]
-    else:
+    elif cell.nof_ports == 2:
         port_syms = precode_sfbc(torch.stack([syms[0::2], syms[1::2]]))
+    else:
+        port_syms = precode_sfbc_fstd(torch.stack([syms[i::4]
+                                                   for i in range(4)]))
     idx = device_table(("pcfich_re", cell), dev, lambda: _re_indices(cell))
     out = grid.clone()
     flat = out.view(*grid.shape[:-2], -1)
@@ -63,9 +63,8 @@ def pcfich_decode(grid, h, cell: Cell, sf_idx: int, noise_est=0.0):
     """Decode CFI -> (cfi [...], corr [...]).
 
     grid [..., nsymb, nre]; h [..., nsymb, nre] (single port) or
-    [..., P, nsymb, nre]: MRC / SFBC combining, then correlation against
-    the 3 codewords (srslte_pcfich_decode)."""
-    _check_ports(cell)
+    [..., P, nsymb, nre]: MRC / SFBC / SFBC-FSTD combining, then
+    correlation against the 3 codewords (srslte_pcfich_decode)."""
     idx = device_table(("pcfich_re", cell), grid.device,
                        lambda: _re_indices(cell))
     y = grid[..., 0, :][..., idx]
@@ -75,8 +74,10 @@ def pcfich_decode(grid, h, cell: Cell, sf_idx: int, noise_est=0.0):
         x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
                                              min=1e-12)
     else:
-        x, _csi = eq_sfbc(y[..., None, :], h[..., 0, 0, :][..., idx][..., None, :],
-                          h[..., 1, 0, :][..., idx][..., None, :])
+        hp = [h[..., p, 0, :][..., idx][..., None, :]
+              for p in range(h.shape[-3])]
+        eq = eq_sfbc if len(hp) == 2 else eq_sfbc_fstd
+        x, _csi = eq(y[..., None, :], *hp)
     llr = descramble_llrs(demod_soft(x, Mod.QPSK),
                           cinit_pcfich(2 * sf_idx, cell.id))
     signs = device_table("cfi_signs", grid.device, lambda: (

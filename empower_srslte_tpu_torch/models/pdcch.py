@@ -71,17 +71,13 @@ def ue_search_candidates(rnti: int, sf_idx: int, n_cce: int):
     return uniq
 
 
-def _check_ports(cell: Cell):
-    if cell.nof_ports not in (1, 2):
-        raise NotImplementedError("4-port SFBC-FSTD control is not ported")
-
-
 def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
                  cfi: int, sf_idx: int, ng: float = 1.0):
-    """One DCI -> grid contribution [..., P, nsymb, nre] (SFBC on 2-port
-    cells). The region scrambling sequence offset follows the CCE
-    position so independent PDCCHs compose additively."""
-    _check_ports(cell)
+    """One DCI -> grid contribution [..., P, nsymb, nre]. The region
+    scrambling sequence offset follows the CCE position so independent
+    PDCCHs compose additively. A cell of 2 or more ports gets 2-port SFBC
+    on ports 0 and 1 with ports 2 and 3 left empty, as the reference
+    package transmits it (36.211 6.8.4 would use SFBC-FSTD on 4 ports)."""
     dev = dci_bits.device
     e = l * BITS_PER_CCE
     crc = CRC16.compute(dci_bits).to(torch.int8)
@@ -96,14 +92,14 @@ def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
 
     idx = _region_idx(cell, cfi, ng, dev)[cce * RE_PER_CCE:(cce + l) * RE_PER_CCE]
     lead = syms.shape[:-1]
-    if cell.nof_ports == 2:
+    if cell.nof_ports >= 2:
         ports = precode_sfbc(torch.stack([syms[..., 0::2], syms[..., 1::2]],
                                          dim=-2))
     else:
         ports = syms[..., None, :]
     grid = torch.zeros((*lead, cell.nof_ports, cell.nsymb_sf * cell.nof_re),
                        dtype=torch.complex64, device=dev)
-    grid[..., idx] = ports
+    grid[..., :ports.shape[-2], idx] = ports
     return grid.reshape(*lead, cell.nof_ports, cell.nsymb_sf, cell.nof_re)
 
 
@@ -113,8 +109,7 @@ def pdcch_extract_llr(grid, h, cell: Cell, cfi: int, sf_idx: int,
     (srslte_pdcch_extract_llr_multi): -> llr [..., n_cce*72].
 
     ``h``: [..., nsymb, nre] single-port or [..., P, nsymb, nre]; a
-    2-port cell takes the SFBC branch."""
-    _check_ports(cell)
+    cell of 2 or more ports takes the SFBC branch on ports 0 and 1."""
     idx = _region_idx(cell, cfi, ng, grid.device)
     y = grid.reshape(*grid.shape[:-2], -1)[..., idx]
     if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:

@@ -3,10 +3,11 @@
 Capability parity with lib/src/phy/phch/pdsch.c: RE mapping that skips
 CRS/sync/PBCH regions (pdsch_cp, pdsch.c:95-214), per-RNTI scrambling
 (pdsch.c:616-632), codeword encode/decode (pdsch.c:634-835) with
-CSI-weighted LLRs (csi_correction, pdsch.c:676-776), and the MIMO
-dispatch to the single-antenna and 2x2 spatial-multiplexing paths. The RE
-map is a precomputed flat index table per (cell, sf_idx, cfi, allocation):
-one gather (decode) or index assignment (encode).
+CSI-weighted LLRs (csi_correction, pdsch.c:676-776), the 8-bit LLR lane,
+and the MIMO dispatch to the single-antenna, SFBC / SFBC-FSTD diversity,
+2x2 spatial-multiplexing and large-delay CDD paths. The RE map is a
+precomputed flat index table per (cell, sf_idx, cfi, allocation): one
+gather (decode) or index assignment (encode).
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops.equalizer import (MimoType, effective_channel_mux, eq_mux_2x2,
-                             eq_single, layerdemap, layermap,
-                             precode_mux_2x2)
-from ..ops.modem import Mod, demod_soft, modulate
+from ..ops.equalizer import (MimoType, effective_channel_cdd,
+                             effective_channel_mux, eq_mux_2x2, eq_sfbc,
+                             eq_sfbc_fstd, eq_single, layerdemap, layermap,
+                             precode_cdd_2layer, precode_mux_2x2,
+                             precode_sfbc, precode_sfbc_fstd)
+from ..ops.modem import Mod, demod_soft, modulate, quantize_llr_int8
 from ..ops.scrambling import descramble_llrs, scramble_bits
 from ..utils.cell import Cell
 from ..utils.device import device_table
@@ -87,7 +90,9 @@ class PdschConfig:
     pmi: int = 0
     prb_mask: tuple[bool, ...] | None = None
     prb_mask_slot1: tuple[bool, ...] | None = None
-    #: the 8-bit quantized LLR lane is not ported (raises)
+    #: 8-bit quantized LLR lane (demod_soft.c byte scales + rm_turbo.c
+    #: int8 combining): quantize after CSI weighting, descramble, de-RM
+    #: and HARQ-combine in int8; the turbo decoder reads them as float32
     llr_int8: bool = False
 
     @functools.cached_property
@@ -128,16 +133,6 @@ class PdschConfig:
         return cinit_pdsch(self.rnti, codeword, 2 * self.sf_idx, self.cell.id)
 
 
-def _check_supported(cfg: PdschConfig):
-    if cfg.llr_int8:
-        raise NotImplementedError("the int8 LLR lane is not ported")
-    if cfg.mimo not in (MimoType.SINGLE, MimoType.SPATIAL_MUX):
-        raise NotImplementedError(f"PDSCH {cfg.mimo} is not ported")
-    if cfg.mimo is MimoType.SPATIAL_MUX and (cfg.nof_layers, cfg.nof_codewords) \
-            not in ((2, 2), (2, 1)):
-        raise NotImplementedError((cfg.nof_layers, cfg.nof_codewords))
-
-
 # --- encode (eNB side) ------------------------------------------------------
 
 
@@ -148,7 +143,6 @@ def pdsch_encode(tb_bits, cfg: PdschConfig, plan: DlschPlan, tb_bits2=None,
     DL-SCH encode -> scramble -> modulate -> layer map -> precode -> RE
     placement (srslte_pdsch_encode, pdsch.c:1048).
     """
-    _check_supported(cfg)
     cws = []
     pairs = [(tb_bits, plan)] + ([(tb_bits2, plan2)]
                                  if tb_bits2 is not None else [])
@@ -157,9 +151,17 @@ def pdsch_encode(tb_bits, cfg: PdschConfig, plan: DlschPlan, tb_bits2=None,
         cws.append(modulate(scramble_bits(coded, cfg.cinit(cw)), cfg.mod))
     if cfg.mimo is MimoType.SINGLE:
         ports = cws[0][..., None, :]                       # [..., 1, M]
-    else:
+    elif cfg.mimo is MimoType.DIVERSITY:
+        if cfg.cell.nof_ports == 4:
+            ports = precode_sfbc_fstd(layermap(cws, 4))    # [..., 4, M]
+        else:
+            ports = precode_sfbc(layermap(cws, 2))         # [..., 2, M]
+    elif cfg.mimo is MimoType.SPATIAL_MUX:
         ports = precode_mux_2x2(
             layermap(cws, cfg.nof_layers, cfg.nof_codewords), cfg.pmi)
+    else:
+        ports = precode_cdd_2layer(
+            layermap(cws, cfg.nof_layers, cfg.nof_codewords))
     n_ports = ports.shape[-2]
     lead = ports.shape[:-2]
     cell = cfg.cell
@@ -187,9 +189,9 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
     grid: [..., A, nsymb, nre] received resource grids per rx antenna
     h:    [..., A, P, nsymb, nre] channel estimates per (rx, tx port)
     Returns (tb_bits, crc_ok, softbuffers) — tuples per codeword when a
-    second plan is given.
+    second plan is given. Diversity needs the RE pairs (quads with 4 ports)
+    of ``cfg.nof_symbols``; CDD's D(i) cycles by extraction index.
     """
-    _check_supported(cfg)
     with record_function("pdsch.eq_demod"):
         y = pdsch_extract(grid, cfg)                      # [..., A, M]
         m = cfg.nof_symbols
@@ -198,11 +200,20 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
             x, csi = eq_single(y, hh, noise_est)
             cw_syms = [x[..., :m]]
             csis = [csi[..., :m]]
+        elif cfg.mimo is MimoType.DIVERSITY:
+            n_p = 4 if cfg.cell.nof_ports == 4 else 2
+            hp = [pdsch_extract(h[..., :, p, :, :], cfg)[..., :m]
+                  for p in range(n_p)]
+            eq = eq_sfbc_fstd if n_p == 4 else eq_sfbc
+            x, csi = eq(y[..., :m], *hp)
+            cw_syms, csis = [x], [csi]
         else:
             hp = torch.stack([pdsch_extract(h[..., :, p, :, :], cfg)
                               for p in range(2)], dim=-2)  # [..., A, 2, M]
-            x, csi = eq_mux_2x2(y, effective_channel_mux(hp, cfg.pmi),
-                                noise_est)                # [..., 2, M]
+            x, csi = eq_mux_2x2(                          # [..., 2, M]
+                y, effective_channel_mux(hp, cfg.pmi)
+                if cfg.mimo is MimoType.SPATIAL_MUX
+                else effective_channel_cdd(hp), noise_est)
             cw_syms = layerdemap(x, cfg.nof_codewords)
             csis = layerdemap(csi, cfg.nof_codewords)
 
@@ -212,6 +223,8 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
             llr = demod_soft(syms, cfg.mod)
             llr = llr * torch.repeat_interleave(
                 csi, cfg.mod.bits_per_symbol, dim=-1)
+            if cfg.llr_int8:
+                llr = quantize_llr_int8(llr, cfg.mod)
             cw_llrs.append(descramble_llrs(llr, cfg.cinit(cw)))
 
     plans = [plan] + ([plan2] if plan2 is not None else [])

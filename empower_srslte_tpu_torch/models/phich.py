@@ -1,0 +1,106 @@
+"""PHICH: hybrid-ARQ indicator channel (36.211 6.9).
+
+Capability parity with lib/src/phy/phch/phich.c: BPSK ACK/NACK spread by
+length-4 orthogonal sequences (8 sequences, normal CP), repeated over 3
+REGs of symbol 0, group/sequence addressing, scrambling. Normal PHICH
+duration only (the reference's default). A cell of 2 or more ports sends
+2-port SFBC on ports 0 and 1, as the reference package does (36.211
+6.9.2 would use the 4-port scheme on 4 ports).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops.equalizer import eq_sfbc, precode_sfbc
+from ..utils.cell import Cell
+from ..utils.device import device_table
+from ..utils.sequence import cinit_pdcch, gold_sequence
+from .regs import nof_phich_groups, phich_regs, symbol_regs
+
+#: Orthogonal sequences, normal CP (36.211 Table 6.9.1-2).
+_W = np.array([
+    [1, 1, 1, 1], [1, -1, 1, -1], [1, 1, -1, -1], [1, -1, -1, 1],
+    [1j, 1j, 1j, 1j], [1j, -1j, 1j, -1j], [1j, 1j, -1j, -1j],
+    [1j, -1j, -1j, 1j],
+], dtype=np.complex64)
+
+NSF = 4
+
+
+def phich_resource(cell: Cell, prb_start: int, n_dmrs: int = 0,
+                   ng: float = 1.0) -> tuple[int, int]:
+    """(group, sequence) for a PUSCH's PHICH (36.213 9.1.2): derived from
+    the lowest allocated PRB and the DMRS cyclic shift, so concurrent UEs
+    on distinct PRB slices land on distinct resources."""
+    n_group = nof_phich_groups(cell, ng)
+    group = (prb_start + n_dmrs) % n_group
+    seq = (prb_start // n_group + n_dmrs) % (2 * NSF)
+    return group, seq
+
+
+@functools.lru_cache(maxsize=256)
+def _group_re_indices(cell: Cell, ng: float, group: int) -> np.ndarray:
+    """The group's 12 REs in symbol 0 (flat index == subcarrier)."""
+    regs0 = symbol_regs(cell, 0)
+    idx = []
+    for r in phich_regs(cell, ng)[group]:
+        idx.extend(regs0[r])
+    return np.asarray(idx, np.int64)
+
+
+def _scramble_seq(cell: Cell, sf_idx: int) -> np.ndarray:
+    c = gold_sequence(cinit_pdcch(2 * sf_idx, cell.id), 12)
+    return (1.0 - 2.0 * c).astype(np.float32)
+
+
+def _group_idx(cell: Cell, ng: float, group: int, device) -> torch.Tensor:
+    return device_table(("phich_re", cell, ng, group), device,
+                        lambda: _group_re_indices(cell, ng, group))
+
+
+def phich_put(grid, ack: int, cell: Cell, sf_idx: int, group: int = 0,
+              seq_idx: int = 0, ng: float = 1.0):
+    """Add one ACK(1)/NACK(0) indicator to grid [..., P, nsymb, nre]:
+    single port, or 2-port SFBC on ports 0 and 1. Returns a new grid."""
+    bpsk = 1.0 if ack else -1.0
+    z = np.tile(_W[seq_idx], 3) * bpsk * _scramble_seq(cell, sf_idx)
+    zt = torch.as_tensor(z.astype(np.complex64), device=grid.device)
+    if cell.nof_ports >= 2:
+        port_syms = precode_sfbc(torch.stack([zt[0::2], zt[1::2]]))
+    else:
+        port_syms = zt[None]
+    idx = _group_idx(cell, ng, group, grid.device)
+    out = grid.clone()
+    flat = out.view(*grid.shape[:-2], -1)
+    flat[..., :port_syms.shape[0], idx] += port_syms.to(grid.dtype)
+    return out
+
+
+def phich_decode(grid, h, cell: Cell, sf_idx: int, group: int = 0,
+                 seq_idx: int = 0, ng: float = 1.0, noise_est=0.0):
+    """Decode one indicator: -> (ack [...] bool, metric [...]).
+
+    grid [..., nsymb, nre]; ``h``: [..., nsymb, nre] single-port or
+    [..., P, nsymb, nre] (SFBC on ports 0 and 1 when P >= 2)."""
+    idx = _group_idx(cell, ng, group, grid.device)
+    y = grid[..., 0, :][..., idx]
+    if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:
+        h0 = h[..., 0, 0, :][..., idx]
+        h1 = h[..., 1, 0, :][..., idx]
+        x, _ = eq_sfbc(y[..., None, :], h0[..., None, :], h1[..., None, :])
+    else:
+        if h.dim() == grid.dim() + 1:
+            h = h[..., 0, :, :]
+        hh = h[..., 0, :][..., idx]
+        x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
+                                             min=1e-12)
+    scr = device_table(("phich_scr", cell.id, sf_idx), grid.device,
+                       lambda: _scramble_seq(cell, sf_idx))
+    w = device_table(("phich_w", seq_idx), grid.device,
+                     lambda: np.tile(np.conj(_W[seq_idx]), 3))
+    corr = torch.sum(x * scr * w, dim=-1).real / 12.0
+    return corr > 0, corr

@@ -26,7 +26,7 @@ from torch.profiler import record_function
 
 from ..ops.dft_precoding import dft_deprecode, dft_precode, valid_prb
 from ..ops.fec.cbsegm import cbsegm
-from ..ops.modem import Mod, demod_soft, modulate
+from ..ops.modem import Mod, demod_soft, modulate, quantize_llr_int8
 from ..ops.scrambling import descramble_llrs, scramble_bits
 from ..utils.cell import CP, Cell
 from ..utils.device import device_table
@@ -118,7 +118,8 @@ class PuschConfig:
     delta_ss: int = 0
     group_hopping: bool = False
     sequence_hopping: bool = False
-    #: the 8-bit quantized LLR lane (not ported: decoding raises)
+    #: 8-bit quantized LLR lane of ``pusch_decode`` (the UCI decode
+    #: ignores it, as the reference package does)
     llr_int8: bool = False
 
     def __post_init__(self):
@@ -198,12 +199,11 @@ def pusch_encode(tb_bits: torch.Tensor, cfg: PuschConfig,
     return _map_grid(scramble_bits(coded, cfg.cinit()), cfg)
 
 
-def _pusch_llrs(grid: torch.Tensor, cfg: PuschConfig,
-                noise_est) -> torch.Tensor:
-    """DMRS chest, per-RE MMSE, IDFT despread, soft demap, CSI weight and
-    descramble: grid [..., nsymb, nre] -> LLRs [..., G]."""
-    if cfg.llr_int8:
-        raise NotImplementedError("the int8 LLR lane is not ported")
+def _pusch_llrs(grid: torch.Tensor, cfg: PuschConfig, noise_est,
+                int8: bool = False) -> torch.Tensor:
+    """DMRS chest, per-RE MMSE, IDFT despread, soft demap, CSI weight,
+    ``int8``: quantize to the 8-bit lane, and descramble: grid [..., nsymb,
+    nre] -> LLRs [..., G]."""
     cell = cfg.cell
     st0, st1 = cfg.slot_starts()
     with record_function("pusch.chest"):
@@ -235,6 +235,8 @@ def _pusch_llrs(grid: torch.Tensor, cfg: PuschConfig,
         csi = torch.mean(h2, dim=-1)                        # [..., nsym]
         llr = llr * torch.repeat_interleave(
             csi, cfg.m_sc * cfg.mod.bits_per_symbol, dim=-1)
+        if int8:
+            llr = quantize_llr_int8(llr, cfg.mod)
         return descramble_llrs(llr, cfg.cinit())
 
 
@@ -242,8 +244,9 @@ def pusch_decode(grid: torch.Tensor, cfg: PuschConfig, plan: DlschPlan,
                  noise_est=0.0, iters_out: list | None = None,
                  softbuffers=None):
     """eNB receive: grid [..., nsymb, nre] -> (tb, crc_ok, softbuffers)
-    (srslte_enb_ul chain, enb_ul.c:256-386)."""
-    llr = _pusch_llrs(grid, cfg, noise_est)
+    (srslte_enb_ul chain, enb_ul.c:256-386); ``cfg.llr_int8`` decodes on
+    the 8-bit LLR lane (int8 LLRs, de-rate-matching and softbuffers)."""
+    llr = _pusch_llrs(grid, cfg, noise_est, int8=cfg.llr_int8)
     return dlsch_decode(llr, plan, softbuffers=softbuffers,
                         iters_out=iters_out)
 
@@ -470,7 +473,8 @@ def pusch_decode_uci(grid: torch.Tensor, cfg: PuschConfig, plan: UciPlan,
     -> dict with 'tb', 'crc_ok', 'softbuffers', 'cqi_bits', 'cqi_ok' (the
     CRC8 of a long CQI; all True for a short one), 'ri' and 'ack' (a
     tuple), each a tensor over the leading dims, or None / () when the
-    plan carries no such field.
+    plan carries no such field. The LLRs stay float32 whatever
+    ``cfg.llr_int8`` says, as in the reference package.
     """
     llr = _pusch_llrs(grid, cfg, noise_est)
     out = {"ri": None, "ack": (), "cqi_bits": None, "cqi_ok": None,

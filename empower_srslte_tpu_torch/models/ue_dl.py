@@ -6,7 +6,8 @@ ue_dl.c:467-618): the receive path from time-domain subframe samples to
 decoded transport blocks.
 
 * ``ue_dl_decode`` decodes one subframe for one RNTI, resolving CFI and
-  DCI grants on the host (formats 1, 1A and 2, HARQ softbuffers).
+  DCI grants on the host (formats 1, 1A, 1C and 2; every transmission
+  mode; PHICH; HARQ softbuffers, on the float32 or the int8 LLR lane).
 * ``ue_dl_tm4_batch`` is the batched no-genie 20 MHz 2x2 TM4 receiver —
   the chain of the JAX package's full-chain benchmark (bench.py
   ``bench_uedl(mimo=True)``): every stage runs once over the whole batch
@@ -33,6 +34,7 @@ from .pcfich import pcfich_decode
 from .pdcch import (dci_crc_ok, pdcch_blind_bits, pdcch_blind_decode,
                     pdcch_extract_llr, ue_search_candidates)
 from .pdsch import PdschConfig, pdsch_decode
+from .phich import phich_decode
 from .regs import pdcch_nof_cces
 
 
@@ -48,6 +50,8 @@ class UeDlResult:
     snr_db: float = 0.0          # wideband chest SNR (feeds CQI reports)
     cce: int = 0                 # first CCE of the grant's PDCCH
     cw: int = 0                  # codeword index (format 2 grants)
+    #: UL HARQ indicator when one was expected this subframe (ul_harq.cc)
+    phich_ack: bool | None = None
 
 
 def estimate_channel(grid, cell: Cell, sf_idx: int):
@@ -62,22 +66,27 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
                  mimo: MimoType = MimoType.SINGLE,
                  max_iterations: int = 5,
                  harq_state: dict | None = None,
-                 phich=None, llr_int8: bool = False) -> list[UeDlResult]:
+                 phich: tuple[int, int] | None = None,
+                 llr_int8: bool = False) -> list[UeDlResult]:
     """Decode one subframe for one RNTI (single rx antenna).
 
     samples [sf_sample_len] complex64 (on the device to decode on) ->
-    list of per-grant results. ``harq_state``: caller-owned dict
-    pid -> {"ndi", "soft"} carrying per-process softbuffers across
-    retransmissions (srsue dl_harq.cc + softbuffer.c): an un-toggled NDI
-    reuses the combined LLRs, a CRC failure stores them back.
+    list of per-grant results.
+
+    ``harq_state``: caller-owned dict pid -> {"ndi", "soft"} carrying
+    per-process softbuffers across retransmissions (srsue dl_harq.cc +
+    softbuffer.c): an un-toggled NDI reuses the combined LLRs, a CRC
+    failure stores them back. Common RNTIs keep no HARQ state.
+    ``phich``: (group, seq) of an expected UL HARQ indicator
+    (srslte_ue_dl_decode_phich, ue_dl.c:934) -> every result carries
+    ``phich_ack``.
+    ``llr_int8``: decode the PDSCH on the 8-bit LLR lane (byte demod
+    scales, int8 de-rate-matching and int8 softbuffers).
+    SI/P/RA-RNTIs search formats 1A and 1C (1A sized by N_prb_1A), other
+    RNTIs 1A, 1 and, on cells of 2 or more ports, 2. ``mimo`` is the
+    scheme of format 1/1A/1C grants; their PDSCH sees all the cell's
+    ports.
     """
-    if phich is not None:
-        raise NotImplementedError("PHICH decoding is not ported")
-    if llr_int8:
-        raise NotImplementedError("the int8 LLR lane is not ported")
-    if rnti in (0xFFFF, 0xFFFE) or 1 <= rnti <= 0x3C:
-        raise NotImplementedError(
-            "common-search-space RNTIs monitor format 1C, not ported")
     grid = ofdm_rx_sf(samples[None], cell)                 # [1, S, K]
     h, n0 = estimate_channel(grid, cell, sf_idx)           # [1, P, S, K]
     noise = float(n0[0])
@@ -86,10 +95,21 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
     hpow = float(torch.mean(h[0].abs() ** 2))
     snr_db = float(10.0 * np.log10(max(hpow, 1e-12) / max(noise, 1e-12)))
 
+    phich_ack = None
+    if phich is not None:
+        ack, _ = phich_decode(grid, h_ctrl[None], cell, sf_idx,
+                              group=phich[0], seq_idx=phich[1],
+                              noise_est=noise)
+        phich_ack = bool(ack[0])
+
+    # common search space RNTIs monitor formats 1A and 1C (ue_dl.c)
+    common_ss = rnti in (0xFFFF, 0xFFFE) or 1 <= rnti <= 0x3C
     sizes = (dci_mod.format0_1a_size(cell.nof_prb),
              dci_mod.format1_size(cell.nof_prb))
+    if common_ss:
+        sizes = sizes + (dci_mod.format1c_size(cell.nof_prb),)
     f2_size = None
-    if cell.nof_ports >= 2:
+    if cell.nof_ports >= 2 and not common_ss:
         f2_size = dci_mod.format2_size(cell.nof_prb)
         sizes = sizes + (f2_size,)
     hits = pdcch_blind_decode(grid[0], h_ctrl, cell, cfi, sf_idx, rnti,
@@ -98,6 +118,7 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
     grid_a = grid[:, None]                                 # [1, A=1, S, K]
     h_a = h[:, None]                                       # [1, 1, P, S, K]
     results: list[UeDlResult] = []
+    common = dict(cfi=cfi, noise_est=noise, snr_db=snr_db)
     for hit in hits:
         d = None
         if len(hit.payload) == sizes[0]:
@@ -105,12 +126,28 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
             if d is None:
                 d_ul = dci_mod.unpack_format0(hit.payload, cell.nof_prb)
                 if d_ul is not None:
-                    results.append(UeDlResult(cfi=cfi, dci=d_ul,
-                                              noise_est=noise,
-                                              snr_db=snr_db, cce=hit.cce))
+                    results.append(UeDlResult(dci=d_ul, cce=hit.cce,
+                                              **common))
                 continue
         elif len(hit.payload) == sizes[1]:
             d = dci_mod.unpack_format1(hit.payload, cell.nof_prb)
+        elif common_ss and len(hit.payload) == sizes[2]:
+            d1c = dci_mod.unpack_format1c(hit.payload, cell.nof_prb)
+            if d1c is None:
+                continue
+            tbs = int(ra.tbs_format1c_table()[d1c.i_tbs])
+            cfg = PdschConfig(cell=cell, sf_idx=sf_idx, cfi=cfi, rnti=rnti,
+                              mod=Mod.QPSK, mimo=mimo,
+                              prb_mask=d1c.prb_mask,
+                              prb_mask_slot1=d1c.prb_mask_slot1,
+                              llr_int8=llr_int8)
+            plan = cfg.plan(tbs, rv=0, max_iterations=max_iterations)
+            bits, ok, _ = pdsch_decode(grid_a, h_a, cfg, plan,
+                                       noise_est=noise)
+            results.append(UeDlResult(
+                dci=d1c, tb_bits=bits[0].cpu().numpy(), crc_ok=bool(ok[0]),
+                cce=hit.cce, **common))
+            continue
         if f2_size is not None and len(hit.payload) == f2_size:
             d2 = dci_mod.unpack_format2(hit.payload, cell.nof_prb)
             if d2 is None:
@@ -123,28 +160,33 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
             cfg = PdschConfig(cell=cell, sf_idx=sf_idx, cfi=cfi, rnti=rnti,
                               mod=mod2, mimo=MimoType.SPATIAL_MUX,
                               nof_layers=2, nof_codewords=2, pmi=d2.pmi,
-                              prb_mask=d2.prb_mask)
+                              prb_mask=d2.prb_mask, llr_int8=llr_int8)
             plan0 = cfg.plan(tbs0, rv=d2.rv[0], max_iterations=max_iterations)
             plan1 = cfg.plan(tbs1, rv=d2.rv[1], max_iterations=max_iterations)
             bits2, ok2, _ = pdsch_decode(grid_a, h_a, cfg, plan0,
                                          noise_est=noise, plan2=plan1)
             for cw in range(2):
                 results.append(UeDlResult(
-                    cfi=cfi, dci=d2, tb_bits=bits2[cw][0].cpu().numpy(),
-                    crc_ok=bool(ok2[cw][0]), noise_est=noise,
-                    snr_db=snr_db, cce=hit.cce, cw=cw))
+                    dci=d2, tb_bits=bits2[cw][0].cpu().numpy(),
+                    crc_ok=bool(ok2[cw][0]), cce=hit.cce, cw=cw, **common))
             continue
         if d is None:
             continue
         try:
-            mod, tbs = ra.mcs_to_tbs(d.mcs, d.n_prb)
+            if common_ss and d.format == "1A":
+                # SI/P/RA-RNTI 1A grants size the TBS with N_prb_1A from
+                # the TPC LSB, not the allocation (36.212 5.3.3.1.3)
+                mod, tbs = Mod.QPSK, ra.mcs_to_tbs(d.mcs, d.n_prb_1a)[1]
+            else:
+                mod, tbs = ra.mcs_to_tbs(d.mcs, d.n_prb)
         except ValueError:
             continue         # reserved MCS / empty allocation
         cfg = PdschConfig(cell=cell, sf_idx=sf_idx, cfi=cfi, rnti=rnti,
-                          mod=mod, mimo=mimo, prb_mask=d.prb_mask)
+                          mod=mod, mimo=mimo, prb_mask=d.prb_mask,
+                          llr_int8=llr_int8)
         plan = cfg.plan(tbs, rv=d.rv, max_iterations=max_iterations)
         soft_in, hst = None, None
-        if harq_state is not None:
+        if harq_state is not None and not common_ss:
             hst = harq_state.setdefault(d.harq_pid,
                                         {"ndi": None, "soft": None})
             if hst["ndi"] == d.ndi and hst["soft"] is not None:
@@ -158,12 +200,12 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
         ok_b = bool(ok[0])
         if hst is not None:
             hst["soft"] = None if ok_b else list(new_soft)
-        results.append(UeDlResult(cfi=cfi, dci=d,
-                                  tb_bits=bits[0].cpu().numpy(),
-                                  crc_ok=ok_b, noise_est=noise,
-                                  snr_db=snr_db, cce=hit.cce))
+        results.append(UeDlResult(dci=d, tb_bits=bits[0].cpu().numpy(),
+                                  crc_ok=ok_b, cce=hit.cce, **common))
     if not results:
-        results.append(UeDlResult(cfi=cfi, noise_est=noise, snr_db=snr_db))
+        results.append(UeDlResult(**common))
+    for r in results:
+        r.phich_ack = phich_ack
     return results
 
 

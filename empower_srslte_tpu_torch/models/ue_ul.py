@@ -4,11 +4,12 @@
 Counterpart of the JAX package's models/ue_ul.py:26-88: composes PUSCH
 (with or without UCI) into the UL grid, SC-FDMA modulates it with the
 half-subcarrier shift, and on the eNB side undoes the shift and FFTs back
-to the grid. PUCCH, SRS, CFO pre-compensation and timing advance are not
-ported yet and raise ``NotImplementedError``.
+to the grid. ``ue_ul_generate`` raises ``NotImplementedError`` for PUCCH,
+SRS, CFO pre-compensation and timing advance, which are not ported yet.
 
 ``ul_uci_stimulus`` builds the uplink path's receive samples: a batch of
-20 MHz PUSCH subframes with UCI through a flat channel and AWGN.
+20 MHz PUSCH subframes with UCI through a flat channel and AWGN;
+``ul_stimulus`` the same grant without UCI.
 """
 
 from __future__ import annotations
@@ -73,38 +74,32 @@ class UlStimulus:
     """The uplink path's input and what it must decode to."""
 
     cfg: object                  # PuschConfig
-    plan: object                 # UciPlan (windowed turbo decoder)
+    plan: object                 # UciPlan (ul_uci_stimulus) or DlschPlan
     samples: torch.Tensor        # [B, sf_len] complex64 at the eNB antenna
     tb: torch.Tensor             # [B, tbs] int8
 
 
-def ul_uci_stimulus(batch: int, n0: float, *, device=None) -> UlStimulus:
-    """``batch`` PUSCH+UCI subframes at the ``UL_*`` settings through the
-    flat channel ``UL_H`` plus AWGN of ``n0`` per resource element of the
-    received grid.
+def _ul_grant():
+    """The ``UL_*`` grant: -> (PuschConfig, TBS)."""
+    from . import ra
+    from .pusch import PuschConfig
+
+    cell = Cell(nof_prb=UL_NOF_PRB, nof_ports=1, id=1)
+    mod, tbs = ra.mcs_to_tbs(UL_MCS, UL_N_PRB, dl=False)
+    return PuschConfig(cell=cell, sf_idx=1, rnti=0x1234, mod=mod,
+                       prb_start=0, n_prb=UL_N_PRB), tbs
+
+
+def _ul_batch(cfg, plan, batch: int, n0: float, rng, dev) -> UlStimulus:
+    """``batch`` subframes of ``plan`` on the grant ``cfg`` through the flat
+    channel ``UL_H`` plus AWGN of ``n0`` per resource element of the
+    received grid; TB bits, then the noise, drawn from ``rng``.
 
     The noise is added to the time samples: ``ofdm_rx_sf`` is an
     unnormalized FFT, so white noise of variance s2 per sample has
-    variance fft_size * s2 per grid RE; s2 = n0 / fft_size. TB bits, the
-    subband CQIs and the noise are numpy draws from ``UL_SEED``.
-    """
-    from . import ra
-    from .pusch import PuschConfig, UciData
-    from .uci import cqi_nof_subbands, cqi_pack_hl_subband
-
-    dev = resolve_device(device)
-    cell = Cell(nof_prb=UL_NOF_PRB, nof_ports=1, id=1)
-    mod, tbs = ra.mcs_to_tbs(UL_MCS, UL_N_PRB, dl=False)
-    cfg = PuschConfig(cell=cell, sf_idx=1, rnti=0x1234, mod=mod,
-                      prb_start=0, n_prb=UL_N_PRB)
-    rng = np.random.default_rng(UL_SEED)
-    wb = int(rng.integers(1, 16))
-    sbs = rng.integers(0, 16, cqi_nof_subbands(UL_NOF_PRB))
-    uci = UciData(ack=(1, 0), ri=1,
-                  cqi_bits=tuple(int(b) for b in
-                                 cqi_pack_hl_subband(wb, sbs, UL_NOF_PRB)))
-    plan = UciPlan(cfg, tbs, uci, decoder_impl="windowed")
-    tb = torch.as_tensor(rng.integers(0, 2, size=(batch, tbs))
+    variance fft_size * s2 per grid RE; s2 = n0 / fft_size."""
+    cell = cfg.cell
+    tb = torch.as_tensor(rng.integers(0, 2, size=(batch, plan.tbs))
                          .astype(np.int8), device=dev)
     x = ue_ul_generate(cell, pusch=(tb, cfg, plan)) * UL_H
     sigma = float(np.sqrt(n0 / cell.fft_size / 2))
@@ -115,3 +110,33 @@ def ul_uci_stimulus(batch: int, n0: float, *, device=None) -> UlStimulus:
         torch.as_tensor(rng.normal(size=nshape).astype(np.float32),
                         device=dev))
     return UlStimulus(cfg, plan, x + sigma * noise, tb)
+
+
+def ul_uci_stimulus(batch: int, n0: float, *, device=None) -> UlStimulus:
+    """``batch`` PUSCH+UCI subframes at the ``UL_*`` settings through the
+    flat channel ``UL_H`` plus AWGN of ``n0`` per resource element of the
+    received grid, for ``pusch_decode_uci``. The subband CQIs, TB bits and
+    the noise are numpy draws from ``UL_SEED``."""
+    from .pusch import UciData
+    from .uci import cqi_nof_subbands, cqi_pack_hl_subband
+
+    dev = resolve_device(device)
+    cfg, tbs = _ul_grant()
+    rng = np.random.default_rng(UL_SEED)
+    wb = int(rng.integers(1, 16))
+    sbs = rng.integers(0, 16, cqi_nof_subbands(UL_NOF_PRB))
+    uci_data = UciData(ack=(1, 0), ri=1, cqi_bits=tuple(
+        int(b) for b in cqi_pack_hl_subband(wb, sbs, UL_NOF_PRB)))
+    plan = UciPlan(cfg, tbs, uci_data, decoder_impl="windowed")
+    return _ul_batch(cfg, plan, batch, n0, rng, dev)
+
+
+def ul_stimulus(batch: int, n0: float, *, device=None) -> UlStimulus:
+    """``batch`` PUSCH subframes without UCI on the ``UL_*`` grant, as
+    ``ul_uci_stimulus`` builds them, for ``pusch_decode`` (the plan is the
+    UL-SCH's ``DlschPlan``, windowed decoder). TB bits and the noise are
+    numpy draws from ``UL_SEED``."""
+    cfg, tbs = _ul_grant()
+    plan = cfg.plan(tbs, decoder_impl="windowed")
+    return _ul_batch(cfg, plan, batch, n0, np.random.default_rng(UL_SEED),
+                     resolve_device(device))

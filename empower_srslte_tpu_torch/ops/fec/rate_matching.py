@@ -120,6 +120,11 @@ class RateMatchTurbo:
         reference's srslte_softbuffer_rx_t, softbuffer.c); None for a
         first transmission. Filler positions come out as strong known-zero
         LLRs.
+
+        int8 LLRs take the 8-bit lane (rm_turbo.c:378-905): the repetition
+        sum and the HARQ add run in int32 and saturate back to +-127 (torch
+        int8 arithmetic would wrap silently); the softbuffer stays int8 and
+        the filler prior is 127.
         """
         e = llr_e.shape[-1]
         circle_np = _circle(self.k, self.f, rv, self.ncb)
@@ -128,15 +133,21 @@ class RateMatchTurbo:
         n = len(circle_np)
         reps = -(-e // n)
         pad = reps * n - e
+        int8_lane = llr_e.dtype == torch.int8
+        if int8_lane:
+            llr_e = llr_e.to(torch.int32)
         if pad:
             llr_e = torch.nn.functional.pad(llr_e, (0, pad))
-        summed = llr_e.reshape(*llr_e.shape[:-1], reps, n).sum(-2)
+        summed = llr_e.reshape(*llr_e.shape[:-1], reps, n).sum(
+            -2, dtype=llr_e.dtype)
         acc = llr_e.new_zeros((*llr_e.shape[:-1], 3 * self.d))
         acc[..., circle] = summed
         if softbuffer is not None:
-            acc = acc + softbuffer
+            acc = acc + softbuffer.to(acc.dtype)
+        if int8_lane:
+            acc = torch.clamp(acc, -127, 127).to(torch.int8)
         d_llr = acc.reshape(*acc.shape[:-1], 3, self.d)
         if self.f > 0:
             d_llr = d_llr.clone()
-            d_llr[..., 0, :self.f] = FILLER_LLR
+            d_llr[..., 0, :self.f] = 127 if int8_lane else FILLER_LLR
         return d_llr, acc

@@ -54,6 +54,21 @@ def modulate(bits: torch.Tensor, mod: Mod) -> torch.Tensor:
     raise ValueError(mod)
 
 
+#: 8-bit LLR quantization gains per modulation: the reference's byte
+#: demodulators (demod_soft.c:44-46 SCALE_BYTE_CONV_QPSK/QAM16/QAM64)
+DEMOD_INT8_SCALE = {Mod.BPSK: 20.0, Mod.QPSK: 20.0,
+                    Mod.QAM16: 30.0, Mod.QAM64: 40.0}
+
+
+def quantize_llr_int8(llrs: torch.Tensor, mod: Mod) -> torch.Tensor:
+    """float32 LLRs -> int8 with the reference's per-modulation byte scale
+    and symmetric saturation at +-127 (demod_soft.c byte lane, rm_turbo.c
+    8-bit combining). ``torch.round`` rounds half to even, as does
+    ``jnp.round``: 0.05 * 30 = 1.5 -> 2."""
+    s = float(np.float32(DEMOD_INT8_SCALE[mod]))
+    return torch.clamp(torch.round(llrs * s), -127, 127).to(torch.int8)
+
+
 def demod_planes(re, im, mod: Mod):
     """Max-log LLR bit-planes: list of ``bps`` tensors shaped like ``re``."""
     if mod is Mod.BPSK:

@@ -23,9 +23,11 @@ def scramble_bits(bits: torch.Tensor, c_init: int) -> torch.Tensor:
 
 
 def descramble_llrs(llrs: torch.Tensor, c_init: int) -> torch.Tensor:
-    """RX: flip LLR signs where the scrambling bit is 1."""
+    """RX: flip LLR signs where the scrambling bit is 1 (dtype preserved:
+    the int8 lane descrambles in int8, scrambling.c:35-107)."""
     n = llrs.shape[-1]
+    dtype = np.int8 if llrs.dtype == torch.int8 else np.float32
     sign = device_table(
-        ("gold_sign", c_init, n), llrs.device,
-        lambda: (1.0 - 2.0 * gold_sequence(c_init, n)).astype(np.float32))
+        ("gold_sign", c_init, n, dtype), llrs.device,
+        lambda: (1.0 - 2.0 * gold_sequence(c_init, n)).astype(dtype))
     return llrs * sign
