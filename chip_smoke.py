@@ -13,7 +13,13 @@ on a batch of 256 subframes each and checks what they decode:
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
   of a 4-port TM2 cell with PHICH, an SI-RNTI format 1C grant and an
   int8-lane HARQ retransmission (both kernels);
-* ``pusch_decode`` on the int8 lane (windowed turbo kernel).
+* ``pusch_decode`` on the int8 lane (windowed turbo kernel);
+* a UE's cold start on a 26-subframe 20 MHz capture: cell search,
+  PSS/SSS sync and CFO, the MIB on the PBCH and the first data grant
+  (Viterbi kernel at K 40, both kernels for the grant), plus the
+  one-rx-antenna format-2 subframe;
+* the 2-port PBCH blind decode of 256 subframe-0 grids (one Viterbi
+  launch of 1024 words at K 40).
 
     python3 chip_smoke.py [--baseline FILE]
 
@@ -451,9 +457,10 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     CQI's shape reads the wrapper's host cost); then at each (K, words, train,
     kind) of ``extra``, checked only (kind "ints": LLRs in {-1, 0, 1},
     which tie often). Every geometry must read 0 mismatched bits. The
-    downlink's blind search decodes K=55 and K=44; the uplink's CQI decode
-    K=38, where the training halo is clamped to K. The per-subframe
-    receiver's shapes are checked in its phase (``vit_path_check``)."""
+    downlink's blind search decodes K=55 and K=44, the PBCH batch's blind
+    decode K=40 (its halo is all of K); the uplink's CQI decode K=38,
+    where the training halo is clamped to K. The per-subframe receivers'
+    shapes are checked in their phases (``vit_path_check``)."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.convcoder import (
@@ -884,11 +891,8 @@ def phase_ue_dl_frame():
     (fails alone) and sf 3 (decodes combined)."""
     import torch
 
-    from empower_srslte_tpu_torch.models import dci as dci_mod
     from empower_srslte_tpu_torch.models import enb_dl
     from empower_srslte_tpu_torch.models.dci import DciDl, DciDl1C
-    from empower_srslte_tpu_torch.models.pdcch import ue_search_candidates
-    from empower_srslte_tpu_torch.models.regs import pdcch_nof_cces
     from empower_srslte_tpu_torch.models.ue_dl import ue_dl_decode
     from empower_srslte_tpu_torch.ops.equalizer import MimoType
     from empower_srslte_tpu_torch.ops.fec.cbsegm import cbsegm
@@ -907,16 +911,10 @@ def phase_ue_dl_frame():
                                  1, seed=33),
                 **nii_path_check("frame_si", cbsegm(fr.si_tb.numel()).cb_sizes,
                                  1, seed=34)}
-    prb = fr.cell.nof_prb
-    n_cce = pdcch_nof_cces(fr.cell, enb_dl.FRAME_CFI)
-    vit_geos = set()
-    for sf, rnti in [(sf, fr.rnti) for sf in range(10)] \
-            + [(enb_dl.FRAME_SI_SF, 0xFFFF)]:
-        last = (dci_mod.format1c_size(prb) if rnti == 0xFFFF
-                else dci_mod.format2_size(prb))
-        words = len(ue_search_candidates(rnti, sf, n_cce))
-        vit_geos |= {(size + 16, words) for size in (
-            dci_mod.format0_1a_size(prb), dci_mod.format1_size(prb), last)}
+    vit_geos = set().union(*(
+        search_geos(fr.cell, enb_dl.FRAME_CFI, sf, rnti)
+        for sf, rnti in [(sf, fr.rnti) for sf in range(10)]
+        + [(enb_dl.FRAME_SI_SF, 0xFFFF)]))
     vit_twin = vit_path_check("frame", vit_geos, seed=35)
 
     def run():
@@ -1023,6 +1021,175 @@ def phase_uplink_int8():
     return launches
 
 
+def search_geos(cell, cfi: int, sf: int, rnti: int) -> set:
+    """The Viterbi shapes of ``ue_dl_decode``'s blind search for ``rnti``
+    in subframe ``sf``: one batch per DCI size over the search space's
+    candidates (formats 1A and 1, then 1C for an SI-RNTI or 2 for a
+    C-RNTI on a cell of 2 or more ports, as ``ue_dl_decode`` picks)."""
+    from empower_srslte_tpu_torch.models import dci as dci_mod
+    from empower_srslte_tpu_torch.models.pdcch import ue_search_candidates
+    from empower_srslte_tpu_torch.models.regs import pdcch_nof_cces
+
+    prb = cell.nof_prb
+    words = len(ue_search_candidates(rnti, sf, pdcch_nof_cces(cell, cfi)))
+    sizes = [dci_mod.format0_1a_size(prb), dci_mod.format1_size(prb)]
+    if rnti == 0xFFFF:
+        sizes.append(dci_mod.format1c_size(prb))
+    elif cell.nof_ports >= 2:
+        sizes.append(dci_mod.format2_size(prb))
+    return {(size + 16, words) for size in sizes}
+
+
+def phase_cold_boot():
+    """A UE's cold start at 20 MHz (what the JAX stack's ``UeStack``
+    does before camping): the 26-subframe capture of ``cold_boot_stimulus``
+    through the cell-search vote, ``sync_and_align`` (cell ID, frame
+    timing, CFO), ``sfo_estimate`` on the aligned stream,
+    ``ue_mib_acquire`` on the first whole frame's subframe 0 and
+    ``ue_dl_decode`` of its sf-3 data grant on the cell the MIB
+    describes, every stage on the card and timed with CUDA events. Then
+    the one-rx-antenna format-2 subframe (``one_rx_tm4_stimulus``), which
+    must decode codeword 0 and fail codeword 1, as the JAX package does."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import enb_dl
+    from empower_srslte_tpu_torch.models.dci import DciDl
+    from empower_srslte_tpu_torch.models.pbch import PBCH_K
+    from empower_srslte_tpu_torch.models.ue_dl import (ue_dl_decode,
+                                                       ue_mib_acquire)
+    from empower_srslte_tpu_torch.models.ue_sync import (cell_search_vote,
+                                                         sfo_estimate,
+                                                         sync_and_align)
+    from empower_srslte_tpu_torch.ops.fec.cbsegm import cbsegm
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    t0 = time.perf_counter()
+    cap = enb_dl.cold_boot_stimulus(device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    cell, prb = cap.cell, cap.cell.nof_prb
+    sf_len, data_sf = cell.sf_sample_len, enb_dl.COLD_DATA_SF
+    r_cell, r_rnti, _bits, _cand, r_cfg, r_plan = enb_dl.one_rx_tm4_grant()
+
+    # the kernels against their twins at this phase's shapes: the PBCH's
+    # 4 frame phases at K 40, each blind search, the data grant's TB and
+    # the format-2 subframe's two equal-plan codewords (one turbo batch)
+    vit_twin = vit_path_check(
+        "cold_boot", {(PBCH_K, 4)}
+        | search_geos(cell, enb_dl.COLD_CFI, data_sf, cap.rnti)
+        | search_geos(r_cell, r_cfg.cfi, r_cfg.sf_idx, r_rnti), seed=36)
+    nii_twin = {**nii_path_check("cold_boot", cbsegm(cap.tb.numel()).cb_sizes,
+                                 1, seed=37),
+                **nii_path_check("one_rx_tm4", r_plan.segm.cb_sizes, 2,
+                                 seed=38)}
+    stage_events: list = []
+
+    def run():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        stage_events.append(ev)
+        ev[0].record()
+        vote = cell_search_vote(cap.samples, prb, max_frames=2)
+        ev[1].record()
+        res = sync_and_align(cap.samples, prb)
+        ev[2].record()
+        sfo = sfo_estimate(res.subframes.reshape(-1), res.n_id_2, prb)
+        ev[3].record()
+        mib = ue_mib_acquire(res.subframes[0], Cell(nof_prb=prb, id=0),
+                             res.cell_id)
+        ev[4].record()
+        out = [] if mib is None else ue_dl_decode(
+            res.subframes[data_sf], Cell(nof_prb=mib["nof_prb"],
+                                         nof_ports=mib["nof_ports"],
+                                         id=res.cell_id), data_sf, cap.rnti)
+        ev[5].record()
+        return vote, res, sfo, mib, out
+
+    reps = 3
+    ((n_id_2, votes, _psr), res, sfo, mib, out), launches, ms_first, ms, \
+        peak = counted_run(run, reps=reps)
+    names = ("vote", "sync", "sfo", "mib", "decode")
+    stage_ms = {f"ms_{n}": sum(ev[i].elapsed_time(ev[i + 1])
+                               for ev in stage_events[-reps:]) / reps
+                for i, n in enumerate(names)}
+    hits = [r for r in out if isinstance(r.dci, DciDl)]
+    frame = 10 * sf_len
+    want_mib = dict(nof_prb=prb, phich_dur=enb_dl.COLD_PHICH[0],
+                    phich_res=enb_dl.COLD_PHICH[1],
+                    sfn_msb=cap.first_sfn >> 2, sfn_mod4=cap.first_sfn % 4,
+                    nof_ports=1, sfn=cap.first_sfn)
+
+    rep_y = enb_dl.one_rx_tm4_stimulus(device="cuda")[2:]
+    rep = ue_dl_decode(rep_y[0], r_cell, r_cfg.sf_idx, r_rnti)
+    checks = {
+        "vote_n_id_2": n_id_2 == cell.n_id_2 and votes[n_id_2] == 2,
+        "cell_id": res.cell_id == enb_dl.COLD_CELL_ID,
+        "sf0_offset": (res.sf0_offset - enb_dl.COLD_LEAD_IN) % frame
+        == 6 * sf_len,
+        "cfo_error_below_0.03": abs(res.cfo - enb_dl.COLD_CFO) < 0.03,
+        "sfo_drift_below_0.5": bool(
+            abs(sfo["drift_samples_per_frame"]) < 0.5),
+        "mib": mib == want_mib,
+        "data_crc_ok": len(hits) == 1 and hits[0].crc_ok,
+        "data_bits_equal": len(hits) == 1 and bool(
+            (torch.as_tensor(hits[0].tb_bits) == cap.tb.cpu()).all()),
+        "viterbi_launched": launches["viterbi37"] > 0,
+        "turbo_launched": launches["turbo_nii"] > 0,
+        "one_rx_tm4_two_format2_results":
+            [type(r.dci).__name__ for r in rep] == ["DciDl2"] * 2,
+        "one_rx_tm4_cw0_ok_bits_equal": rep[0].cw == 0 and rep[0].crc_ok
+        and bool((torch.as_tensor(rep[0].tb_bits)
+                  == rep_y[1][0].cpu()).all()),
+        "one_rx_tm4_cw1_fails": rep[-1].cw == 1 and not rep[-1].crc_ok,
+    }
+    emit({"phase": "cold_boot", "nof_prb": prb, "ports": 1,
+          "cell_id": res.cell_id, "subframes": enb_dl.COLD_NOF_SF,
+          "capture_bytes": cap.samples.numel() * cap.samples.element_size(),
+          "cfo_sent": enb_dl.COLD_CFO, "cfo_est": res.cfo,
+          "sf0_offset": res.sf0_offset, "sss_metric": res.metric,
+          "votes": votes, "sfo_drift_samples_per_frame":
+              float(sfo["drift_samples_per_frame"]), "mib": mib,
+          "tbs": int(cap.tb.numel()), "tx_s": round(tx_s, 3), **stage_ms,
+          "ms_acquire_total": ms, "ms_counted_run": ms_first,
+          "launches": launches, "nii_twin_max_abs_err": nii_twin,
+          "viterbi_twin_mismatched_bits": vit_twin, "peak_mem_gb": peak,
+          "one_rx_tm4": [{"cw": r.cw, "crc_ok": r.crc_ok} for r in rep],
+          "checks": checks})
+    check("cold_boot", checks)
+    return launches
+
+
+def phase_pbch_batch():
+    """``pbch_decode`` over BATCH subframe-0 grids of a 2-port 20 MHz cell
+    (``pbch_batch_stimulus``: SFNs 0..BATCH-1, so each frame phase 64
+    times; SFBC combining with ``estimate_channel``'s per-port channel):
+    one Viterbi launch of 4 x BATCH words at K 40 per call."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import enb_dl
+    from empower_srslte_tpu_torch.models.pbch import PBCH_K, pbch_decode
+    from empower_srslte_tpu_torch.models.ue_dl import estimate_channel
+
+    st = enb_dl.pbch_batch_stimulus(BATCH, device="cuda")
+    h, _n0 = estimate_channel(st.y, st.cell, 0)
+    ms_chest = cuda_ms(lambda: estimate_channel(st.y, st.cell, 0), reps=5)
+    vit_twin = vit_path_check("pbch_batch", {(PBCH_K, 4 * BATCH)}, seed=39)
+    (bits, q, ports, ok), launches, ms_first, ms, peak = counted_run(
+        lambda: pbch_decode(st.y, h, st.cell))
+    checks = {"all_ok": bool(ok.all()),
+              "mib_equal": bool(torch.equal(bits, st.mib)),
+              "sfn_mod4": bool(torch.equal(q, st.sfn % 4)),
+              "nof_ports_2": bool((ports == 2).all()),
+              "one_viterbi_launch": launches["viterbi37"] == 1}
+    emit({"phase": "pbch_batch", "batch": BATCH, "nof_prb": st.cell.nof_prb,
+          "ports": st.cell.nof_ports, "snr_db": enb_dl.PBCH_SNR_DB,
+          "viterbi_words": 4 * BATCH, "k": PBCH_K, "ms_per_batch": ms,
+          "ms_counted_run": ms_first, "ms_chest": ms_chest,
+          "launches": launches, "viterbi_twin_mismatched_bits": vit_twin,
+          "peak_mem_gb": peak, "checks": checks})
+    check("pbch_batch", checks)
+    return launches
+
+
 def n_candidates() -> int:
     """Blind-search candidates of the main path (20 MHz, cfi 1, sf 1,
     RNTI 0x1234): the Viterbi batch is BATCH x this many words."""
@@ -1038,6 +1205,7 @@ def main() -> int:
     import torch
 
     import empower_srslte_tpu_torch  # noqa: F401  (fails outside the repo)
+    from empower_srslte_tpu_torch.models.pbch import PBCH_K
     from empower_srslte_tpu_torch.ops.fec.convcoder import TRAIN_LEN
 
     global BASELINE
@@ -1056,7 +1224,8 @@ def main() -> int:
     turbo = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
-        "kernel_viterbi", [(55, words), (44, words)], seed=3,
+        "kernel_viterbi", [(55, words), (44, words), (PBCH_K, 4 * BATCH)],
+        seed=3,
         extra=[(20, 512, TRAIN_LEN, "noisy"), (31, 512, TRAIN_LEN, "noisy"),
                (64, 512, TRAIN_LEN, "noisy"),
                (256, 512, TRAIN_LEN, "noisy"), (55, 512, None, "noisy"),
@@ -1071,11 +1240,14 @@ def main() -> int:
     tm3 = phase_tm3()
     frame = phase_ue_dl_frame()
     ul8 = phase_uplink_int8()
+    cold = phase_cold_boot()
+    pbch = phase_pbch_batch()
     # every path geometry was asserted exact in its phase; fold it in
     turbo["max_abs_err"] = max([turbo["max_abs_err"],
                                 *PATH_TWIN["turbo_nii"].values()])
     by_path = {"main_path": launches, "uplink_path": ul_launches, **tm2,
-               "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8}
+               "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
+               "cold_boot": cold, "pbch_batch": pbch}
 
     def per_path(name):
         return {k: v[name] for k, v in by_path.items() if v.get(name)}

@@ -13,7 +13,12 @@ benchmark (bench.py ``bench_uedl(mimo=True)``). ``enb_dl_subframe``
 composes one subframe of any cell; ``genie_stimulus`` builds PDSCH batches
 through a genie channel (the benchmark's "20mimo" construction) and
 ``tm2_frame_stimulus`` a radio frame of a 4-port TM2 cell with PHICH, a
-format 1C grant and a HARQ retransmission.
+format 1C grant and a HARQ retransmission. ``put_sync_signals`` places
+PSS/SSS (the composers leave them out; the acquisition stimuli add them):
+``cold_boot_stimulus`` builds a UE's first 26 subframes of a cell as raw
+IQ (timing, CFO, noise), ``pbch_batch_stimulus`` subframe-0 grids of a
+2-port PBCH, and ``one_rx_tm4_stimulus`` a format-2 subframe at a
+one-antenna UE.
 """
 
 from __future__ import annotations
@@ -54,6 +59,28 @@ def put_crs(grid, cell: Cell, sf_idx: int):
         flat[..., p, device_table(key + ("i",), grid.device,
                                   lambda: idx)] = \
             device_table(key + ("v",), grid.device, lambda: vals)
+    return out
+
+
+def put_sync_signals(grid, cell: Cell, sf_idx: int):
+    """Insert PSS (last symbol of slot 0) and SSS (the one before) on port
+    0 in subframes 0 and 5 (enb_dl.c put_base; 36.211 6.11), FDD:
+    grid [..., P, nsymb, nre] -> new grid."""
+    if sf_idx not in (0, 5):
+        return grid
+    from ..ops.sync import pss_freq, sss_freq, sync_re_indices
+
+    nre, nsym = cell.nof_re, cell.nsymb_slot
+    k = sync_re_indices(cell)
+    out = grid.clone()
+    flat = out.view(*grid.shape[:-2], -1)
+    for sym, key, build in (
+            (nsym - 1, ("pss", cell.n_id_2), lambda: pss_freq(cell.n_id_2)),
+            (nsym - 2, ("sss", cell.n_id_1, cell.n_id_2, sf_idx),
+             lambda: sss_freq(cell.n_id_1, cell.n_id_2, sf_idx))):
+        idx = device_table(("sync_re", nre, sym), grid.device,
+                           lambda sym=sym: sym * nre + k)
+        flat[..., 0, idx] = device_table(key, grid.device, build)
     return out
 
 
@@ -350,3 +377,190 @@ def tm2_frame_stimulus(*, device=None) -> DlFrame:
         snrs.append(snr)
     return DlFrame(cell, rnti, torch.stack(samples), tb_list, si_tb, phich,
                    acks, snrs)
+
+
+#: the one-rx-antenna TM4 subframe: Cell(15 PRB, 2 ports, id 7), sf 1,
+#: cfi 2, C-RNTI 0x1234 with a format 2 grant over every RBG (MCS 4 on
+#: both codewords, PMI 0), flat port gains at the UE's one antenna, and
+#: complex noise of amplitude ONE_RX_NOISE per component; seed 5
+ONE_RX_NOF_PRB, ONE_RX_SF, ONE_RX_CFI, ONE_RX_MCS = 15, 1, 2, 4
+ONE_RX_GAINS = (1.0 + 0.0j, 0.45 - 0.62j)
+ONE_RX_NOISE, ONE_RX_SEED, ONE_RX_CELL_ID = 0.01, 5, 7
+
+
+def one_rx_tm4_grant():
+    """The one-rx TM4 subframe's grant: (cell, rnti, DCI bits, (L, cce),
+    PdschConfig, DlschPlan of each codeword). The PDCCH candidate is the
+    search space's largest."""
+    from . import dci as dci_mod
+    from .pdcch import ue_search_candidates
+    from .pdsch import PdschConfig
+    from .regs import pdcch_nof_cces
+    from ..ops.equalizer import MimoType
+
+    cell = Cell(nof_prb=ONE_RX_NOF_PRB, nof_ports=2, id=ONE_RX_CELL_ID)
+    rnti = 0x1234
+    n_rbg = -(-cell.nof_prb // ra.rbg_size(cell.nof_prb))
+    bits = dci_mod.pack_format2(cell.nof_prb, (1 << n_rbg) - 1,
+                                (ONE_RX_MCS, ONE_RX_MCS), pmi=0)
+    d = dci_mod.unpack_format2(bits, cell.nof_prb)
+    mod, tbs = ra.mcs_to_tbs(ONE_RX_MCS, d.n_prb)
+    cfg = PdschConfig(cell=cell, sf_idx=ONE_RX_SF, cfi=ONE_RX_CFI, rnti=rnti,
+                      mod=mod, mimo=MimoType.SPATIAL_MUX, nof_layers=2,
+                      nof_codewords=2, pmi=d.pmi, prb_mask=d.prb_mask)
+    cand = max(ue_search_candidates(rnti, ONE_RX_SF,
+                                    pdcch_nof_cces(cell, ONE_RX_CFI)))
+    return cell, rnti, bits, cand, cfg, cfg.plan(tbs)
+
+
+def one_rx_tm4_draws(tbs: int, sf_len: int) -> dict:
+    """The subframe's numpy draws: both TBs, then the real and imaginary
+    noise [2, sf_len]."""
+    rng = np.random.default_rng(ONE_RX_SEED)
+    tb = rng.integers(0, 2, (2, tbs)).astype(np.int8)
+    nz = rng.normal(size=(2, sf_len)).astype(np.float32)
+    return dict(tb=tb, nz=nz)
+
+
+def one_rx_tm4_stimulus(*, device=None):
+    """The one-rx TM4 subframe as samples at the UE's one antenna:
+    (cell, rnti, samples [sf_len] complex64, TBs [2, tbs] int8)."""
+    dev = resolve_device(device)
+    cell, rnti, bits, (l, cce), cfg, plan = one_rx_tm4_grant()
+    d = one_rx_tm4_draws(plan.tbs, cell.sf_sample_len)
+    tb = torch.as_tensor(d["tb"], device=dev)
+    grid = enb_dl_subframe(cell, ONE_RX_SF, ONE_RX_CFI,
+                           dcis=[(bits, rnti, cce, l)], device=dev)
+    from .pdsch import pdsch_encode
+
+    grid = grid + pdsch_encode(tb[:1], cfg, plan, tb[1:], plan)[0]
+    gains = torch.tensor(ONE_RX_GAINS, dtype=torch.complex64, device=dev)
+    x = torch.einsum("p,pt->t", gains, enb_dl_gen_signal(grid, cell))
+    nz = torch.as_tensor(d["nz"], device=dev)
+    return cell, rnti, x + ONE_RX_NOISE * torch.complex(nz[0], nz[1]), tb
+
+
+#: the cold-boot capture: a UE's first 26 subframes (what the stack buffers
+#: before its search) of Cell(100 PRB, 1 port, id 301), from SFN 36 sf 4,
+#: after COLD_LEAD_IN samples of noise alone (at 30.72 Msps, scaled to
+#: the rate of another bandwidth); cfi 2 and CRS everywhere,
+#: PSS/SSS in sf 0 and 5, the MIB (phich duration 0, resource 1) in every
+#: sf 0, and a C-RNTI format 1 grant over every PRB (MCS 16) in SFN 37 sf
+#: 3. CFO 0.2 subcarrier (3 kHz) over the whole capture, AWGN 20 dB below
+#: the mean power of the subframes; numpy draws from COLD_SEED
+COLD_NOF_PRB, COLD_CELL_ID, COLD_CFI, COLD_MCS = 100, 301, 2, 16
+COLD_NOF_SF, COLD_SFN, COLD_SF0, COLD_LEAD_IN = 26, 36, 4, 12345
+COLD_CFO, COLD_SNR_DB, COLD_SEED, COLD_RNTI = 0.2, 20.0, 17, 0x1234
+COLD_DATA_SFN, COLD_DATA_SF, COLD_PHICH = 37, 3, (0, 1)
+
+
+@dataclass
+class ColdBootCapture:
+    """The cold-boot capture and what acquisition must find in it."""
+
+    cell: Cell
+    samples: torch.Tensor        # [N] complex64, one rx antenna
+    sf0_offset: int              # first sample of the first whole frame
+    first_sfn: int               # that frame's SFN
+    tb: torch.Tensor             # the data grant's TB [tbs] int8
+    rnti: int
+
+
+def cold_boot_stimulus(*, nof_prb: int = COLD_NOF_PRB,
+                       device=None) -> ColdBootCapture:
+    """Build the ``COLD_*`` capture with the port's transmitter (at
+    another bandwidth when ``nof_prb`` is given)."""
+    from . import dci as dci_mod
+    from .pbch import mib_pack, pbch_put
+    from .pdcch import ue_search_candidates
+    from .pdsch import PdschConfig
+    from .regs import pdcch_nof_cces
+    from ..ops.sync import cfo_correct
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(COLD_SEED)
+    cell = Cell(nof_prb=nof_prb, nof_ports=1, id=COLD_CELL_ID)
+    mask = (True,) * cell.nof_prb
+    n_rbg = -(-cell.nof_prb // ra.rbg_size(cell.nof_prb))
+    mod, tbs = ra.mcs_to_tbs(COLD_MCS, cell.nof_prb)
+    tb = torch.as_tensor(rng.integers(0, 2, tbs).astype(np.int8), device=dev)
+    dci_bits = dci_mod.pack_format1(cell.nof_prb, (1 << n_rbg) - 1, COLD_MCS)
+    l, cce = max(ue_search_candidates(COLD_RNTI, COLD_DATA_SF,
+                                      pdcch_nof_cces(cell, COLD_CFI)))
+    sfs = []
+    for i in range(COLD_NOF_SF):
+        sfn, sf = divmod(COLD_SFN * 10 + COLD_SF0 + i, 10)
+        grant = {}
+        if (sfn, sf) == (COLD_DATA_SFN, COLD_DATA_SF):
+            cfg = PdschConfig(cell=cell, sf_idx=sf, cfi=COLD_CFI,
+                              rnti=COLD_RNTI, mod=mod, prb_mask=mask)
+            grant = dict(dcis=[(dci_bits, COLD_RNTI, cce, l)],
+                         pdschs=[(tb, cfg, cfg.plan(tbs))])
+        grid = put_sync_signals(
+            enb_dl_subframe(cell, sf, COLD_CFI, device=dev, **grant),
+            cell, sf)
+        if sf == 0:
+            grid = pbch_put(grid, torch.as_tensor(
+                mib_pack(cell.nof_prb, *COLD_PHICH, sfn), device=dev),
+                cell, sfn)
+        sfs.append(enb_dl_gen_signal(grid, cell)[0])
+    x = torch.cat(sfs)
+    sigma = torch.sqrt(torch.mean(x.abs() ** 2)
+                       * 10 ** (-COLD_SNR_DB / 10) / 2)
+    lead_in = COLD_LEAD_IN * cell.sf_sample_len // 30720
+    x = torch.cat([x.new_zeros(lead_in), x])
+    # the transmitter's carrier sits COLD_CFO subcarriers above the UE's
+    x = cfo_correct(x, -COLD_CFO, cell.fft_size)
+    nz = torch.as_tensor(rng.normal(size=(2, x.numel())).astype(np.float32),
+                         device=dev)
+    first_sf0 = -(COLD_SF0 % 10) % 10
+    return ColdBootCapture(
+        cell=cell, samples=x + sigma * torch.complex(nz[0], nz[1]),
+        sf0_offset=lead_in + first_sf0 * cell.sf_sample_len,
+        first_sfn=COLD_SFN + 1, tb=tb, rnti=COLD_RNTI)
+
+
+#: the PBCH batch: subframe-0 grids of Cell(100 PRB, 2 ports, id 301) at
+#: SFNs 0, 1, ..., flat per-port gains at one rx antenna (magnitudes 1 and
+#: 0.7, random phases per grid), AWGN PBCH_SNR_DB below a PBCH RE's
+#: received power; draws on the device from PBCH_SEED
+PBCH_NOF_PRB, PBCH_PORTS, PBCH_SNR_DB, PBCH_SEED = 100, 2, 10.0, 19
+
+
+@dataclass
+class PbchBatch:
+    """Subframe-0 grids at one rx antenna and the MIB each carries."""
+
+    cell: Cell
+    y: torch.Tensor              # [B, nsymb, nre] complex64
+    sfn: torch.Tensor            # [B] int64
+    mib: torch.Tensor            # [B, 24] int8
+
+
+def pbch_batch_stimulus(batch: int, *, device=None) -> PbchBatch:
+    """``batch`` subframe-0 grids (CRS, PSS/SSS, PBCH; MIB of 100 PRB,
+    phich (0, 1)) of the ``PBCH_*`` cell at SFNs 0..batch-1 through the
+    ``PBCH_*`` channel."""
+    from .pbch import mib_pack, pbch_put
+
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(PBCH_SEED)
+    cell = Cell(nof_prb=PBCH_NOF_PRB, nof_ports=PBCH_PORTS, id=COLD_CELL_ID)
+    sfn = torch.arange(batch, device=dev)
+    mib = torch.as_tensor(np.stack([mib_pack(cell.nof_prb, 0, 1, s)
+                                    for s in range(batch)]), device=dev)
+    grid = put_sync_signals(enb_dl_base_grid(cell, 0, (batch,), device=dev),
+                            cell, 0)
+    for q in range(4):
+        sel = (sfn % 4 == q).nonzero()[:, 0]
+        grid[sel] = pbch_put(grid[sel], mib[sel], cell, q)
+    phase = 2 * np.pi * torch.rand((batch, PBCH_PORTS), generator=g,
+                                   device=dev)
+    mag = torch.tensor([1.0, 0.7], device=dev)
+    gains = torch.polar(mag.expand_as(phase), phase)
+    y = torch.einsum("bp,bpsk->bsk", gains, grid)
+    # SFBC sends each PBCH RE at half power per port
+    sigma = torch.sqrt((gains.abs() ** 2).sum(-1) / 2
+                       * 10 ** (-PBCH_SNR_DB / 10) / 2)[:, None, None]
+    nz = torch.randn((2, *y.shape), generator=g, device=dev)
+    return PbchBatch(cell, y + sigma * torch.complex(nz[0], nz[1]), sfn, mib)

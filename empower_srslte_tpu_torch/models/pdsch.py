@@ -210,6 +210,11 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
         else:
             hp = torch.stack([pdsch_extract(h[..., :, p, :, :], cfg)
                               for p in range(2)], dim=-2)  # [..., A, 2, M]
+            if y.shape[-2] == 1:
+                # one rx antenna: the 2x2 solve reads rx row min(r, A - 1),
+                # as the JAX package's clamped static index does
+                y = y.expand(*y.shape[:-2], 2, y.shape[-1])
+                hp = hp.expand(*hp.shape[:-3], 2, *hp.shape[-2:])
             x, csi = eq_mux_2x2(                          # [..., 2, M]
                 y, effective_channel_mux(hp, cfg.pmi)
                 if cfg.mimo is MimoType.SPATIAL_MUX

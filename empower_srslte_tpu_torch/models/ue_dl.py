@@ -8,6 +8,8 @@ decoded transport blocks.
 * ``ue_dl_decode`` decodes one subframe for one RNTI, resolving CFI and
   DCI grants on the host (formats 1, 1A, 1C and 2; every transmission
   mode; PHICH; HARQ softbuffers, on the float32 or the int8 LLR lane).
+* ``ue_mib_acquire`` / ``ue_mib_decode`` read the MIB from a subframe-0
+  capture at the cell's rate or at 1.92 Msps (ue_mib.c).
 * ``ue_dl_tm4_batch`` is the batched no-genie 20 MHz 2x2 TM4 receiver —
   the chain of the JAX package's full-chain benchmark (bench.py
   ``bench_uedl(mimo=True)``): every stage runs once over the whole batch
@@ -28,8 +30,10 @@ from ..ops.equalizer import MimoType
 from ..ops.modem import Mod
 from ..ops.ofdm import ofdm_rx_sf
 from ..utils.cell import Cell
+from ..utils.device import as_samples
 from . import dci as dci_mod
 from . import ra
+from .pbch import mib_unpack, pbch_decode
 from .pcfich import pcfich_decode
 from .pdcch import (dci_crc_ok, pdcch_blind_bits, pdcch_blind_decode,
                     pdcch_extract_llr, ue_search_candidates)
@@ -207,6 +211,49 @@ def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
     for r in results:
         r.phich_ack = phich_ack
     return results
+
+
+def _mib_result(bits, q, ports, ok) -> dict | None:
+    if not bool(ok[0]):
+        return None
+    mib = mib_unpack(bits[0].cpu().numpy())
+    mib["sfn_mod4"] = int(q[0])
+    mib["nof_ports"] = int(ports[0])
+    return mib
+
+
+def ue_mib_acquire(samples, cell_geom: Cell, cell_id: int, *,
+                   device=None) -> dict | None:
+    """MIB from a full-rate subframe-0 capture [sf_sample_len]: FFT at the
+    receiver's geometry, the central 6 PRB (72 subcarriers), CRS channel
+    estimate of a 6-PRB 1-port cell, blind PBCH decode with the port-0
+    channel (ue_mib.c runs at 1.92 Msps; after the FFT the central 72
+    subcarriers are the same). -> dict(nof_prb, phich_dur, phich_res,
+    sfn_msb, sfn_mod4, nof_ports, sfn), or None when no hypothesis
+    passes its CRC."""
+    samples = as_samples(samples, device)
+    cell6 = Cell(nof_prb=6, id=cell_id, nof_ports=1)
+    grid = ofdm_rx_sf(samples[None], cell_geom)[0]
+    mid = cell_geom.nof_re // 2
+    g6 = grid[..., mid - 36:mid + 36]
+    h, n0 = estimate_channel(g6[None], cell6, 0)
+    mib = _mib_result(*pbch_decode(g6[None], h[0, 0][None], cell6,
+                                   noise_est=n0[0]))
+    if mib is not None:
+        mib["sfn"] = (mib["sfn_msb"] << 2) | mib["sfn_mod4"]
+    return mib
+
+
+def ue_mib_decode(samples, cell_id: int, *, device=None) -> dict | None:
+    """MIB from a subframe-0 capture at 1.92 Msps (ue_mib.c): CRS channel
+    estimate on the 6-PRB grid, blind PBCH decode. -> the dict of
+    ``ue_mib_acquire`` without ``sfn``, or None."""
+    samples = as_samples(samples, device)
+    cell = Cell(nof_prb=6, id=cell_id, nof_ports=1)
+    grid = ofdm_rx_sf(samples[None], cell)[0]
+    h, n0 = estimate_channel(grid[None], cell, 0)
+    return _mib_result(*pbch_decode(grid[None], h[0, 0][None], cell,
+                                    noise_est=n0[0]))
 
 
 @dataclass

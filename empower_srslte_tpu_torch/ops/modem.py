@@ -10,6 +10,7 @@ linear max-log approximations. LLR convention: positive LLR <=> bit 0.
 from __future__ import annotations
 
 import enum
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +25,43 @@ class Mod(enum.Enum):
     @property
     def bits_per_symbol(self) -> int:
         return self.value
+
+
+@functools.lru_cache(maxsize=8)
+def constellation(mod: Mod) -> np.ndarray:
+    """Symbol table indexed by the bit group read MSB-first (36.211 7.1),
+    complex64."""
+    if mod is Mod.BPSK:
+        # 36.211 Table 7.1.1-1: b=0 -> (1+j)/sqrt(2), b=1 -> -(1+j)/sqrt(2)
+        a = 1 / np.sqrt(2)
+        return np.array([a + 1j * a, -a - 1j * a], dtype=np.complex64)
+    if mod is Mod.QPSK:
+        a = 1 / np.sqrt(2)
+        out = np.empty(4, dtype=np.complex64)
+        for b in range(4):
+            b0, b1 = (b >> 1) & 1, b & 1
+            out[b] = a * (1 - 2 * b0) + 1j * a * (1 - 2 * b1)
+        return out
+    if mod is Mod.QAM16:
+        # 36.211 Table 7.1.3-1: I from (b0, b2): 00->1, 01->3 (sign b0)
+        s = 1 / np.sqrt(10)
+        out = np.empty(16, dtype=np.complex64)
+        for b in range(16):
+            b0, b1, b2, b3 = (b >> 3) & 1, (b >> 2) & 1, (b >> 1) & 1, b & 1
+            out[b] = s * ((1 - 2 * b0) * (1 + 2 * b2)
+                          + 1j * (1 - 2 * b1) * (1 + 2 * b3))
+        return out
+    if mod is Mod.QAM64:
+        # 36.211 Table 7.1.4-1: |I| from (b2, b4): 00->3, 01->1, 10->5, 11->7
+        s = 1 / np.sqrt(42)
+        amp = {(0, 0): 3, (0, 1): 1, (1, 0): 5, (1, 1): 7}
+        out = np.empty(64, dtype=np.complex64)
+        for b in range(64):
+            bits = [(b >> (5 - i)) & 1 for i in range(6)]
+            out[b] = s * ((1 - 2 * bits[0]) * amp[(bits[2], bits[4])]
+                          + 1j * (1 - 2 * bits[1]) * amp[(bits[3], bits[5])])
+        return out
+    raise ValueError(mod)
 
 
 def modulate(bits: torch.Tensor, mod: Mod) -> torch.Tensor:
@@ -93,3 +131,9 @@ def demod_soft(symbols: torch.Tensor, mod: Mod) -> torch.Tensor:
     out = torch.stack(planes, dim=-1)
     return out.reshape(*symbols.shape[:-1],
                        symbols.shape[-1] * mod.bits_per_symbol)
+
+
+def demod_hard(symbols: torch.Tensor, mod: Mod) -> torch.Tensor:
+    """Hard decisions [..., n*bps] int8 from the signs of the max-log
+    LLRs (hard_demod_lte.c)."""
+    return (demod_soft(symbols, mod) < 0).to(torch.int8)

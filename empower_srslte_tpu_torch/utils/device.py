@@ -7,6 +7,7 @@ CPU unless the caller asks for it with ``device="cpu"``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,6 +20,15 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def as_samples(samples, device=None) -> torch.Tensor:
+    """A capture as complex64 samples: a tensor keeps its device; anything
+    else (a numpy capture) goes to ``resolve_device(device)``."""
+    if isinstance(samples, torch.Tensor):
+        return samples.to(torch.complex64)
+    return torch.as_tensor(np.asarray(samples, np.complex64),
+                           device=resolve_device(device))
 
 
 _TABLES: dict = {}
