@@ -13,13 +13,27 @@ on a batch of 256 subframes each and checks what they decode:
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
   of a 4-port TM2 cell with PHICH, an SI-RNTI format 1C grant and an
   int8-lane HARQ retransmission (both kernels);
-* ``pusch_decode`` on the int8 lane (windowed turbo kernel);
+* ``pusch_decode`` on the int8 lane (windowed turbo kernel), and on the
+  stack's Msg3 grant, whose code block size has no turbo window (NII
+  kernel, one window per code block);
 * a UE's cold start on a 26-subframe 20 MHz capture: cell search,
   PSS/SSS sync and CFO, the MIB on the PBCH and the first data grant
   (Viterbi kernel at K 40, both kernels for the grant), plus the
   one-rx-antenna format-2 subframe;
 * the 2-port PBCH blind decode of 256 subframe-0 grids (one Viterbi
-  launch of 1024 words at K 40).
+  launch of 1024 words at K 40);
+* the eNB's uplink control on a busy 20 MHz TTI: SR, ACKs on PUCCH
+  formats 1a/1b, CQI and RI on format 2, CQI + ACKs on 2b and a wideband
+  SRS from the summed signals of eight UEs, one with timing advance and
+  CFO pre-compensation, the SR user silent in half the subframes (no
+  kernel);
+* PRACH detection on 256 format-0 windows with the stack's settings, a
+  restricted-set batch, one window of each of formats 1-4 and a
+  noise-only batch (no kernel);
+* 256 MBSFN subframes (PMCH at MCS 16, 100 PRB) from the transmitter to
+  decoded bits, and one MCCH subframe at MCS 2 (NII kernel);
+* the plain PyTorch XLA-scan turbo decoders (full and windowed sweep) on
+  64 code blocks of K 1024 (no kernel).
 
     python3 chip_smoke.py [--baseline FILE]
 
@@ -274,6 +288,33 @@ def nii_inputs(g, k: int, l: int, b: int, apr: bool = True, bounds=None):
     return args, dict(l=l, apr=rn(k, b) if apr else None, bounds=bounds)
 
 
+def nii_work(k: int, l: int, b: int):
+    """(compulsory bytes, float32 operations) of one ``map_decode_nii``
+    launch on ``b`` code blocks of K=``k`` in windows of ``l``: u, p, apr,
+    tails, a_st, b_st read once; ext, a/b written once."""
+    w = k // l
+    return (4 * (4 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b),
+            NII_OPS_PER_STEP * k * b)
+
+
+def nii_shape_time(k: int, l: int, b: int, seed: int) -> dict:
+    """The NII kernel timed at one launch shape (CUDA events over 10
+    launches), its plain twin (one call) and its bound. The launches are
+    not counted: no phase's count is open."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
+        map_decode_nii, map_decode_nii_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    args, kw = nii_inputs(g, k, l, b)
+    return {"k": k, "window": l, "cbs": b,
+            "ms": cuda_ms(lambda: map_decode_nii(*args, **kw), reps=10),
+            "plain_ms": cuda_ms(lambda: map_decode_nii_plain(*args, **kw),
+                                reps=1),
+            **bound(*nii_work(k, l, b))}
+
+
 def nii_twin(args, kw):
     """The NII kernel and its plain twin on the same inputs: -> (max abs
     error, the twin's output). Both do the same float32 adds in the same
@@ -359,9 +400,7 @@ def turbo_kernel_check():
     ms = times["ms"]
     plain_ms = cuda_ms(lambda: map_decode_nii_plain(*main_args, **main_kw),
                        reps=1)
-    # compulsory traffic: u, p, apr, tails, a_st, b_st in; ext, a/b out
-    nbytes = 4 * (4 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b)
-    ops = NII_OPS_PER_STEP * k * b
+    nbytes, ops = nii_work(k, l, b)
     # what this design moves: u, p, apr read by both sweeps, ext written
     moved = 4 * (7 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b)
 
@@ -1021,6 +1060,52 @@ def phase_uplink_int8():
     return launches
 
 
+def phase_uplink_msg3():
+    """The JAX stack's Msg3 grant (``MSG3_GRANT``: 4 PRB, MCS 4, TBS 256,
+    one code block of K 280, which has no turbo window) in 256 subframes
+    through ``pusch_decode`` at n0 1e-3. The windowed plan decodes such a
+    K on the NII kernel, as one window of l = K; the kernel is held to its
+    twin at that shape."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.pusch import pusch_decode
+    from empower_srslte_tpu_torch.models.sch import _pick_window
+    from empower_srslte_tpu_torch.models.ue_ul import (MSG3_GRANT,
+                                                       enb_ul_receive_grid,
+                                                       ul_stimulus)
+
+    st = ul_stimulus(BATCH, UL_N0, grant=MSG3_GRANT, device="cuda")
+    cb_sizes = st.plan.segm.cb_sizes
+    twin = nii_path_check("uplink_msg3", cb_sizes, BATCH, seed=29)
+    (k,) = set(cb_sizes)
+    nii_time = nii_shape_time(k, k, len(cb_sizes) * BATCH, seed=31)
+    its: list = []
+
+    def run():
+        its.clear()
+        return pusch_decode(enb_ul_receive_grid(st.samples, st.cfg.cell),
+                            st.cfg, st.plan, noise_est=UL_N0, iters_out=its)
+
+    (bits, ok, _soft), launches, ms_first, ms, peak = counted_run(run)
+    checks = {"crc_ok": bool(ok.all()),
+              "bits_equal": bool(torch.equal(bits, st.tb)),
+              "k_has_no_window": all(_pick_window(k) is None
+                                     for k in cb_sizes),
+              "windowed_plan": st.plan.decoder_impl == "windowed",
+              "nii_2_per_iteration": launches["turbo_nii"] == 2 * sum(its),
+              "no_turbo_win_launch": launches["turbo_win"] == 0}
+    tbs = st.plan.tbs
+    emit({"phase": "uplink_msg3", "batch": BATCH, "nof_prb": 100,
+          "grant": list(MSG3_GRANT), "tbs": tbs, "cb_sizes": list(cb_sizes),
+          "n0": UL_N0, "ms_per_batch": ms, "ms_counted_run": ms_first,
+          "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": list(its), "launches": launches,
+          "nii_twin": twin, "nii_kernel": nii_time, "peak_mem_gb": peak,
+          "checks": checks})
+    check("uplink_msg3", checks)
+    return launches, nii_time
+
+
 def search_geos(cell, cfi: int, sf: int, rnti: int) -> set:
     """The Viterbi shapes of ``ue_dl_decode``'s blind search for ``rnti``
     in subframe ``sf``: one batch per DCI size over the search space's
@@ -1190,6 +1275,223 @@ def phase_pbch_batch():
     return launches
 
 
+def phase_ul_control():
+    """The eNB's control decode of a busy 20 MHz uplink TTI
+    (``ul_control_stimulus``: 256 subframes of eight PUCCH users and an
+    SRS user, summed with their own flat gains, AWGN 10 dB below a
+    unit-power RE): the UL grid, every PUCCH decode and the SRS LS
+    estimate. Every SR (present in half the subframes, decided by the
+    stack's energy rule), ACK, CQI and RI must equal what was sent, and
+    the band-averaged SRS estimate each subframe's SRS gain within 0.1."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.ue_ul import (
+        CTRL_CFO, CTRL_TA, CTRL_TA_UE, CTRL_UES, ul_control_receive,
+        ul_control_stimulus)
+    from empower_srslte_tpu_torch.models.uci import (cqi_unpack_wideband,
+                                                     ri_unpack)
+
+    t0 = time.perf_counter()
+    st = ul_control_stimulus(BATCH, device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    out, launches, ms_first, ms, peak = counted_run(
+        lambda: ul_control_receive(st.samples, st))
+    errors = {k: int((out[k] != v).any(-1).sum()) for k, v in st.sent.items()}
+    srs_err = (out["srs_h"].mean(-1) - st.srs_gain).abs()
+    # the payload helpers on the decoded reports (host reads, as the stack)
+    cqi_0 = cqi_unpack_wideband(out["cqi"][0])
+    ri_0 = ri_unpack(out["ri"][0])
+    checks = {f"{k}_equal": v == 0 for k, v in errors.items()}
+    sr_absent = int((st.sent["sr"] == 0).sum())
+    checks.update({
+        "sr_absent_in_some_subframes": 0 < sr_absent < BATCH,
+        "srs_gain_within_0.1": bool((srs_err < 0.1).all()),
+        "cqi_unpacks": cqi_0 == cqi_unpack_wideband(st.sent["cqi"][0]),
+        "ri_unpacks": ri_0 == ri_unpack(st.sent["ri"][0]),
+        "no_kernel_launch": not any(launches.values())})
+    emit({"phase": "ul_control", "batch": BATCH, "nof_prb": 100,
+          "users": [list(u) for u in CTRL_UES], "srs": st.srs,
+          "ta_cfo_user": CTRL_TA_UE, "timing_advance": CTRL_TA,
+          "cfo": CTRL_CFO, "n0": st.n0, "tx_s": round(tx_s, 3),
+          "ms_per_batch": ms, "ms_counted_run": ms_first,
+          "subframes_with_errors": errors,
+          "subframes_without_sr": sr_absent,
+          "srs_gain_err_mean": float(srs_err.mean()),
+          "srs_gain_err_max": float(srs_err.max()),
+          "launches": launches, "peak_mem_gb": peak, "checks": checks})
+    check("ul_control", checks)
+
+
+def phase_prach():
+    """PRACH detection as the eNB runs it on its PRACH occasion
+    (``prach_stimulus``): 256 format-0 windows of a 20 MHz cell with the
+    stack's rsi 128, zcz 11 and frequency offset 4, each holding 1-3
+    preambles at random delays below N_cs; the same on the restricted
+    (high-speed) set; one window of each of formats 1-4; and 256
+    noise-only windows. Every sent preamble must be detected with its
+    offset within one delay bin. On noise the threshold (13 x the
+    profile mean) lets each of the 64 zones' N_cs bins through with
+    probability exp(-13), about 3.4 detections per 256 windows at zcz 11:
+    the false alarms must stay within 4 times that expectation."""
+    import math
+
+    import torch
+
+    from empower_srslte_tpu_torch.models import prach as pr
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    cell = Cell(nof_prb=100, id=1)
+    variants = {
+        "format0": dict(windows=BATCH),
+        "restricted": dict(windows=BATCH, high_speed=True),
+        **{f"format{f}": dict(windows=1, fmt=f) for f in (1, 2, 3)},
+        "format4": dict(windows=1, fmt=4, zcz=6, rsi=2),
+        "noise_only": dict(windows=BATCH, max_per_window=0)}
+    line, checks = {}, {}
+    for seed, (name, kw) in enumerate(variants.items()):
+        kw = dict(kw)
+        rsi = kw.get("rsi", pr.STACK_RSI)
+        st = pr.prach_stimulus(kw.pop("windows"), cell=cell, seed=60 + seed,
+                               device="cuda", **kw)
+
+        def run():
+            return pr.prach_detect(st.samples, cell, rsi, zcz=st.zcz,
+                                   freq_offset_prb=pr.STACK_FREQ_OFFSET,
+                                   fmt=st.fmt, high_speed=st.high_speed)
+
+        (det, off, _m), launches, ms_first, ms, peak = counted_run(run)
+        sent = st.index >= 0
+        rows = st.index.clamp_min(0)
+        found = torch.gather(det, 1, rows) & sent
+        offs = torch.gather(off, 1, rows)
+        bin_len = pr.prach_seq_len(cell, st.fmt) / pr._nzc(st.fmt)
+        off_err = ((offs - st.delay).abs().float() / bin_len)[sent]
+        n_det, n_sent = int(det.sum()), int(sent.sum())
+        rec = {"windows": int(st.samples.shape[0]), "fmt": st.fmt,
+               "zcz": st.zcz, "ncs": pr.n_cs(st.zcz, st.fmt, st.high_speed),
+               "roots": len({u for u, _ in pr.preamble_table(
+                   rsi, st.zcz, st.fmt, st.high_speed)}),
+               "seq_len": pr.prach_seq_len(cell, st.fmt),
+               "preambles_sent": n_sent,
+               "missed": int((sent & ~found).sum()),
+               "max_offset_err_bins": float(off_err.max()) if n_sent else 0,
+               "detections_not_sent": n_det - int(found.sum()),
+               "ms_per_batch": ms, "ms_counted_run": ms_first,
+               "launches": launches, "peak_mem_gb": peak}
+        if n_sent:
+            checks[f"{name}_all_detected"] = rec["missed"] == 0
+            checks[f"{name}_offsets_within_1_bin"] = \
+                rec["max_offset_err_bins"] <= 1.0
+        else:
+            expect = pr.prach_false_alarm_rate(
+                st.zcz, st.fmt, st.high_speed) * rec["windows"]
+            rec["false_alarms_expected"] = expect
+            checks["noise_false_alarms_within_4x_expected"] = \
+                n_det <= math.ceil(4 * expect)
+        line[name] = rec
+    emit({"phase": "prach", "nof_prb": 100, "rsi": pr.STACK_RSI,
+          "freq_offset_prb": pr.STACK_FREQ_OFFSET,
+          "snr_db_per_sample": pr.PRACH_SNR_DB, "variants": line,
+          "checks": checks})
+    check("prach", checks)
+
+
+def phase_pmch():
+    """The MBSFN broadcast (``pmch_stimulus``): 256 subframes at MCS 16
+    on the 100-PRB cell's extended-CP twin, area 1, cfi 2, transmitted
+    with ``ofdm_tx_sf_mbsfn`` through a flat gain and AWGN 25 dB below a
+    unit-power RE, received by ``ofdm_rx_sf_mbsfn`` -> ``pmch_chest`` ->
+    ``pmch_decode`` (NII kernel); then one MCCH subframe at MCS 2. The
+    kernel is first held to its twin at this path's launch shape."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import pmch
+    from empower_srslte_tpu_torch.models.sch import _pick_window
+
+    t0 = time.perf_counter()
+    st = pmch.pmch_stimulus(BATCH, device="cuda")
+    torch.cuda.synchronize()
+    tx_s = time.perf_counter() - t0
+    twin = nii_path_check("pmch", st.plan.segm.cb_sizes, BATCH, seed=40)
+    k = st.plan.segm.cb_sizes[0]
+    nii_time = nii_shape_time(k, _pick_window(k), st.plan.segm.c * BATCH,
+                              seed=41)
+    its: list = []
+
+    def run():
+        its.clear()
+        return pmch.pmch_receive(st.samples, st, iters_out=its)
+
+    (bits, ok, _), launches, ms_first, ms, peak = counted_run(run)
+    mcch = pmch.pmch_stimulus(1, mcs=pmch.MCCH_MCS, device="cuda")
+    m_bits, m_ok, _ = pmch.pmch_receive(mcch.samples, mcch)
+    checks = {"crc_ok": bool(ok.all()),
+              "bits_equal": bool(torch.equal(bits, st.tb)),
+              "turbo_launched": launches["turbo_nii"] > 0,
+              "mcch_crc_ok": bool(m_ok.all()),
+              "mcch_bits_equal": bool(torch.equal(m_bits, mcch.tb))}
+    tbs = st.plan.tbs
+    emit({"phase": "pmch_path", "batch": BATCH, "nof_prb": 100,
+          "mcs": pmch.MTCH_MCS, "tbs": tbs, "g": st.plan.g,
+          "cb_sizes": list(st.plan.segm.cb_sizes), "cfi": pmch.MBMS_CFI,
+          "area": pmch.MBMS_AREA, "snr_db": pmch.MBMS_SNR_DB,
+          "tx_s": round(tx_s, 3), "ms_per_batch": ms,
+          "ms_counted_run": ms_first,
+          "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": list(its), "launches": launches,
+          "nii_twin_max_abs_err": twin, "nii_kernel": nii_time,
+          "mcch_tbs": mcch.plan.tbs,
+          "sample_bytes": st.samples.numel() * st.samples.element_size(),
+          "peak_mem_gb": peak, "checks": checks})
+    check("pmch_path", checks)
+    return launches, nii_time
+
+
+def phase_turbo_xla():
+    """``TurboDecoder(impl="xla")``, the plain PyTorch copies of the JAX
+    package's XLA scans, on 64 CRC24B code blocks of K 1024 at Eb/N0 2 dB:
+    the windowed sweep (the decoder's window) and the full sweep (no
+    window), each once; bits must equal the sent ones. They run a few
+    tensor operations per trellis step and launch no kernel of ours."""
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.models.sch import _pick_window
+    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
+    from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
+    from empower_srslte_tpu_torch.utils.crc import CRC24B
+
+    dev = torch.device("cuda")
+    k, nb, ebn0_db = 1024, 64, 2.0
+    g = torch.Generator(device=dev).manual_seed(17)
+    rng = np.random.default_rng(17)
+    payload = torch.as_tensor(rng.integers(0, 2, (nb, k - 24)), device=dev)
+    u = torch.cat([payload, CRC24B.compute(payload)], -1).to(torch.int8)
+    d = turbo_encode(u).to(torch.float32)
+    n0 = 3.0 / 10 ** (ebn0_db / 10)
+    y = 1.0 - 2.0 * d + (n0 / 2) ** 0.5 * torch.randn(d.shape, generator=g,
+                                                       device=dev)
+    llr = 4.0 / n0 * y
+    line, checks = {}, {}
+    for name, window in (("windowed", _pick_window(k)), ("full", None)):
+        dec = TurboDecoder(k=k, iterations=6, window=window, impl="xla")
+        its: list = []
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        bits, _ = dec.decode(llr, crc=CRC24B, iters_out=its)
+        e1.record()
+        torch.cuda.synchronize()
+        line[name] = {"window": window, "iterations": its,
+                      "ms": e0.elapsed_time(e1),
+                      "bit_errors": int((bits != u).sum())}
+        checks[f"{name}_bits_equal"] = bool(torch.equal(bits, u))
+    emit({"phase": "turbo_xla", "k": k, "cbs": nb, "ebn0_db": ebn0_db,
+          **line, "checks": checks})
+    check("turbo_xla", checks)
+
+
 def n_candidates() -> int:
     """Blind-search candidates of the main path (20 MHz, cfi 1, sf 1,
     RNTI 0x1234): the Viterbi batch is BATCH x this many words."""
@@ -1240,14 +1542,21 @@ def main() -> int:
     tm3 = phase_tm3()
     frame = phase_ue_dl_frame()
     ul8 = phase_uplink_int8()
+    msg3, msg3_nii = phase_uplink_msg3()
     cold = phase_cold_boot()
     pbch = phase_pbch_batch()
+    phase_ul_control()
+    phase_prach()
+    pmch_launches, pmch_nii = phase_pmch()
+    phase_turbo_xla()
     # every path geometry was asserted exact in its phase; fold it in
     turbo["max_abs_err"] = max([turbo["max_abs_err"],
                                 *PATH_TWIN["turbo_nii"].values()])
     by_path = {"main_path": launches, "uplink_path": ul_launches, **tm2,
                "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
-               "cold_boot": cold, "pbch_batch": pbch}
+               "uplink_msg3": msg3,
+               "cold_boot": cold, "pbch_batch": pbch,
+               "pmch_path": pmch_launches}
 
     def per_path(name):
         return {k: v[name] for k, v in by_path.items() if v.get(name)}
@@ -1259,6 +1568,8 @@ def main() -> int:
          "launches": launches["turbo_nii"],
          "launches_by_path": per_path("turbo_nii"), **turbo,
          "max_abs_err_by_path_geometry": PATH_TWIN["turbo_nii"],
+         "by_path_shape": {"pmch_path": pmch_nii,
+                           "uplink_msg3": msg3_nii},
          "library_ms": None},
         {"name": "viterbi37", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/viterbi37.cu",

@@ -77,13 +77,16 @@ def pusch_config_from_fields(f: dict) -> PuschConfig:
 def decoder_impl_from_jax(impl: str) -> str:
     """The JAX plan's turbo decoder -> the port's: the NII kernel
     (``"auto"``, ``"pallas2*"``) -> ``"nii"``; the v1 windowed kernel
-    (``"pallas*"``) -> ``"windowed"``. The XLA scan (``"xla"``) is not
-    ported, and its results differ from the v1 kernel's."""
+    (``"pallas*"``) -> ``"windowed"``; the XLA scans (``"xla"``) ->
+    ``"xla"``, their plain PyTorch copies (their results differ from the
+    v1 kernel's)."""
     if impl == "auto" or impl.startswith("pallas2"):
         return "nii"
     if impl.startswith("pallas"):
         return "windowed"
-    raise NotImplementedError(f"turbo decoder {impl!r} is not ported")
+    if impl == "xla":
+        return "xla"
+    raise ValueError(f"unknown turbo decoder {impl!r}")
 
 
 def dlsch_plan_from_fields(f: dict) -> DlschPlan:
@@ -102,8 +105,8 @@ def plan_fields(plan: DlschPlan) -> dict:
     return dict(tbs=plan.tbs, g=plan.g, qm=plan.qm, rv=plan.rv,
                 n_layers=plan.n_layers, max_iterations=plan.max_iterations,
                 early_stop=plan.early_stop,
-                decoder_impl={"nii": "auto",
-                              "windowed": "pallas"}[plan.decoder_impl])
+                decoder_impl={"nii": "auto", "windowed": "pallas",
+                              "xla": "xla"}[plan.decoder_impl])
 
 
 def uci_plan_from_fields(f: dict) -> UciPlan:

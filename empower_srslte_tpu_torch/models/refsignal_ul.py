@@ -8,9 +8,9 @@ allocations >= 3 PRB, the 30 special QPSK-phase sequences for 1-2 PRB
 u = (f_gh + f_ss) mod 30 with group hopping (phy_common.c:342) and
 sequence hopping v (refsignal_ul.c:154), cyclic shifts, and PUSCH DMRS
 placement on the middle SC-FDMA symbol of each slot. Counterpart of the
-JAX package's models/refsignal_ul.py:1-172; the sequences are built on
-the host (numpy, cached), the channel estimate is torch. SRS is not
-ported yet.
+JAX package's models/refsignal_ul.py:1-215, with the sounding reference
+signal (SRS) on the last SC-FDMA symbol; the sequences are built on the
+host (numpy, cached), placement and channel estimates are torch.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import pathlib
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..utils.cell import CP, Cell
 from ..utils.device import device_table
@@ -161,3 +162,60 @@ def chest_ul_pusch(grid: torch.Tensor, cell: Cell, prb_start: int,
     t = device_table(("chest_ul_t", tuple(t.tolist())), grid.device,
                      lambda: t[:, None])
     return h0[..., None, :] * (1 - t) + h1[..., None, :] * t
+
+
+# --- SRS: sounding reference signals (36.211 5.5.3) -------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def srs_sequence(cell: Cell, n_prb_srs: int, cyclic_shift: int = 0,
+                 sf_idx: int = 0, group_hopping: bool = False) -> np.ndarray:
+    """r_SRS over the sounding bandwidth: comb-2 -> M_sc = 12*n_prb/2
+    subcarriers (refsignal_ul.c srs path; SRS rides slot 2*sf with the
+    same f_gh group hopping as PUSCH DMRS)."""
+    m_sc = 12 * n_prb_srs // 2
+    u, _ = dmrs_u_v(cell.id, 2 * sf_idx, 0, 0, group_hopping, False)
+    r = base_sequence(u, 0, m_sc)
+    n = np.arange(m_sc)
+    alpha = 2 * np.pi * cyclic_shift / 8.0
+    return (np.exp(1j * alpha * n) * r).astype(np.complex64)
+
+
+def _srs_tables(cell: Cell, n_prb_srs: int, prb_start: int, comb: int,
+                cyclic_shift: int):
+    """(flat indices of the SRS REs in the last symbol, the sequence).
+    Both ends build the sequence with sf_idx 0, as the JAX package's
+    ``srs_put`` / ``srs_chest`` do."""
+    seq = srs_sequence(cell, n_prb_srs, cyclic_shift)
+    k = 12 * prb_start + comb + 2 * np.arange(len(seq))
+    return ((cell.nsymb_sf - 1) * cell.nof_re + k).astype(np.int64), seq
+
+
+def srs_put(grid: torch.Tensor, cell: Cell, n_prb_srs: int,
+            prb_start: int = 0, comb: int = 0,
+            cyclic_shift: int = 0) -> torch.Tensor:
+    """Insert SRS in the last SC-FDMA symbol (comb-2 spacing) of
+    [..., nsymb, nre]: the SRS REs are set, overwriting what was there,
+    as the JAX package's overlay does."""
+    key = ("srs", cell, n_prb_srs, prb_start, comb, cyclic_shift)
+    idx = device_table(key + ("idx",), grid.device, lambda: _srs_tables(
+        cell, n_prb_srs, prb_start, comb, cyclic_shift)[0])
+    seq = device_table(key + ("seq",), grid.device, lambda: _srs_tables(
+        cell, n_prb_srs, prb_start, comb, cyclic_shift)[1])
+    flat = grid.reshape(*grid.shape[:-2], -1).clone()
+    flat[..., idx] = seq
+    return flat.reshape(grid.shape)
+
+
+def srs_chest(grid: torch.Tensor, cell: Cell, n_prb_srs: int,
+              prb_start: int = 0, comb: int = 0,
+              cyclic_shift: int = 0) -> torch.Tensor:
+    """LS channel estimate at the SRS comb positions -> h [..., M_sc]
+    (profiler range ``srs.chest``)."""
+    key = ("srs", cell, n_prb_srs, prb_start, comb, cyclic_shift)
+    idx = device_table(key + ("idx",), grid.device, lambda: _srs_tables(
+        cell, n_prb_srs, prb_start, comb, cyclic_shift)[0])
+    seq_c = device_table(key + ("conj",), grid.device, lambda: np.conj(
+        _srs_tables(cell, n_prb_srs, prb_start, comb, cyclic_shift)[1]))
+    with record_function("srs.chest"):
+        return grid.reshape(*grid.shape[:-2], -1)[..., idx] * seq_c

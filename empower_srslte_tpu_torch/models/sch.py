@@ -62,8 +62,9 @@ class DlschPlan:
     #: iterate only until every CB passes its CRC (sch.c:382 early stop,
     #: batched); False = fixed max_iterations
     early_stop: bool = True
-    #: turbo constituent decoder: "nii" (ops/fec/turbo_nii.py) or
-    #: "windowed" (ops/fec/turbo_win.py); see ``TurboDecoder.impl``
+    #: turbo constituent decoder: "nii" (ops/fec/turbo_nii.py),
+    #: "windowed" (ops/fec/turbo_win.py) or "xla" (the plain sweeps);
+    #: see ``TurboDecoder.impl``
     decoder_impl: str = "nii"
 
     @functools.cached_property

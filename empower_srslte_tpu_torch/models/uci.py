@@ -9,7 +9,8 @@ layout (Q' sizes, RI/ACK positions, the interleaver permutation) is
 computed on the host with numpy, decoding is torch. Short CQI decodes
 by ML correlation against all 2^O codewords (one matrix product); long
 CQI by conv de-rate-matching, the Viterbi kernel (ops/fec/viterbi37.py
-on the card) and CRC8. The PUCCH RM (20,O) code is not ported yet.
+on the card) and CRC8. The PUCCH format-2 RM (20,O) code decodes the
+same way as the short CQI, against its own basis.
 """
 
 from __future__ import annotations
@@ -30,17 +31,20 @@ from ..utils.device import device_table
 _DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
 
 
-@functools.lru_cache(maxsize=1)
-def _basis32() -> np.ndarray:
-    return np.load(_DATA / "rm32_basis.npy")
+@functools.lru_cache(maxsize=2)
+def _basis(n: int) -> np.ndarray:
+    """RM basis [n, 11 or 13]: PUSCH's (32, O) or PUCCH's (20, O)."""
+    if n not in (20, 32):
+        raise ValueError(f"RM ({n}, O): n must be 20 or 32")
+    return np.load(_DATA / f"rm{n}_basis.npy")
 
 
 def rm_encode(bits: np.ndarray, n_out: int = 32) -> np.ndarray:
-    """RM (32, O) encode on the host: bits [..., O] -> [..., 32] (O <= 11)."""
-    if n_out != 32:
-        raise NotImplementedError("only the PUSCH RM (32, O) code is ported")
+    """RM (n_out, O) encode on the host: bits [..., O] -> [..., n_out]
+    (O <= 11 for n_out 32, O <= 13 for n_out 20)."""
     o = bits.shape[-1]
-    return np.mod(np.asarray(bits) @ _basis32()[:, :o].T, 2).astype(np.int8)
+    return np.mod(np.asarray(bits) @ _basis(n_out)[:, :o].T, 2) \
+        .astype(np.int8)
 
 
 @functools.lru_cache(maxsize=64)
@@ -60,6 +64,26 @@ def rm_decode(llrs: torch.Tensor, n_out: int, o: int) -> torch.Tensor:
     shifts = device_table(("rm_shifts", o), llrs.device,
                           lambda: np.arange(o, dtype=np.int64))
     return ((best[..., None] >> shifts) & 1).to(torch.int8)
+
+
+def cqi_pack_wideband(cqi: int, differential: int = 0) -> np.ndarray:
+    """Wideband CQI report payload (cqi.c format): 4-bit CQI."""
+    return np.array([(cqi >> (3 - i)) & 1 for i in range(4)], np.int8)
+
+
+def _host_bits(bits) -> np.ndarray:
+    """A payload as int64 numpy bits on the host (a decoder's tensor is
+    read back here: the unpackers return Python ints)."""
+    if isinstance(bits, torch.Tensor):
+        bits = bits.detach().cpu().numpy()
+    return np.asarray(bits).astype(np.int64)
+
+
+def cqi_unpack_wideband(bits) -> int:
+    out = 0
+    for b in _host_bits(bits)[:4]:
+        out = (out << 1) | int(b)
+    return out
 
 
 # --- subband CQI (36.213 7.2.1, 36.212 Tables 5.2.2.6.2-1/2;
@@ -119,6 +143,62 @@ def cqi_unpack_hl_subband(bits: np.ndarray, nof_prb: int):
         d = int((bits[4 + 2 * i] << 1) | bits[5 + 2 * i])
         sbs.append(max(0, min(15, wb - CQI_DIFF_OFFSET[d])))
     return wb, sbs
+
+
+def cqi_pack_ue_subband(wb_cqi: int, sb_diff: int, position: int,
+                        l_bits: int) -> np.ndarray:
+    """UE-selected subband report (cqi.c:81-91): wideband 4 + diff 2 +
+    L-bit best-subband position label."""
+    bits = [(wb_cqi >> (3 - i)) & 1 for i in range(4)]
+    bits += [(sb_diff >> 1) & 1, sb_diff & 1]
+    bits += [(position >> (l_bits - 1 - i)) & 1 for i in range(l_bits)]
+    return np.array(bits, np.int8)
+
+
+def cqi_unpack_ue_subband(bits, l_bits: int):
+    bits = _host_bits(bits)
+    wb = int((bits[0] << 3) | (bits[1] << 2) | (bits[2] << 1) | bits[3])
+    diff = int((bits[4] << 1) | bits[5])
+    pos = 0
+    for b in bits[6:6 + l_bits]:
+        pos = (pos << 1) | int(b)
+    return wb, diff, pos
+
+
+def cqi_pack_format2_subband(subband_cqi: int, subband_label: int,
+                             label_2_bits: bool = True) -> np.ndarray:
+    """Periodic UE-selected subband report on PUCCH format 2 (36.213
+    mode 2-0; cqi.c:117 srslte_cqi_format2_subband_pack): 4-bit subband
+    CQI + 1/2-bit bandwidth-part label."""
+    n = 2 if label_2_bits else 1
+    bits = [(subband_cqi >> (3 - i)) & 1 for i in range(4)]
+    bits += [(subband_label >> (n - 1 - i)) & 1 for i in range(n)]
+    return np.array(bits, np.int8)
+
+
+def cqi_unpack_format2_subband(bits, label_2_bits: bool = True):
+    bits = _host_bits(bits)
+    cqi = int((bits[0] << 3) | (bits[1] << 2) | (bits[2] << 1) | bits[3])
+    n = 2 if label_2_bits else 1
+    label = 0
+    for b in bits[4:4 + n]:
+        label = (label << 1) | int(b)
+    return cqi, label
+
+
+def ri_pack(ri: int, nof_bits: int = 1) -> np.ndarray:
+    """Periodic RI payload for PUCCH format 2 (phch_worker.cc:1086
+    uci_data.uci_ri on the RI occasion): rank-1 -> bit 0, rank-2 -> 1."""
+    v = ri - 1
+    return np.array([(v >> (nof_bits - 1 - i)) & 1
+                     for i in range(nof_bits)], np.int8)
+
+
+def ri_unpack(bits, nof_bits: int = 1) -> int:
+    v = 0
+    for b in _host_bits(bits)[:nof_bits]:
+        v = (v << 1) | int(b)
+    return v + 1
 
 
 # --- UCI on PUSCH (36.212 5.2.2.6-5.2.2.8; sch.c:550-985, uci.c:491-720) -----

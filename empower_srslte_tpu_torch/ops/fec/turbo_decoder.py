@@ -7,7 +7,7 @@ renormalization, and the CRC early stop between iterations (sch.c:382).
 Counterpart of the JAX package's ``TurboDecoder``
 (empower_srslte_tpu/ops/fec/turbo_decoder.py:293-639): the unit of work
 is a batch of equal-size code blocks ``[..., 3, K+4]`` whose trellis is
-cut into K/l windows decoded in parallel. Two constituent decoders:
+cut into K/l windows decoded in parallel. Three constituent decoders:
 
 * ``impl="nii"`` (the JAX ``"pallas2"`` path, :319-506): each window is
   initialized from its neighbours' boundary metrics of the previous
@@ -17,6 +17,16 @@ cut into K/l windows decoded in parallel. Two constituent decoders:
   trains over ``overlap`` steps on either side (srsLTE's
   turbodecoder_win.h, ops/fec/turbo_win.py); iterations run in
   ``decode_win``.
+* ``impl="xla"`` (the JAX XLA scans, :63-296): the same v1 iteration loop
+  over plain PyTorch sweeps, ``_map_decode`` (the full trellis, every
+  beta stored) without a window and ``_windowed_map_decode`` (overlap
+  training, ``PAD_LLR`` padding) with one. They loop over trellis steps
+  in Python, a few tensor operations per step, and are not the
+  ``turbo_win`` kernel's twin: the two pad and renormalize differently.
+
+At a K without a window the windowed decoder runs the NII kernel over one
+window of l = K, as ``"nii"`` does; JAX's ``run_map`` takes its full sweep
+there. The two agree (bits equal, LLRs within 0.1).
 
 Extrinsics move between the two constituents through the QPP
 (de)interleaver as row gathers of time-major [K, B] arrays. Metrics are
@@ -34,8 +44,15 @@ import torch
 
 from ...utils.device import device_table
 from .tables import qpp_deinterleaver, qpp_interleaver
+from .turbo_encoder import trellis
 from .turbo_nii import map_decode_nii
 from .turbo_win import DEFAULT_OVERLAP, map_decode_win
+
+NEG_INF = -1e30
+#: Padding LLR of the XLA windowed sweep's out-of-trellis training steps
+#: (JAX turbo_decoder.py:147-156): a strong "bit 0" prior keeps the
+#: terminated metric {state 0: 0, others: -inf} invariant through them.
+PAD_LLR = 1e5
 
 
 def _perm(name: str, k: int, device):
@@ -54,15 +71,161 @@ def parity_rows_interleaved(crc, k: int, device) -> torch.Tensor:
             crc.parity_matrix(k).astype(np.float32)[qpp_interleaver(k)].T))
 
 
+def _sweep_tables(device):
+    """Trellis wiring of the plain sweeps, both inputs stacked (u-major,
+    16 rows): next states and previous states [16] int64, and the signs
+    of the systematic / parity terms of the forward and backward branch
+    metrics [16, 1] float32."""
+    def build():
+        t = trellis()
+        su = np.repeat([1.0, -1.0], 8)[:, None]
+        sign = lambda par: (1.0 - 2.0 * par.T.reshape(-1))[:, None]
+        return dict(ns=t.next_state.T.reshape(-1).astype(np.int64),
+                    ps=t.prev_state.T.reshape(-1).astype(np.int64),
+                    su=su.astype(np.float32),
+                    sp=sign(t.parity).astype(np.float32),
+                    spp=sign(t.prev_parity).astype(np.float32))
+    return {k: device_table(("turbo_sweep", k), device, lambda k=k: build()[k])
+            for k in ("ns", "ps", "su", "sp", "spp")}
+
+
+def _renorm(m16: torch.Tensor) -> torch.Tensor:
+    """max over the input bit of [16, B] candidates -> [8, B], minus the
+    max over states."""
+    new = torch.amax(m16.view(2, 8, -1), dim=0)
+    return new - torch.amax(new, dim=0, keepdim=True)
+
+
+def _beta_sweep(lsa, lp, beta0, tb):
+    """Backward sweep over rows T-1..0 of lsa/lp [T, B] from beta0 [8, B]:
+    -> betas [T, 8, B], betas[k] the metric entering step k from above."""
+    betas = [None] * lsa.shape[0]
+    beta = beta0
+    for k in range(lsa.shape[0] - 1, -1, -1):
+        betas[k] = beta
+        g = 0.5 * (tb["su"] * lsa[k] + tb["sp"] * lp[k])
+        beta = _renorm(beta[tb["ns"]] + g)
+    return torch.stack(betas)
+
+
+def _alpha_sweep(lsa, lp, betas, alpha0, tb, skip: int = 0):
+    """Forward sweep over lsa/lp [T, B] from alpha0 [8, B], emitting the
+    a-posteriori LLR of every row from ``skip`` on against betas
+    [T - skip, 8, B] -> llr [T - skip, B] (the first ``skip`` rows only
+    train alpha)."""
+    llrs = []
+    alpha = alpha0
+    for k in range(lsa.shape[0]):
+        if k >= skip:
+            g = 0.5 * (tb["su"] * lsa[k] + tb["sp"] * lp[k])
+            tot = (alpha.repeat(2, 1) + g + betas[k - skip][tb["ns"]]) \
+                .view(2, 8, -1)
+            llrs.append(torch.amax(tot[0], dim=0)
+                        - torch.amax(tot[1], dim=0))
+        g = 0.5 * (tb["su"] * lsa[k] + tb["spp"] * lp[k])
+        alpha = _renorm(alpha[tb["ps"]] + g)
+    return torch.stack(llrs)
+
+
+def _edge_metric(device) -> torch.Tensor:
+    """The terminated state metric {state 0: 0, others: NEG_INF} [8]."""
+    return device_table("turbo_edge", device, lambda: np.asarray(
+        [0.0] + [NEG_INF] * 7, np.float32))
+
+
+def _map_decode(lsa, lp, n_tail: int, init_alpha, init_beta):
+    """One max-log-MAP constituent decode over a full trellis (the JAX
+    package's XLA full sweep, turbo_decoder.py:63-145).
+
+    lsa [T, B] systematic + a-priori LLRs (tail rows: systematic only),
+    lp [T, B] parity LLRs, ``n_tail`` trailing termination steps (no LLR
+    output), init_alpha / init_beta [8] initial state metrics.
+    Returns llr_out [T - n_tail, B], the a-posteriori LLRs.
+    """
+    tb = _sweep_tables(lsa.device)
+    b = lsa.shape[1]
+    betas = _beta_sweep(lsa, lp, init_beta[:, None].expand(8, b), tb)
+    llrs = _alpha_sweep(lsa, lp, betas, init_alpha[:, None].expand(8, b),
+                        tb)
+    return llrs[:lsa.shape[0] - n_tail] if n_tail else llrs
+
+
+def _prepare_windows(lsa, lp, k: int, overlap: int, window: int):
+    """The windowed sweeps' inputs, time-major with windows in lanes
+    (lane = w * B + b): lsa_a, lp_a [O+L, W*B] (alpha: O training rows
+    before each window), lsa_b, lp_b [L+O, W*B] (beta: O after).
+    Out-of-trellis rows hold systematic PAD_LLR and parity 0."""
+    b = lsa.shape[1]
+    if k % window or not 3 <= overlap <= window:
+        raise ValueError(f"K {k}, window {window}, overlap {overlap}")
+    w, l, o = k // window, window, overlap
+    pad_s = lsa.new_full((o + 3, b), PAD_LLR)
+    pad_p = lp.new_zeros((o + 3, b))
+    lsa_pd = torch.cat([pad_s, lsa, pad_s])                # shift +O+3
+    lp_pd = torch.cat([pad_p, lp, pad_p])
+    base = np.arange(w)[:, None] * l
+    idx_a = base + np.arange(-o, l)[None, :] + (o + 3)     # [W, O+L]
+    idx_b = base + np.arange(0, l + o)[None, :] + (o + 3)  # [W, L+O]
+
+    def gather_tm(x, idx, name):
+        t = device_table(("turbo_win_idx", name, k, l, o), x.device,
+                         lambda: idx.reshape(-1).astype(np.int64))
+        return x[t].view(w, idx.shape[1], b).transpose(0, 1) \
+            .reshape(idx.shape[1], w * b)
+
+    return (gather_tm(lsa_pd, idx_a, "a"), gather_tm(lp_pd, idx_a, "a"),
+            gather_tm(lsa_pd, idx_b, "b"), gather_tm(lp_pd, idx_b, "b"))
+
+
+def _windowed_map_decode(lsa, lp, k: int, overlap: int, window: int,
+                         init_alpha, init_beta):
+    """Windowed max-log-MAP with overlap training (the JAX package's XLA
+    windowed scan, turbo_decoder.py:147-296).
+
+    lsa/lp [T, B] with T = K + 3 (payload + termination). The payload is
+    cut into W = K / window windows riding the lane axis; each window's
+    alpha (beta) recursion trains over ``overlap`` leading (trailing)
+    steps from uniform metrics. Window 0's alpha and the last window's
+    beta start from init_alpha / init_beta [8], carried through their
+    padded training rows by the PAD_LLR construction; the last window's
+    beta training covers the 3 real termination rows. The JAX version's
+    ``halo`` / ``boundary`` arguments (sequence-parallel decoding) are
+    not ported. Returns llr_out [K, B].
+    """
+    b = lsa.shape[1]
+    w, l, o = k // window, window, overlap
+    tb = _sweep_tables(lsa.device)
+    lsa_a, lp_a, lsa_b, lp_b = _prepare_windows(lsa, lp, k, o, l)
+    zeros = torch.zeros((8, w - 1, b), dtype=lsa.dtype, device=lsa.device)
+    edge = lambda m: m[:, None, None].expand(8, 1, b)
+    alpha0 = torch.cat([edge(init_alpha), zeros], 1).reshape(8, w * b)
+    beta0 = torch.cat([zeros, edge(init_beta)], 1).reshape(8, w * b)
+    betas = _beta_sweep(lsa_b, lp_b, beta0, tb)[:l]
+    llrs = _alpha_sweep(lsa_a, lp_a, betas, alpha0, tb, skip=o)  # [L, W*B]
+    return llrs.view(l, w, b).transpose(0, 1).reshape(k, b)
+
+
+def map_decode_xla(lsa, lp, *, k: int, l: int | None,
+                   o: int = DEFAULT_OVERLAP):
+    """The XLA constituent decode as ``decode_win`` calls it: lsa/lp
+    [K+3, B] -> a-posteriori LLRs [K, B], from the terminated state at
+    both trellis ends; the full sweep when ``l`` is None, else the
+    windowed sweep with windows of ``l`` and overlap ``o``."""
+    edge = _edge_metric(lsa.device)
+    if l is None:
+        return _map_decode(lsa, lp, 3, edge, edge)
+    return _windowed_map_decode(lsa, lp, k, o, l, edge, edge)
+
+
 @dataclass(frozen=True)
 class TurboDecoder:
     """Iterative turbo decoder for one CB size K.
 
     ``window``: trellis window length l (K % l == 0); None decodes the
-    whole trellis as one window (NII only: the windowed decoder raises
-    ``NotImplementedError`` there, where the JAX package falls back to
-    its XLA full sweep). ``impl``: ``"nii"`` or ``"windowed"``;
-    ``overlap``: the windowed decoder's training length.
+    whole trellis: as one NII window (``"nii"`` and ``"windowed"``), or by
+    the full sweep ``_map_decode`` (``"xla"``, as the JAX package does).
+    ``impl``: ``"nii"``, ``"windowed"`` or ``"xla"``;
+    ``overlap``: the windowed decoders' training length.
     """
 
     k: int
@@ -72,8 +235,9 @@ class TurboDecoder:
     overlap: int = DEFAULT_OVERLAP
 
     def __post_init__(self):
-        if self.impl not in ("nii", "windowed"):
-            raise ValueError(f"impl {self.impl!r}: 'nii' or 'windowed'")
+        if self.impl not in ("nii", "windowed", "xla"):
+            raise ValueError(
+                f"impl {self.impl!r}: 'nii', 'windowed' or 'xla'")
 
     def _split_streams(self, d_llr):
         """d_llr[..., 3, K+4] -> per-constituent (sys1, par1, sys2_tail,
@@ -143,7 +307,8 @@ class TurboDecoder:
     def decode_win(self, sys1, par1, sys2_tail, par2, *, crc=None,
                    map_decode=map_decode_win):
         """Windowed-overlap iteration loop on time-major arrays (the JAX
-        package's v1 loop, turbo_decoder.py:558-635).
+        package's v1 loop, turbo_decoder.py:558-635); the XLA decoder
+        without a window runs the full sweep ``_map_decode``.
 
         sys1/par1/par2 [K+3, B] (payload plus termination rows),
         sys2_tail [3, B]. Per iteration: ``lsa1 = sys + ext2``,
@@ -155,10 +320,6 @@ class TurboDecoder:
         Returns (llr [K, B] natural-order a-posteriori LLRs, n_iterations).
         """
         k = self.k
-        if self.window is None:
-            raise NotImplementedError(
-                f"K={k} has no turbo window: the full-trellis sweep of the "
-                "windowed decoder is not ported")
         dev = sys1.device
         pi = _perm("pi", k, dev)
         pinv = _perm("pinv", k, dev)
@@ -201,10 +362,13 @@ class TurboDecoder:
         b = int(np.prod(lead)) if lead else 1
         tm = lambda x: x.reshape(b, x.shape[-1]).t().contiguous()
         sys1_tm, par1_tm, par2_tm = tm(sys1), tm(par1), tm(par2)
-        if self.impl == "windowed":
+        if self.impl == "xla" or (self.impl == "windowed"
+                                  and self.window is not None):
+            default = map_decode_win if self.impl == "windowed" \
+                else map_decode_xla
             llr, n_it = self.decode_win(
                 sys1_tm, par1_tm, tm(sys2_tail), par2_tm, crc=crc,
-                map_decode=map_decode or map_decode_win)
+                map_decode=map_decode or default)
         else:
             llr_int, n_it = self.decode_tm(
                 sys1_tm[:k], par1_tm[:k], par2_tm[:k], sys1_tm[k:],

@@ -1,19 +1,24 @@
 """Where a path's time goes on the card.
 
-    python3 -m empower_srslte_tpu_torch.profile_main_path [--path uplink]
+    python3 -m empower_srslte_tpu_torch.profile_main_path [--path PATH]
 
 ``--path downlink`` (the default) builds the 20 MHz 2x2 TM4 stimulus
 (models/enb_dl.py tm4_stimulus) and profiles ``ue_dl_tm4_batch``;
 ``--path uplink`` builds the 20 MHz PUSCH+UCI stimulus at n0 1e-3
 (models/ue_ul.py ul_uci_stimulus) and profiles the eNB receiver
-(``enb_ul_receive_grid`` + ``pusch_decode_uci``). Both at a batch of 256
-subframes:
+(``enb_ul_receive_grid`` + ``pusch_decode_uci``); ``--path ul_control``
+profiles the eNB's PUCCH/SRS decode of ``ul_control_stimulus``
+(``ul_control_receive``); ``--path prach`` ``prach_detect`` on 256
+format-0 windows of ``prach_stimulus``; ``--path pmch`` the MBSFN
+receiver on ``pmch_stimulus`` (``pmch_receive``). All at a batch of 256
+subframes (windows):
 
 1. times the receiver with CUDA events (mean of 3 calls after a
    warm-up);
 2. traces one more call with ``torch.profiler`` and reads, for each of
    the receiver's ``record_function`` ranges (``ue_dl.*``, ``pdsch.*``,
-   ``enb_ul.*``, ``pusch.*``, ``uci.*``, ``dlsch.*``), its host time and
+   ``enb_ul.*``, ``pusch.*``, ``uci.*``, ``dlsch.*``, ``pucch.*``,
+   ``srs.*``, ``prach.*``, ``pmch.*``), its host time and
    the device time of the kernels launched in it (and the device time
    launched outside every range); plus device time by kernel name, the
    kernel count and the device's idle share of the traced call's wall
@@ -34,7 +39,8 @@ import time
 import torch
 
 BATCH = 256
-RANGE_PREFIXES = ("ue_dl.", "pdsch.", "enb_ul.", "pusch.", "uci.", "dlsch.")
+RANGE_PREFIXES = ("ue_dl.", "pdsch.", "enb_ul.", "pusch.", "uci.", "dlsch.",
+                  "pucch.", "srs.", "prach.", "pmch.")
 
 
 def call_ms(run, reps: int = 3) -> float:
@@ -111,6 +117,31 @@ def receiver(path: str):
         def run():
             iters[:] = ue_dl_tm4_batch(st.samples, st.cfg,
                                        st.plan).iterations
+    elif path == "ul_control":
+        from .models.ue_ul import ul_control_receive, ul_control_stimulus
+
+        st = ul_control_stimulus(BATCH, device="cuda")
+
+        def run():
+            ul_control_receive(st.samples, st)
+    elif path == "prach":
+        from .models import prach
+
+        st = prach.prach_stimulus(BATCH, cell=prach.Cell(nof_prb=100, id=1),
+                                  device="cuda")
+
+        def run():
+            prach.prach_detect(st.samples, st.cell, prach.STACK_RSI,
+                               zcz=st.zcz,
+                               freq_offset_prb=prach.STACK_FREQ_OFFSET)
+    elif path == "pmch":
+        from .models.pmch import pmch_receive, pmch_stimulus
+
+        st = pmch_stimulus(BATCH, device="cuda")
+
+        def run():
+            iters.clear()
+            pmch_receive(st.samples, st, iters_out=iters)
     else:
         from .models.pusch import pusch_decode_uci
         from .models.ue_ul import enb_ul_receive_grid, ul_uci_stimulus
@@ -127,7 +158,8 @@ def receiver(path: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("downlink", "uplink"),
+    ap.add_argument("--path", choices=("downlink", "uplink", "ul_control",
+                                       "prach", "pmch"),
                     default="downlink")
     path = ap.parse_args(argv).path
     card = subprocess.run(

@@ -147,12 +147,19 @@ def test_xla_windowed_scan_is_not_the_reference(rng):
     assert np.abs(llr_kernel - llr_xla).max() > 1e-2
 
 
-def test_windowed_without_window_raises():
-    dec = TurboDecoder(k=40, window=None, impl="windowed")
-    with pytest.raises(NotImplementedError):
-        dec.decode(torch.zeros((1, 3, 44)))
+def test_windowed_without_window_raises(rng):
+    """Without a window the windowed decoder decodes the whole trellis as
+    one NII window, exactly as ``"nii"`` does (it used to raise here); an
+    unknown impl still raises."""
+    llr = torch.as_tensor((2.0 * rng.normal(size=(4, 3, 44)))
+                          .astype(np.float32))
+    bits, out = TurboDecoder(k=40, iterations=2, window=None,
+                             impl="windowed").decode(llr)
+    bits_n, out_n = TurboDecoder(k=40, iterations=2, window=None,
+                                 impl="nii").decode(llr)
+    assert torch.equal(bits, bits_n) and torch.equal(out, out_n)
     with pytest.raises(ValueError):
-        TurboDecoder(k=40, impl="xla")
+        TurboDecoder(k=40, impl="scan")
 
 
 def test_plan_passes_decoder_impl():

@@ -111,9 +111,15 @@ def test_transmitter_matches_jax(rng):
                                                    jplan_u))
     np.testing.assert_allclose(samples.numpy(), _c(want), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        ue_ul.ue_ul_generate(cfg.cell, pusch=(torch.as_tensor(tb[0]), cfg,
-                                              plan_u), timing_advance=4)
+    # timing advance: the JAX package rolls the subframe early
+    samples = ue_ul.ue_ul_generate(cfg.cell, pusch=(torch.as_tensor(tb[0]),
+                                                    cfg, plan_u),
+                                   timing_advance=4)
+    want = jue_ul.ue_ul_generate(jcfg.cell, pusch=(jnp.asarray(tb[0]), jcfg,
+                                                   jplan_u),
+                                 timing_advance=4)
+    np.testing.assert_allclose(samples.numpy(), _c(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 def _rx_samples(rng, jcfg, jplan, tb):
@@ -244,9 +250,11 @@ def test_uci_plan_carries_over_from_jax():
                 np.testing.assert_array_equal(getattr(plan, name),
                                               getattr(jplan, name))
             assert plan.data_plan.cb_plans == jplan.data_plan.cb_plans
-    with pytest.raises(NotImplementedError):
-        convert.dlsch_plan_from_fields(vars(jcfg.plan(tbs,
-                                                      decoder_impl="xla")))
+    # the JAX XLA scan maps to the port's plain copy of it
+    jplan_xla = jcfg.plan(tbs, decoder_impl="xla")
+    plan_xla = convert.dlsch_plan_from_fields(vars(jplan_xla))
+    assert plan_xla.decoder_impl == "xla"
+    assert plan_xla.cb_plans == jplan_xla.cb_plans
 
 
 def test_cqi_payload_helpers_match_jax():
