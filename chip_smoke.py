@@ -33,7 +33,14 @@ on a batch of 256 subframes each and checks what they decode:
 * 256 MBSFN subframes (PMCH at MCS 16, 100 PRB) from the transmitter to
   decoded bits, and one MCCH subframe at MCS 2 (NII kernel);
 * the plain PyTorch XLA-scan turbo decoders (full and windowed sweep) on
-  64 code blocks of K 1024 (no kernel).
+  64 code blocks of K 1024 (no kernel);
+* the eNB/UE/EPC stack on a 25-PRB cell, TTI by TTI over the IQ air:
+  attach with S1AP over a local socket on a 15 dB air, then a ping and a
+  pong on the user plane (``stack_attach``); TM4's two codewords on a
+  2-port cell (``stack_tm4``); a UE's cold boot from cell search to
+  attach (``stack_cold_boot``). Each phase times every ``enb.tti`` and
+  ``ue.tti`` and holds both kernels to their twins at every shape it
+  launched.
 
     python3 chip_smoke.py [--baseline FILE]
 
@@ -1492,6 +1499,255 @@ def phase_turbo_xla():
     check("turbo_xla", checks)
 
 
+def vit_shape_time(k: int, halo: int, words: int, seed: int) -> dict:
+    """The Viterbi kernel at one launch shape (CUDA events over 10
+    launches, as the stack calls it), its plain twin (one call), its bound
+    and its mismatched bits against the twin. Launches made here are not
+    counted: no phase's count is open."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.convcoder import (
+        viterbi_decode_plain)
+    from empower_srslte_tpu_torch.ops.fec.viterbi37 import viterbi_regs_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    llr = vit_inputs(g, k, words)
+    train = None if halo == k else halo
+    steps = 2 * halo + k
+    return {"k": k, "halo": halo, "words": words,
+            "mismatched_bits": vit_twin_mismatch(llr, train),
+            "ms": cuda_ms(lambda: viterbi_regs_cuda(llr, halo), reps=10),
+            "plain_ms": cuda_ms(lambda: viterbi_decode_plain(llr, train),
+                                reps=1),
+            **bound(4 * words * (3 * k + (k - 1) // 32 + 1),
+                    words * (steps * VIT_OPS_STEP
+                             + (k + halo) * VIT_OPS_TRACE))}
+
+
+def stack_run(phase: str, enb, ue, air, max_tti: int, step, seed: int):
+    """Drive an eNB/UE pair over ``air`` for up to ``max_tti`` TTIs with
+    every kernel's launch counts (and per-shape counts) at 0 and the
+    device's peak memory reset; ``step(tti)`` runs after each TTI and
+    returns True to stop. Each ``enb.tti`` / ``ue.tti`` is timed on the
+    host clock up to a synchronize (the air is host memory, so each TTI
+    ends in host reads anyway). Then each kernel is held to its twin, and
+    timed, at every shape the run launched. -> the phase line's fields."""
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
+        viterbi37
+
+    mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
+            "viterbi37": viterbi37}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    turbo_nii.LAUNCHES_BY_SHAPE.clear()
+    viterbi37.LAUNCHES_BY_SHAPE.clear()
+    ms_enb, ms_ue = [], []
+    ul_iq, n = None, 0
+    for tti in range(max_tti):
+        t0 = time.perf_counter()
+        dl_iq = enb.tti(tti, air.ul(ul_iq, advance=ue.timing_advance)
+                        if ul_iq is not None else None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ul_iq = ue.tti(tti, air.dl(dl_iq))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ms_enb.append((t1 - t0) * 1e3)
+        ms_ue.append((t2 - t1) * 1e3)
+        n = tti + 1
+        if step(tti):
+            break
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    nii_shapes = dict(turbo_nii.LAUNCHES_BY_SHAPE)
+    vit_shapes = dict(viterbi37.LAUNCHES_BY_SHAPE)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def stats(v):
+        return {"median": float(np.median(v)),
+                "p95": float(np.percentile(v, 95)), "max": float(max(v))}
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nii, vit = {}, {}
+    for i, ((k, l, b), c) in enumerate(sorted(nii_shapes.items())):
+        nii[f"k{k}_l{l}_cbs{b}"] = {
+            **nii_shape_time(k, l, b, seed + i), "launches": c,
+            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b))[0]}
+    for i, ((k, h, w), c) in enumerate(sorted(vit_shapes.items())):
+        vit[f"k{k}_halo{h}_words{w}"] = {**vit_shape_time(k, h, w, seed + i),
+                                         "launches": c}
+    PATH_TWIN["turbo_nii"].update(
+        {f"{phase}_{name}": v["max_abs_err"] for name, v in nii.items()})
+    PATH_TWIN["viterbi37"].update(
+        {f"{phase}_{name}": v["mismatched_bits"] for name, v in vit.items()})
+    return dict(ttis=n, ms_enb_tti=stats(ms_enb), ms_ue_tti=stats(ms_ue),
+                launches=launches, peak_mem_gb=peak,
+                shapes={"turbo_nii": nii, "viterbi37": vit})
+
+
+def stack_kernel_checks(line: dict) -> dict:
+    """Both on-path kernels launched at a non-empty set of shapes, each
+    held to its twin exactly (0.0 error, 0 bits)."""
+    nii, vit = line["shapes"]["turbo_nii"], line["shapes"]["viterbi37"]
+    return {"turbo_launched_shapes": bool(nii)
+            and line["launches"]["turbo_nii"] > 0,
+            "viterbi_launched_shapes": bool(vit)
+            and line["launches"]["viterbi37"] > 0,
+            "nii_twin_exact_every_shape": all(v["max_abs_err"] == 0.0
+                                              for v in nii.values()),
+            "viterbi_twin_exact_every_shape": all(
+                v["mismatched_bits"] == 0 for v in vit.values())}
+
+
+STACK_PING = b"\x45\x00" + bytes(18) + b"PING-FROM-UE-01"
+
+
+def stack_pong(ue, tag: bytes) -> bytes:
+    return (b"\x45\x00" + bytes(14)
+            + bytes(map(int, ue.rrc.nas.ue_ip.split("."))) + tag)
+
+
+def phase_stack_attach():
+    """The entry point's path (``apps/lte_attach.py``) at the JAX stack
+    tests' size, Cell(25 PRB, id 1): S1AP over a local socket, air at 15 dB
+    with h_dl 0.9 e^{j0.5} and h_ul 0.85 e^{-j0.3} (``tests/
+    test_stack.py:56-70``), up to 100 TTIs to attach; then one ping up and
+    one pong down the user plane (``:72-105``)."""
+    import numpy as np
+
+    from empower_srslte_tpu_torch.apps import lte_attach
+    from empower_srslte_tpu_torch.s1ap.procedures import EnbS1ap, MmeS1ap
+    from empower_srslte_tpu_torch.s1ap.transport import S1Client, S1Server
+    from empower_srslte_tpu_torch.stack import Air, EnbStack, UeStack
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    mme, nas = lte_attach.epc()
+    mme_s1 = MmeS1ap(mme=mme)
+    server = S1Server(mme_s1.handle)
+    client = S1Client("127.0.0.1", server.port)
+    try:
+        cell = Cell(nof_prb=25, id=1)
+        enb = EnbStack(cell, EnbS1ap(send=client), device="cuda")
+        ue = UeStack(cell, nas, device="cuda")
+        air = Air(cell.sf_sample_len, snr_db=15.0,
+                  h_dl=0.9 * np.exp(1j * 0.5), h_ul=0.85 * np.exp(-1j * 0.3))
+        attached = []
+
+        def step(tti):
+            if not attached and ue.rrc.nas.attached and ue.rrc.drbs:
+                attached.append(tti)
+                ue.send_ip(STACK_PING)
+                fwd = mme.spgw.downlink(stack_pong(ue, b"PONG-TO-THE-UE!"))
+                enb.deliver_gtpu(fwd[1])
+            return bool(enb.ul_gtpu and ue.rx_ip)
+
+        line = stack_run("stack_attach", enb, ue, air, 100, step, seed=80)
+    finally:
+        server.close()
+        client.close()
+    sgi = mme.spgw.uplink(enb.ul_gtpu[0]) if enb.ul_gtpu else b""
+    checks = {"attached": ue.rrc.nas.attached,
+              "drbs": ue.rrc.drbs == [1],
+              "security_activated": bool(ue.rrc.security_activated),
+              "initial_ctx_setup_complete":
+                  "initial_ctx_setup_complete" in mme_s1.events,
+              "ping_at_sgi": bool(sgi.endswith(b"PING-FROM-UE-01")),
+              "pong_at_ue": bool(ue.rx_ip)
+              and ue.rx_ip[0].endswith(b"PONG-TO-THE-UE!"),
+              **stack_kernel_checks(line)}
+    emit({"phase": "stack_attach", "nof_prb": 25, "snr_db": 15.0,
+          "s1ap": "socket", "ttis_to_attach": attached[0] + 1
+          if attached else None, **line, "checks": checks})
+    check("stack_attach", checks)
+    return line
+
+
+def phase_stack_tm4():
+    """``tests/test_mimo_stack.py::test_tm4_two_codewords``: a 2-port
+    Cell(25 PRB, id 1), per-port DL gains (1, 0.45-0.62j) summed at a
+    one-antenna UE; 12 TTIs after attach two tagged 155-byte packets go
+    down, and must ride one format-2 grant (two codewords)."""
+    from empower_srslte_tpu_torch.apps import lte_attach
+    from empower_srslte_tpu_torch.stack import Air, EnbStack, UeStack
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    mme, nas = lte_attach.epc()
+    cell = Cell(nof_prb=25, id=1, nof_ports=2)
+    enb = EnbStack(cell, mme, device="cuda")
+    ue = UeStack(cell, nas, device="cuda")
+    air = Air(cell.sf_sample_len, h_dl=(1.0, 0.45 - 0.62j))
+    attached, pushed = [], []
+    tags = (b"TB0-OVER-LAYER0", b"TB1-OVER-LAYER1")
+
+    def step(tti):
+        if not attached and ue.rrc.nas.attached and ue.rrc.drbs:
+            attached.append(tti)
+        if attached and not pushed and tti == attached[0] + 12:
+            pushed.append(tti)
+            for tag, fill in zip(tags, (b"0", b"1")):
+                fwd = mme.spgw.downlink(stack_pong(ue, tag + fill * 140))
+                enb.deliver_gtpu(fwd[1])
+        return bool(pushed) and len(ue.rx_ip) >= 2
+
+    line = stack_run("stack_tm4", enb, ue, air, 140, step, seed=90)
+    checks = {"attached": bool(attached),
+              "tm4_tx": any(e.startswith("tm4_tx") for e in enb.events),
+              "both_tagged_packets": {p[20:35] for p in ue.rx_ip}
+              == set(tags), **stack_kernel_checks(line)}
+    emit({"phase": "stack_tm4", "nof_prb": 25, "ports": 2,
+          "ttis_to_attach": attached[0] + 1 if attached else None,
+          "tm4_tx": [e for e in enb.events if e.startswith("tm4_tx")],
+          **line, "checks": checks})
+    check("stack_tm4", checks)
+    return line
+
+
+def phase_stack_cold_boot():
+    """``tests/test_cold_boot.py::test_search_mib_sib_attach``: the eNB
+    (Cell(25 PRB, id 77), PRACH root 384) broadcasts MIB, SIB1 and SIB2;
+    the UE knows only the RF geometry (PCI 0, root 0) and searches,
+    reads the MIB on the PBCH (Viterbi kernel at K 40) and the SIBs,
+    camps and attaches, within 260 TTIs."""
+    from empower_srslte_tpu_torch.apps import lte_attach
+    from empower_srslte_tpu_torch.stack import Air, EnbStack, UeStack
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    mme, nas = lte_attach.epc()
+    cell = Cell(nof_prb=25, id=77)
+    enb = EnbStack(cell, mme, rsi=384, broadcast=True, device="cuda")
+    ue = UeStack(Cell(nof_prb=25, id=0), nas, rsi=0, cold_start=True,
+                 device="cuda")
+    air = Air(cell.sf_sample_len)
+    line = stack_run("stack_cold_boot", enb, ue, air, 260,
+                     lambda tti: ue.rrc.nas.attached and bool(ue.rrc.drbs),
+                     seed=100)
+    ev = ue.events
+    checks = {"cell_found_id77": any(e.startswith("cell_found_id77")
+                                     for e in ev),
+              "mib_prb25": any(e.startswith("mib_prb25") for e in ev),
+              "sib1_acquired": "sib1_acquired" in ev,
+              "sib2_acquired_rsi384": any(
+                  e.startswith("sib2_acquired_rsi384") for e in ev),
+              "camped": "camped" in ev,
+              "cell_acquired": ue.cell.id == 77 and ue.cell.nof_prb == 25,
+              "rsi_acquired": ue.rsi == 384,
+              "attached": ue.rrc.nas.attached and bool(ue.rrc.drbs),
+              "pbch_k40_launched": any(
+                  v["k"] == 40 for v in line["shapes"]["viterbi37"].values()),
+              **stack_kernel_checks(line)}
+    acq = [e for e in ev if e.startswith(("cell_found", "mib_", "sib",
+                                          "camped"))]
+    emit({"phase": "stack_cold_boot", "nof_prb": 25, "cell_id": 77,
+          "ttis_to_attach": line["ttis"] if checks["attached"] else None,
+          "acquisition_events": acq, **line, "checks": checks})
+    check("stack_cold_boot", checks)
+    return line
+
+
 def n_candidates() -> int:
     """Blind-search candidates of the main path (20 MHz, cfi 1, sf 1,
     RNTI 0x1234): the Viterbi batch is BATCH x this many words."""
@@ -1549,6 +1805,9 @@ def main() -> int:
     phase_prach()
     pmch_launches, pmch_nii = phase_pmch()
     phase_turbo_xla()
+    stack = {"stack_attach": phase_stack_attach(),
+             "stack_tm4": phase_stack_tm4(),
+             "stack_cold_boot": phase_stack_cold_boot()}
     # every path geometry was asserted exact in its phase; fold it in
     turbo["max_abs_err"] = max([turbo["max_abs_err"],
                                 *PATH_TWIN["turbo_nii"].values()])
@@ -1556,7 +1815,8 @@ def main() -> int:
                "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
                "uplink_msg3": msg3,
                "cold_boot": cold, "pbch_batch": pbch,
-               "pmch_path": pmch_launches}
+               "pmch_path": pmch_launches,
+               **{k: v["launches"] for k, v in stack.items()}}
 
     def per_path(name):
         return {k: v[name] for k, v in by_path.items() if v.get(name)}
@@ -1569,7 +1829,9 @@ def main() -> int:
          "launches_by_path": per_path("turbo_nii"), **turbo,
          "max_abs_err_by_path_geometry": PATH_TWIN["turbo_nii"],
          "by_path_shape": {"pmch_path": pmch_nii,
-                           "uplink_msg3": msg3_nii},
+                           "uplink_msg3": msg3_nii,
+                           **{k: v["shapes"]["turbo_nii"]
+                              for k, v in stack.items()}},
          "library_ms": None},
         {"name": "viterbi37", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/viterbi37.cu",
@@ -1577,6 +1839,8 @@ def main() -> int:
          "launches": launches["viterbi37"],
          "launches_by_path": per_path("viterbi37"), **vit,
          "mismatched_bits_by_path_geometry": PATH_TWIN["viterbi37"],
+         "by_path_shape": {k: v["shapes"]["viterbi37"]
+                           for k, v in stack.items()},
          "library_ms": None,
          "uplink": {"launches": ul_launches["viterbi37"], **vit_ul}},
         {"name": "turbo_win", "route": "cuda",

@@ -1,12 +1,15 @@
 """PyTorch + CUDA port of the LTE PHY framework: the UE downlink receiver
 in every transmission mode (with PHICH, the common search space and the
-int8 LLR lane), measurement reporting, and the eNB PUSCH receiver with
-UCI.
+int8 LLR lane), measurement reporting, cell acquisition, the uplink (PUSCH
+with UCI, PUCCH, PRACH, SRS), PMCH/MBSFN, and the eNB/UE/EPC stack on top
+of them (``stack/``, with the protocol layers ``mac/``, ``rrc/``,
+``upper/``, ``epc/``, ``s1ap/`` copied from the reference, and the entry
+point ``python -m empower_srslte_tpu_torch.apps.lte_attach``).
 
 A second package beside the JAX reference (``empower_srslte_tpu``, left
 unchanged); it imports torch and numpy and nothing of the reference.
 Its layout mirrors the reference's (``utils/``, ``ops/``, ``ops/fec/``,
-``models/``, ``tools/``) so each module's counterpart sits at the same
+``models/``, ``tools/``, ``stack/`` and the protocol layers) so each module's counterpart sits at the same
 path. Every TPU Pallas kernel of the reference has a hand-written CUDA C++
 counterpart for Hopper (sm_90a) under ``csrc/``, built on first use:
 

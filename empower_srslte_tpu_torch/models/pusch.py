@@ -9,8 +9,9 @@ despreading, soft demapping and decode; and UCI (CQI, RI, HARQ-ACK) on
 PUSCH (sch.c:550-1095, pusch.c:536-560). Counterpart of the JAX package's
 models/pusch.py:1-556, batched over leading dims.
 
-The JAX package's ``pusch_decode_jit`` / ``pusch_decode_uci_jit`` caches
-have no counterpart: PyTorch runs the chain eagerly. The receive stages
+``pusch_decode_jit`` / ``pusch_decode_uci_jit`` keep the JAX package's
+signatures and cache keys; the port has no jit, so each caches the plain
+closure (and the plan) per key, and the chain runs eagerly. The receive stages
 are the profiler ranges ``pusch.chest``, ``pusch.eq_demod``,
 ``pusch.uci_demux`` (and ``uci.cqi_decode``, ``dlsch.*`` below them).
 """
@@ -249,6 +250,21 @@ def pusch_decode(grid: torch.Tensor, cfg: PuschConfig, plan: DlschPlan,
     llr = _pusch_llrs(grid, cfg, noise_est, int8=cfg.llr_int8)
     return dlsch_decode(llr, plan, softbuffers=softbuffers,
                         iters_out=iters_out)
+
+
+@functools.lru_cache(maxsize=None)
+def pusch_decode_jit(cfg: PuschConfig, tbs: int, rv: int = 0,
+                     with_soft: bool = False):
+    """Cached PUSCH decode for one (config, TBS, rv), the eNB stack's per
+    grant call: ``fn(grid, noise)`` or, ``with_soft``,
+    ``fn(grid, noise, softbuffers)`` -> ``pusch_decode``'s (tb, crc_ok,
+    softbuffers), with the plan built once per key."""
+    plan = cfg.plan(tbs, rv=rv)
+    if with_soft:
+        return lambda grid, noise, soft: pusch_decode(
+            grid, cfg, plan, noise_est=noise, softbuffers=soft)
+    return lambda grid, noise: pusch_decode(grid, cfg, plan,
+                                            noise_est=noise)
 
 
 # --- UCI multiplexing on PUSCH (36.212 5.2.2; sch.c:550-1095) ----------------
@@ -498,3 +514,16 @@ def pusch_decode_uci(grid: torch.Tensor, cfg: PuschConfig, plan: UciPlan,
             g[..., n_cqi:], plan.data_plan, softbuffers=softbuffers,
             iters_out=iters_out)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def pusch_decode_uci_jit(cfg: PuschConfig, plan: UciPlan,
+                         with_soft: bool = False):
+    """Cached PUSCH+UCI decode for one (config, plan): ``fn(grid, noise)``
+    or, ``with_soft``, ``fn(grid, noise, softbuffers)`` ->
+    ``pusch_decode_uci``'s dict (see ``pusch_decode_jit``)."""
+    if with_soft:
+        return lambda grid, noise, soft: pusch_decode_uci(
+            grid, cfg, plan, noise_est=noise, softbuffers=soft)
+    return lambda grid, noise: pusch_decode_uci(grid, cfg, plan,
+                                                noise_est=noise)

@@ -32,6 +32,7 @@ per 16-row segment and recomputes each segment's betas on chip;
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -48,6 +49,9 @@ GROUP = 16
 
 #: kernel launches made by ``map_decode_nii`` (read by chip_smoke.py)
 LAUNCHES = 0
+#: the same launches per shape (K, window l, code blocks); reset it with
+#: ``LAUNCHES_BY_SHAPE.clear()``
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 #: shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM = 232_448
@@ -230,4 +234,5 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
     if rc != 0:
         raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(k, l, b)] += 1
     return ext, a_next, b_next

@@ -14,6 +14,7 @@ op here. ``vit_plan`` gives the launch geometry.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -25,6 +26,9 @@ from .turbo_nii import MAX_SMEM
 
 #: kernel launches made by ``viterbi_decode_cuda`` (read by chip_smoke.py)
 LAUNCHES = 0
+#: the same launches per shape (K, halo, code words); reset it with
+#: ``LAUNCHES_BY_SHAPE.clear()``
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 #: code words (warps) per block
 WARPS = 4
 #: shared bytes per warp besides the per-column and per-step arrays: the
@@ -87,6 +91,7 @@ def viterbi_regs_cuda(llr: torch.Tensor, halo: int) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"viterbi37 kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(k, halo, b)] += 1
     return regs
 
 

@@ -11,7 +11,9 @@ profiles the eNB's PUCCH/SRS decode of ``ul_control_stimulus``
 (``ul_control_receive``); ``--path prach`` ``prach_detect`` on 256
 format-0 windows of ``prach_stimulus``; ``--path pmch`` the MBSFN
 receiver on ``pmch_stimulus`` (``pmch_receive``). All at a batch of 256
-subframes (windows):
+subframes (windows). ``--path stack`` attaches an eNB/UE pair (Cell(25
+PRB, id 1), ideal air) and then profiles ``STACK_TTIS`` connected TTIs of
+both stacks, each TTI carrying one IP packet up and one down:
 
 1. times the receiver with CUDA events (mean of 3 calls after a
    warm-up);
@@ -39,6 +41,8 @@ import time
 import torch
 
 BATCH = 256
+#: TTIs per call of ``--path stack``
+STACK_TTIS = 10
 RANGE_PREFIXES = ("ue_dl.", "pdsch.", "enb_ul.", "pusch.", "uci.", "dlsch.",
                   "pucch.", "srs.", "prach.", "pmch.")
 
@@ -104,6 +108,40 @@ def trace(run) -> dict:
                             for n, (t, c) in top]}
 
 
+def stack_ttis():
+    """An attached eNB/UE pair on the card; -> a call that runs
+    ``STACK_TTIS`` more TTIs, one ping up and one pong down each."""
+    from .apps.lte_attach import epc
+    from .stack import Air, EnbStack, UeStack
+    from .utils.cell import Cell
+
+    mme, nas = epc()
+    cell = Cell(nof_prb=25, id=1)
+    enb = EnbStack(cell, mme, device="cuda")
+    ue = UeStack(cell, nas, device="cuda")
+    air = Air(cell.sf_sample_len)
+    st = {"tti": 0, "ul": None}
+
+    def tti():
+        t, ul = st["tti"], st["ul"]
+        dl = enb.tti(t, air.ul(ul) if ul is not None else None)
+        st["ul"], st["tti"] = ue.tti(t, air.dl(dl)), t + 1
+
+    while not (ue.rrc.nas.attached and ue.rrc.drbs):
+        if st["tti"] >= 100:
+            raise RuntimeError("the stack did not attach in 100 TTIs")
+        tti()
+    pong = (b"\x45\x00" + bytes(14)
+            + bytes(map(int, ue.rrc.nas.ue_ip.split("."))) + b"PONG")
+
+    def run():
+        for _ in range(STACK_TTIS):
+            ue.send_ip(b"\x45\x00" + bytes(18) + b"PING")
+            enb.deliver_gtpu(mme.spgw.downlink(pong)[1])
+            tti()
+    return run
+
+
 def receiver(path: str):
     """The path's receiver call on its stimulus; it records the turbo
     iteration counts into the returned list."""
@@ -142,6 +180,8 @@ def receiver(path: str):
         def run():
             iters.clear()
             pmch_receive(st.samples, st, iters_out=iters)
+    elif path == "stack":
+        run = stack_ttis()
     else:
         from .models.pusch import pusch_decode_uci
         from .models.ue_ul import enb_ul_receive_grid, ul_uci_stimulus
@@ -159,7 +199,7 @@ def receiver(path: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("downlink", "uplink", "ul_control",
-                                       "prach", "pmch"),
+                                       "prach", "pmch", "stack"),
                     default="downlink")
     path = ap.parse_args(argv).path
     card = subprocess.run(
@@ -167,7 +207,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     run, iters = receiver(path)
-    out = {"card": card, "path": path, "batch": BATCH,
+    out = {"card": card, "path": path,
+           "batch": STACK_TTIS if path == "stack" else BATCH,
            "ms_per_batch": call_ms(run), "trace": trace(run),
            "turbo_iterations": iters}
     print(json.dumps(out, indent=1))

@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port: it never imports JAX or the JAX
 package, its entry points default to the CUDA card and refuse to fall
 back to the CPU, every module imports without a card or a CUDA compiler,
-and ``convert.py`` carries the JAX package's configuration and HARQ
-softbuffers across."""
+the protocol layers it copies from the JAX package equal their originals
+(``ast.dump``) but for the named repairs, and ``convert.py`` carries the
+JAX package's configuration and HARQ softbuffers across."""
 
 import ast
 import importlib
@@ -67,6 +68,133 @@ def test_entry_points_refuse_to_fall_back(monkeypatch):
     grid = enb_dl_base_grid(Cell(nof_prb=6, nof_ports=2, id=1), 1,
                             device="cpu")
     assert grid.device.type == "cpu" and grid.shape == (2, 14, 72)
+
+
+def test_stack_entry_points_refuse_to_fall_back(monkeypatch):
+    """``EnbStack``, ``UeStack`` and ``lte_attach`` run the PHY on the card
+    unless asked for the CPU, and raise without one."""
+    from empower_srslte_tpu_torch.apps import lte_attach
+    from empower_srslte_tpu_torch.epc import Hss
+    from empower_srslte_tpu_torch.epc.mme import Mme, UeNas
+    from empower_srslte_tpu_torch.stack import EnbStack, UeStack
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cell = Cell(nof_prb=25, id=1)
+    nas = UeNas(imsi="001010123456789", key=bytes(16), opc=bytes(16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EnbStack(cell, Mme(Hss()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UeStack(cell, nas)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lte_attach.main([])
+    assert EnbStack(cell, Mme(Hss()), device="cpu").device.type == "cpu"
+    assert UeStack(cell, nas, device="cpu").device.type == "cpu"
+
+
+#: modules the port copies from the JAX package (relative imports, so
+#: the copies' imports stay as they are)
+COPIES = [f"{pkg}/{m}.py" for pkg, mods in (
+    ("upper", ("__init__", "gtpu", "pdcp", "rlc", "security")),
+    ("mac", ("__init__", "pdu", "procs", "harq", "bcch", "scheduler", "ran",
+             "scheduler_ran", "agent")),
+    ("rrc", ("__init__", "per", "schema", "messages", "procedures")),
+    ("epc", ("__init__", "hss", "nas", "gtpc", "spgw", "mme", "mbms_gw")),
+    ("s1ap", ("__init__", "per", "messages", "procedures", "transport")),
+    ("runtime", ("logging", "tun")),
+    ("stack", ("__init__", "params", "air", "si", "mbms")),
+) for m in mods]
+#: the only methods a copy changes: repairs of reference faults
+REPAIRS = {"runtime/tun.py": ("NetNs", "__init__"),
+           "s1ap/procedures.py": ("MmeS1ap", "_nas_response")}
+
+
+def _tree(path: pathlib.Path) -> ast.Module:
+    """The module's AST with any absolute import of the JAX package
+    renamed to the port's."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    jax_pkg, port_pkg = "empower_srslte_tpu", "empower_srslte_tpu_torch"
+    for node in ast.walk(tree):
+        names = ([node] if isinstance(node, ast.ImportFrom) and node.module
+                 else node.names if isinstance(node, ast.Import) else [])
+        for n in names:
+            attr = "module" if isinstance(n, ast.ImportFrom) else "name"
+            v = getattr(n, attr)
+            if v == jax_pkg or v.startswith(jax_pkg + "."):
+                setattr(n, attr, port_pkg + v[len(jax_pkg):])
+    return tree
+
+
+def _method(tree: ast.Module, cls: str, name: str) -> ast.FunctionDef:
+    return next(f for c in tree.body if isinstance(c, ast.ClassDef)
+                and c.name == cls for f in c.body
+                if isinstance(f, ast.FunctionDef) and f.name == name)
+
+
+def _pair(rel: str):
+    return (_tree(ROOT / "empower_srslte_tpu_torch" / rel),
+            _tree(ROOT / "empower_srslte_tpu" / rel))
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_matches_the_jax_module(rel):
+    """Each copy's AST equals its JAX module's, the repaired methods of
+    ``REPAIRS`` taken out of both."""
+    port, ref = _pair(rel)
+    if rel in REPAIRS:
+        for tree in (port, ref):
+            cls = next(c for c in tree.body if isinstance(c, ast.ClassDef)
+                       and c.name == REPAIRS[rel][0])
+            cls.body.remove(_method(tree, *REPAIRS[rel]))
+    assert ast.dump(port) == ast.dump(ref)
+
+
+def test_netns_repair_deletes_a_stale_namespace_first():
+    """``NetNs.__init__`` is JAX's plus one statement before ``ip netns
+    add``: delete a namespace of that name left by an earlier run."""
+    port, ref = (_method(t, *REPAIRS["runtime/tun.py"])
+                 for t in _pair("runtime/tun.py"))
+    repair = port.body.pop(1)
+    assert ast.unparse(repair) == ("subprocess.run(['ip', 'netns', 'del', "
+                                   "name], capture_output=True)")
+    assert "'add'" in ast.unparse(port.body[1])
+    assert ast.dump(port) == ast.dump(ref)
+
+
+def test_s1ap_repair_advertises_the_sessions_teid(monkeypatch):
+    """``MmeS1ap`` puts the attach's SP-GW TEID in the E-RAB of its
+    InitialContextSetupRequest (JAX looks for a ``sessions`` table the
+    SP-GW does not have and sends TEID 0, which the SP-GW drops)."""
+    import empower_srslte_tpu_torch.s1ap.procedures as P
+    from empower_srslte_tpu_torch.epc import Hss
+    from empower_srslte_tpu_torch.epc.mme import Mme
+
+    port, ref = (_method(t, *REPAIRS["s1ap/procedures.py"])
+                 for t in _pair("s1ap/procedures.py"))
+    assert "spgw.sessions" in ast.unparse(ref)
+    assert "spgw.sessions" not in ast.unparse(port)
+
+    class Ctx:
+        pending_ctx_setup, kasme, spgw_teid = True, bytes(32), 7
+
+    mme = Mme(Hss())
+    mme.handle_ul_nas = lambda pdu: b"\x07\x42"
+    mme.last_ctx = Ctx()
+    sent = {}
+    monkeypatch.setattr(P.S, "pack_initial_context_setup_request",
+                        lambda *a, **kw: sent.update(kw) or b"")
+    P.MmeS1ap(mme=mme)._nas_response(1, b"\x00")
+    assert sent["teid"] == 7
+
+
+def test_runtime_exports_a_subset_of_the_jax_runtime():
+    import empower_srslte_tpu.runtime as jax_runtime
+
+    import empower_srslte_tpu_torch.runtime as runtime
+
+    assert set(runtime.__all__) == {"LogFilter", "get_logger"}
+    assert set(runtime.__all__) <= set(jax_runtime.__all__)
+    assert runtime.get_logger is not jax_runtime.get_logger
 
 
 def test_convert_round_trips_plan_and_softbuffers(rng):
