@@ -40,7 +40,17 @@ on a batch of 256 subframes each and checks what they decode:
   2-port cell (``stack_tm4``); a UE's cold boot from cell search to
   attach (``stack_cold_boot``). Each phase times every ``enb.tti`` and
   ``ue.tti`` and holds both kernels to their twins at every shape it
-  launched.
+  launched;
+* the README's example chain at 20 MHz through the example programs'
+  own entry points (``empower_srslte_tpu_torch.apps``): ``pdsch_enodeb``
+  writes 10 frames (MCS 16 on 98 PRB) and ``pdsch_ue`` syncs and decodes
+  every subframe on the card (``app_pdsch``); ``iq_capture`` copies the
+  capture through the native ring buffer (``csrc/ring_buffer.cpp``, built
+  by ``g++``), ``cell_measurement`` measures it and ``pdsch_ue`` decodes
+  it again (``app_stream``); ``cell_search`` finds the cell and reads the
+  MIB of a 6-PRB capture (Viterbi kernel at K 40) and finds the cell of
+  the 20 MHz one (``app_cell_search``). Each phase holds both kernels to
+  their twins at every shape it launched.
 
     python3 chip_smoke.py [--baseline FILE]
 
@@ -53,10 +63,13 @@ and the port's kernel in turns (baseline, port, port, baseline) and puts
 both on its phase line.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
-one JSON line per phase, the card's name and power limit as nvidia-smi
+one JSON line per phase (also written to chiprun_out/chip_smoke/
+phases.jsonl), the card's name and power limit as nvidia-smi
 reports them, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}`` — only when every phase passed. Any
-failure exits nonzero. Build logs go to chiprun_out/chip_smoke/.
+failure exits nonzero. Build logs go to chiprun_out/chip_smoke/, the
+apps' captures to chiprun_out/chip_smoke/apps/ (the 20 MHz ones are
+deleted when the app phases end).
 """
 
 from __future__ import annotations
@@ -113,7 +126,13 @@ PATH_TWIN: dict = {"turbo_nii": {}, "viterbi37": {}}
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, and the same line appended to
+    ``chiprun_out/chip_smoke/phases.jsonl``, which keeps every phase line
+    where a log of stdout keeps only its end."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(OUT_DIR / "phases.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -216,23 +235,15 @@ def counted_run(run, reps: int = 3):
     device memory GB over the counted run and the timed repeats)."""
     import torch
 
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
-        viterbi37
-
-    mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
-            "viterbi37": viterbi37}
     run()                                              # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    mods = open_counts()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     out = run()
     e1.record()
     torch.cuda.synchronize()
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = read_counts(mods)[0]
     ms_first = e0.elapsed_time(e1)
     e0.record()
     for _ in range(reps):
@@ -272,7 +283,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     took = cuda_build.build(["turbo_nii", "viterbi37", "turbo_win",
-                             "recursion_probe"])
+                             "recursion_probe", "ring_buffer"])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     for name, log in cuda_build.BUILD_LOGS.items():
         (OUT_DIR / f"build_{name}.log").write_text(log)
@@ -1524,6 +1535,64 @@ def vit_shape_time(k: int, halo: int, words: int, seed: int) -> dict:
                              + (k + halo) * VIT_OPS_TRACE))}
 
 
+def open_counts():
+    """After a synchronize, the device's peak memory reset and every
+    kernel's launch count, and the per-shape counts of the two on-path
+    kernels, at 0. -> the modules, by kernel name."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
+        viterbi37
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
+            "viterbi37": viterbi37}
+    for m in mods.values():
+        m.LAUNCHES = 0
+    turbo_nii.LAUNCHES_BY_SHAPE.clear()
+    viterbi37.LAUNCHES_BY_SHAPE.clear()
+    return mods
+
+
+def read_counts(mods) -> tuple:
+    """(launches by kernel, NII launches by shape, Viterbi launches by
+    shape) since ``open_counts``."""
+    return ({k: m.LAUNCHES for k, m in mods.items()},
+            dict(mods["turbo_nii"].LAUNCHES_BY_SHAPE),
+            dict(mods["viterbi37"].LAUNCHES_BY_SHAPE))
+
+
+def hold_shapes(phase: str, nii_shapes: dict, vit_shapes: dict,
+                seed: int) -> dict:
+    """Each on-path kernel held to its twin, and timed, at every shape a
+    phase launched it (``read_counts``): -> {"turbo_nii": {...},
+    "viterbi37": {...}} per shape, with its launches."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nii, vit = {}, {}
+    for i, ((k, l, b), c) in enumerate(sorted(nii_shapes.items())):
+        nii[f"k{k}_l{l}_cbs{b}"] = {
+            **nii_shape_time(k, l, b, seed + i), "launches": c,
+            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b))[0]}
+    for i, ((k, h, w), c) in enumerate(sorted(vit_shapes.items())):
+        vit[f"k{k}_halo{h}_words{w}"] = {**vit_shape_time(k, h, w, seed + i),
+                                         "launches": c}
+    PATH_TWIN["turbo_nii"].update(
+        {f"{phase}_{name}": v["max_abs_err"] for name, v in nii.items()})
+    PATH_TWIN["viterbi37"].update(
+        {f"{phase}_{name}": v["mismatched_bits"] for name, v in vit.items()})
+    return {"turbo_nii": nii, "viterbi37": vit}
+
+
+def ms_stats(v) -> dict:
+    import numpy as np
+
+    return {"median": float(np.median(v)),
+            "p95": float(np.percentile(v, 95)), "max": float(max(v))}
+
+
 def stack_run(phase: str, enb, ue, air, max_tti: int, step, seed: int):
     """Drive an eNB/UE pair over ``air`` for up to ``max_tti`` TTIs with
     every kernel's launch counts (and per-shape counts) at 0 and the
@@ -1532,20 +1601,9 @@ def stack_run(phase: str, enb, ue, air, max_tti: int, step, seed: int):
     host clock up to a synchronize (the air is host memory, so each TTI
     ends in host reads anyway). Then each kernel is held to its twin, and
     timed, at every shape the run launched. -> the phase line's fields."""
-    import numpy as np
     import torch
 
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
-        viterbi37
-
-    mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
-            "viterbi37": viterbi37}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.LAUNCHES = 0
-    turbo_nii.LAUNCHES_BY_SHAPE.clear()
-    viterbi37.LAUNCHES_BY_SHAPE.clear()
+    mods = open_counts()
     ms_enb, ms_ue = [], []
     ul_iq, n = None, 0
     for tti in range(max_tti):
@@ -1562,41 +1620,22 @@ def stack_run(phase: str, enb, ue, air, max_tti: int, step, seed: int):
         n = tti + 1
         if step(tti):
             break
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
-    nii_shapes = dict(turbo_nii.LAUNCHES_BY_SHAPE)
-    vit_shapes = dict(viterbi37.LAUNCHES_BY_SHAPE)
+    launches, nii_shapes, vit_shapes = read_counts(mods)
     peak = torch.cuda.max_memory_allocated() / 1e9
-
-    def stats(v):
-        return {"median": float(np.median(v)),
-                "p95": float(np.percentile(v, 95)), "max": float(max(v))}
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    nii, vit = {}, {}
-    for i, ((k, l, b), c) in enumerate(sorted(nii_shapes.items())):
-        nii[f"k{k}_l{l}_cbs{b}"] = {
-            **nii_shape_time(k, l, b, seed + i), "launches": c,
-            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b))[0]}
-    for i, ((k, h, w), c) in enumerate(sorted(vit_shapes.items())):
-        vit[f"k{k}_halo{h}_words{w}"] = {**vit_shape_time(k, h, w, seed + i),
-                                         "launches": c}
-    PATH_TWIN["turbo_nii"].update(
-        {f"{phase}_{name}": v["max_abs_err"] for name, v in nii.items()})
-    PATH_TWIN["viterbi37"].update(
-        {f"{phase}_{name}": v["mismatched_bits"] for name, v in vit.items()})
-    return dict(ttis=n, ms_enb_tti=stats(ms_enb), ms_ue_tti=stats(ms_ue),
+    return dict(ttis=n, ms_enb_tti=ms_stats(ms_enb), ms_ue_tti=ms_stats(ms_ue),
                 launches=launches, peak_mem_gb=peak,
-                shapes={"turbo_nii": nii, "viterbi37": vit})
+                shapes=hold_shapes(phase, nii_shapes, vit_shapes, seed))
 
 
-def stack_kernel_checks(line: dict) -> dict:
-    """Both on-path kernels launched at a non-empty set of shapes, each
-    held to its twin exactly (0.0 error, 0 bits)."""
-    nii, vit = line["shapes"]["turbo_nii"], line["shapes"]["viterbi37"]
+def shape_checks(shapes: dict, launches: dict) -> dict:
+    """Both on-path kernels launched at a non-empty set of shapes
+    (``hold_shapes``), each held to its twin exactly (0.0 error, 0
+    bits)."""
+    nii, vit = shapes["turbo_nii"], shapes["viterbi37"]
     return {"turbo_launched_shapes": bool(nii)
-            and line["launches"]["turbo_nii"] > 0,
+            and launches["turbo_nii"] > 0,
             "viterbi_launched_shapes": bool(vit)
-            and line["launches"]["viterbi37"] > 0,
+            and launches["viterbi37"] > 0,
             "nii_twin_exact_every_shape": all(v["max_abs_err"] == 0.0
                                               for v in nii.values()),
             "viterbi_twin_exact_every_shape": all(
@@ -1658,7 +1697,7 @@ def phase_stack_attach():
               "ping_at_sgi": bool(sgi.endswith(b"PING-FROM-UE-01")),
               "pong_at_ue": bool(ue.rx_ip)
               and ue.rx_ip[0].endswith(b"PONG-TO-THE-UE!"),
-              **stack_kernel_checks(line)}
+              **shape_checks(line["shapes"], line["launches"])}
     emit({"phase": "stack_attach", "nof_prb": 25, "snr_db": 15.0,
           "s1ap": "socket", "ttis_to_attach": attached[0] + 1
           if attached else None, **line, "checks": checks})
@@ -1697,7 +1736,7 @@ def phase_stack_tm4():
     checks = {"attached": bool(attached),
               "tm4_tx": any(e.startswith("tm4_tx") for e in enb.events),
               "both_tagged_packets": {p[20:35] for p in ue.rx_ip}
-              == set(tags), **stack_kernel_checks(line)}
+              == set(tags), **shape_checks(line["shapes"], line["launches"])}
     emit({"phase": "stack_tm4", "nof_prb": 25, "ports": 2,
           "ttis_to_attach": attached[0] + 1 if attached else None,
           "tm4_tx": [e for e in enb.events if e.startswith("tm4_tx")],
@@ -1738,13 +1777,249 @@ def phase_stack_cold_boot():
               "attached": ue.rrc.nas.attached and bool(ue.rrc.drbs),
               "pbch_k40_launched": any(
                   v["k"] == 40 for v in line["shapes"]["viterbi37"].values()),
-              **stack_kernel_checks(line)}
+              **shape_checks(line["shapes"], line["launches"])}
     acq = [e for e in ev if e.startswith(("cell_found", "mib_", "sib",
                                           "camped"))]
     emit({"phase": "stack_cold_boot", "nof_prb": 25, "cell_id": 77,
           "ttis_to_attach": line["ttis"] if checks["attached"] else None,
           "acquisition_events": acq, **line, "checks": checks})
     check("stack_cold_boot", checks)
+    return line
+
+
+#: the example programs' captures (``chiprun_out/`` is not committed);
+#: the 20 MHz ones are deleted when the app phases end
+APP_DIR = OUT_DIR / "apps"
+#: the README's example chain at 20 MHz: the generator's and receiver's
+#: flags (``pdsch_enodeb -p 100 -c 1 -m 16 -f 10``, ``pdsch_ue -r 0x1234
+#: -n 100``)
+APP_PRB, APP_CELL, APP_MCS, APP_FRAMES, APP_RNTI = 100, 1, 16, 10, 0x1234
+
+
+def app_rx_checks(run, tbs: int) -> dict:
+    """``pdsch_ue``'s results on a capture of the generator: the cell,
+    one DCI and a passing CRC in every aligned subframe, and every TB
+    equal to the transmitter's draw for that subframe."""
+    import itertools
+
+    import numpy as np
+
+    from empower_srslte_tpu_torch.apps import pdsch_enodeb
+
+    sent = itertools.islice(pdsch_enodeb.tb_draws(tbs), len(run.subframes))
+    return {"cell_id": run.cell_id == APP_CELL,
+            "subframes_decoded": len(run.subframes) > 0,
+            "dci_every_subframe": all(len(sf.dci) == 1
+                                      for sf in run.subframes),
+            "crc_every_subframe": all(sf.crc_ok == [True]
+                                      for sf in run.subframes),
+            "tb_bits_equal_sent": all(
+                len(sf.tb_bits) == 1 and np.array_equal(sf.tb_bits[0], tb[0])
+                for sf, tb in zip(run.subframes, sent))}
+
+
+def app_rx_line(run) -> dict:
+    return {"cell_id": run.cell_id, "sf0_offset": run.sf0_offset,
+            "cfo": run.cfo, "subframes": len(run.subframes),
+            "blocks": run.blocks, "errors": run.errors,
+            "ms_ue_dl_decode": ms_stats([sf.ms for sf in run.subframes]),
+            "proc_mbps": run.reports[-1]["proc_mbps"] if run.reports
+            else None,
+            "net_mbps": run.reports[-1]["net_mbps"] if run.reports
+            else None}
+
+
+def phase_app_pdsch():
+    """The README's example chain at 20 MHz, through the apps' own entry
+    points: ``pdsch_enodeb`` writes 10 frames of Cell(100 PRB, id 1) with
+    a 98-PRB MCS 16 grant in every subframe; ``pdsch_ue``'s ``receive``
+    syncs to the capture and runs one ``ue_dl_decode`` per aligned
+    subframe on the card (the counted run), then its ``main`` runs the
+    same decode and prints the metrics table."""
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.apps import pdsch_enodeb, pdsch_ue
+
+    APP_DIR.mkdir(parents=True, exist_ok=True)
+    cap = APP_DIR / "enb_20mhz.bin"
+    _, tbs, _ = pdsch_enodeb.grant(APP_PRB, APP_MCS)
+    mods = open_counts()
+    t0 = time.perf_counter()
+    rc_enb = pdsch_enodeb.main(["-o", str(cap), "-p", str(APP_PRB), "-c",
+                                str(APP_CELL), "-m", str(APP_MCS), "-f",
+                                str(APP_FRAMES)])
+    torch.cuda.synchronize()
+    ms_gen = (time.perf_counter() - t0) * 1e3 / (10 * APP_FRAMES)
+    samples = np.fromfile(cap, np.complex64)
+    run = pdsch_ue.receive(samples, APP_PRB, APP_RNTI, 10 * APP_FRAMES)
+    launches, nii_shapes, vit_shapes = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rc_ue = pdsch_ue.main(["-i", str(cap), "-p", str(APP_PRB), "-r",
+                           hex(APP_RNTI), "-n", str(10 * APP_FRAMES)])
+    shapes = hold_shapes("app_pdsch", nii_shapes, vit_shapes, seed=110)
+    sf_len = 30720
+    checks = {"enodeb_rc0": rc_enb == 0, "pdsch_ue_rc0": rc_ue == 0,
+              "capture_size": samples.size == 10 * APP_FRAMES * sf_len,
+              **app_rx_checks(run, tbs),
+              # sync starts the first subframe inside the first symbol's
+              # cyclic prefix: every whole subframe after it is decoded
+              "sf0_inside_cp": 0 <= run.sf0_offset < 160,
+              "all_whole_subframes": len(run.subframes)
+              == (samples.size - run.sf0_offset) // sf_len,
+              **shape_checks(shapes, launches)}
+    line = {"phase": "app_pdsch", "nof_prb": APP_PRB, "mcs": APP_MCS,
+            "tbs": tbs, "capture_bytes": int(samples.nbytes),
+            "ms_enodeb_per_subframe": ms_gen, **app_rx_line(run),
+            "launches": launches, "peak_mem_gb": peak, "shapes": shapes,
+            "checks": checks}
+    emit(line)
+    check("app_pdsch", checks)
+    return line, run
+
+
+def phase_app_stream(ref_run):
+    """The RF HAL and the native ring: ``iq_capture -d stream`` reads the
+    20 MHz capture through ``StreamRfDevice`` over the port's
+    ``SampleStream`` (``csrc/ring_buffer.cpp``, built by ``g++``) and its
+    file producer into a second capture, which must be the first byte
+    for byte; ``cell_measurement`` measures it on the card, and
+    ``pdsch_ue`` decodes it as in ``app_pdsch``."""
+    import dataclasses
+    import math
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.apps import (cell_measurement, iq_capture,
+                                               pdsch_enodeb, pdsch_ue)
+    from empower_srslte_tpu_torch.models.ue_sync import sync_and_align
+    from empower_srslte_tpu_torch.runtime import stream
+    from empower_srslte_tpu_torch.utils import cuda_build
+
+    cap, cap2 = APP_DIR / "enb_20mhz.bin", APP_DIR / "capture_20mhz.bin"
+    n_sf = 10 * APP_FRAMES
+    mods = open_counts()
+    t0 = time.perf_counter()
+    got = iq_capture.capture(str(cap2), n_sf, APP_PRB, device_name="stream",
+                             device_args=f"rx={cap}")
+    ms_capture = (time.perf_counter() - t0) * 1e3
+    same = cap2.read_bytes() == cap.read_bytes()
+    rc_capt = iq_capture.main(["-d", "stream", "-a", f"rx={cap}", "-p",
+                               str(APP_PRB), "-n", str(n_sf), "-o",
+                               str(cap2)])
+    same_main = cap2.read_bytes() == cap.read_bytes()
+    samples = np.fromfile(cap2, np.complex64)
+
+    t0 = time.perf_counter()
+    res = sync_and_align(samples, APP_PRB)
+    meas = cell_measurement.measure(res.subframes, APP_PRB, res.cell_id)
+    torch.cuda.synchronize()
+    ms_measure = (time.perf_counter() - t0) * 1e3
+    # the same capture cut at the transmitter's own subframe boundaries:
+    # the sync starts one sample late at 20 MHz (as the JAX package's
+    # does), and that sample of the next symbol caps the synced SNR
+    meas_tx = cell_measurement.measure(
+        torch.as_tensor(samples, device="cuda").reshape(n_sf, -1), APP_PRB,
+        APP_CELL)
+    rc_meas = cell_measurement.main(["-i", str(cap2), "-p", str(APP_PRB)])
+    run = pdsch_ue.receive(samples, APP_PRB, APP_RNTI, n_sf)
+    launches, nii_shapes, vit_shapes = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    shapes = hold_shapes("app_stream", nii_shapes, vit_shapes, seed=120)
+    _, tbs, _ = pdsch_enodeb.grant(APP_PRB, APP_MCS)
+    lib = stream.load_native()
+    def db(m):
+        return {k: 10 * math.log10(v) if v > 0 else None
+                for k, v in m.items()}
+    checks = {
+        "ring_built_from_csrc": lib is not None
+        and pathlib.Path(lib._name) == cuda_build.library_path("ring_buffer")
+        and cuda_build.library_path("ring_buffer").exists(),
+        "stream_device": got["device"] == "stream",
+        "no_overflows": got["overflows"] == 0,
+        "timestamps": got["timestamps"] == [30720 * i for i in range(n_sf)],
+        "capture_byte_equal": same, "iq_capture_main_byte_equal":
+            rc_capt == 0 and same_main,
+        "cell_measurement_rc0": rc_meas == 0,
+        "measurements_finite": all(math.isfinite(v) for v in
+                                   [*meas.values(), *meas_tx.values()]),
+        "snr_above_30db_tx_aligned": meas_tx["snr"] > 1e3,
+        "sf0_offset_as_app_pdsch": res.sf0_offset == ref_run.sf0_offset,
+        **app_rx_checks(run, tbs),
+        "same_results_as_app_pdsch":
+            len(run.subframes) == len(ref_run.subframes)
+            and all([dataclasses.asdict(d) for d in a.dci]
+                    == [dataclasses.asdict(d) for d in b.dci]
+                    and a.crc_ok == b.crc_ok
+                    and all(np.array_equal(x, y)
+                            for x, y in zip(a.tb_bits, b.tb_bits))
+                    for a, b in zip(run.subframes, ref_run.subframes)),
+        **shape_checks(shapes, launches)}
+    line = {"phase": "app_stream", "nof_prb": APP_PRB,
+            "ring_library": pathlib.Path(lib._name).name if lib else None,
+            "overflows": got["overflows"], "ms_iq_capture": ms_capture,
+            "ms_sync_and_measure": ms_measure, "measure_linear": meas,
+            "measure_db": db(meas), "measure_db_tx_aligned": db(meas_tx),
+            **app_rx_line(run), "launches": launches,
+            "peak_mem_gb": peak, "shapes": shapes, "checks": checks}
+    emit(line)
+    check("app_stream", checks)
+    return line
+
+
+def phase_app_cell_search():
+    """``cell_search`` at the MIB acquisition rate: ``pdsch_enodeb -p 6
+    -c 1 -f 4`` on the card, then ``cell_search -p 6`` (PSS/SSS scan, then
+    the PBCH on the Viterbi kernel at K 40); and ``cell_search -p 100`` on
+    the 20 MHz capture, which finds the cell and, as the JAX app, decodes
+    no MIB there."""
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.apps import cell_search, pdsch_enodeb
+    from empower_srslte_tpu_torch.models.pbch import PBCH_K
+
+    cap6, cap20 = APP_DIR / "enb_6prb.bin", APP_DIR / "enb_20mhz.bin"
+    mods = open_counts()
+    rc_enb = pdsch_enodeb.main(["-o", str(cap6), "-p", "6", "-c",
+                                str(APP_CELL), "-f", "4"])
+    s6 = np.fromfile(cap6, np.complex64)
+    t0 = time.perf_counter()
+    found = cell_search.search(s6, 6)
+    torch.cuda.synchronize()
+    ms_search6 = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    found20 = cell_search.search(np.fromfile(cap20, np.complex64), APP_PRB)
+    torch.cuda.synchronize()
+    ms_search20 = (time.perf_counter() - t0) * 1e3
+    launches, nii_shapes, vit_shapes = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rc_srch = cell_search.main(["-i", str(cap6), "-p", "6"])
+    shapes = hold_shapes("app_cell_search", nii_shapes, vit_shapes, seed=130)
+    want_mib = dict(nof_prb=6, phich_dur=0, phich_res=1, sfn_msb=0,
+                    sfn_mod4=0, nof_ports=1)
+    checks = {"enodeb_rc0": rc_enb == 0, "cell_search_rc0": rc_srch == 0,
+              "cell_id_6prb": found["cell_id"] == APP_CELL,
+              "n_id_2": found["n_id_2"] == APP_CELL % 3,
+              "mib": found["mib"] == want_mib,
+              "cell_id_20mhz": found20["cell_id"] == APP_CELL,
+              "no_mib_at_20mhz": found20["mib"] is None,
+              "pbch_k40_launched": any(
+                  k == PBCH_K for k, _h, _w in vit_shapes),
+              "viterbi_twin_exact_every_shape": all(
+                  v["mismatched_bits"] == 0
+                  for v in shapes["viterbi37"].values()),
+              "turbo_not_launched": launches["turbo_nii"] == 0}
+    line = {"phase": "app_cell_search", "found_6prb": found,
+            "found_20mhz": found20, "ms_cell_search_6prb": ms_search6,
+            "ms_cell_search_20mhz": ms_search20, "launches": launches,
+            "peak_mem_gb": peak, "shapes": shapes, "checks": checks}
+    emit(line)
+    for path in APP_DIR.glob("*_20mhz.bin"):
+        path.unlink()
+    check("app_cell_search", checks)
     return line
 
 
@@ -1777,6 +2052,8 @@ def main() -> int:
         spec = importlib.util.spec_from_file_location("baseline", path)
         BASELINE = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(BASELINE)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
     phase_device()
     phase_build()
     turbo = turbo_kernel_check()
@@ -1808,6 +2085,11 @@ def main() -> int:
     stack = {"stack_attach": phase_stack_attach(),
              "stack_tm4": phase_stack_tm4(),
              "stack_cold_boot": phase_stack_cold_boot()}
+    app_pdsch, app_run = phase_app_pdsch()
+    apps = {"app_pdsch": app_pdsch,
+            "app_stream": phase_app_stream(app_run),
+            "app_cell_search": phase_app_cell_search()}
+    shaped = {**stack, **apps}
     # every path geometry was asserted exact in its phase; fold it in
     turbo["max_abs_err"] = max([turbo["max_abs_err"],
                                 *PATH_TWIN["turbo_nii"].values()])
@@ -1816,7 +2098,7 @@ def main() -> int:
                "uplink_msg3": msg3,
                "cold_boot": cold, "pbch_batch": pbch,
                "pmch_path": pmch_launches,
-               **{k: v["launches"] for k, v in stack.items()}}
+               **{k: v["launches"] for k, v in shaped.items()}}
 
     def per_path(name):
         return {k: v[name] for k, v in by_path.items() if v.get(name)}
@@ -1831,7 +2113,7 @@ def main() -> int:
          "by_path_shape": {"pmch_path": pmch_nii,
                            "uplink_msg3": msg3_nii,
                            **{k: v["shapes"]["turbo_nii"]
-                              for k, v in stack.items()}},
+                              for k, v in shaped.items()}},
          "library_ms": None},
         {"name": "viterbi37", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/viterbi37.cu",
@@ -1840,7 +2122,7 @@ def main() -> int:
          "launches_by_path": per_path("viterbi37"), **vit,
          "mismatched_bits_by_path_geometry": PATH_TWIN["viterbi37"],
          "by_path_shape": {k: v["shapes"]["viterbi37"]
-                           for k, v in stack.items()},
+                           for k, v in shaped.items()},
          "library_ms": None,
          "uplink": {"launches": ul_launches["viterbi37"], **vit_ul}},
         {"name": "turbo_win", "route": "cuda",

@@ -1,12 +1,20 @@
-"""Host-side runtime: layered logging and the TUN user plane.
+"""Host-side runtime: IQ I/O, config, logging, metrics.
 
-The port's share of the JAX package's runtime (its ``io``, ``metrics``,
-``rf``, ``stream``, ``pcap``, ``config``, ``libconf``, ``trace`` and
-``crash`` modules are not ported yet): per-layer leveled logging with
-TTI stamps (``logging``), and TUN interfaces and network namespaces for
-the kernel-path user plane (``tun``, imported where it is used).
+Capability parity with the reference's lib/src/phy/io (file/UDP sample
+streams), lib/src/common logging/metrics infrastructure, and the
+boost::program_options / libconfig configuration surface — re-designed as
+Python dataclass configs with INI/CLI overrides and structured logging.
+A native C++ streaming ring buffer (``csrc/ring_buffer.cpp``, built with
+``g++`` on first use) backs ``stream``; ``tun`` (TUN interfaces and
+network namespaces), ``pcap``, ``crash``, ``libconf`` and ``trace`` are
+imported where they are used.
 """
 
+from .io import FileSink, FileSource, NetSink, NetSource
 from .logging import LogFilter, get_logger
+from .metrics import MetricsHub
+from .rf import Radio, RfDevice, register_device, rf_open
 
-__all__ = ["LogFilter", "get_logger"]
+__all__ = ["FileSink", "FileSource", "NetSink", "NetSource",
+           "LogFilter", "get_logger", "MetricsHub",
+           "Radio", "RfDevice", "register_device", "rf_open"]

@@ -1,10 +1,12 @@
-"""Build the hand-written CUDA kernels and load them with ctypes.
+"""Build the hand-written CUDA kernels and the native host runtime, and
+load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), named after a hash of its source and flags, inside the
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc``, and each
+``csrc/<name>.cpp`` (the sample ring buffer) by ``g++``, into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), named after a hash of its source and flags, inside the
 package's ``_build/`` directory. Several sources build in parallel, one
-``nvcc`` process each. Nothing here runs at import time.
+compiler process each. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+#: the host C++ sources' flags (those of the JAX package's native/Makefile)
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -41,38 +45,65 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def cxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the native ring buffer builds "
+                           "only where a C++ compiler is installed")
+    return found
+
+
+def _source(name: str) -> pathlib.Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(src: pathlib.Path) -> tuple:
+    return NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` or ``.cpp`` is built: named
+    after a hash of its source and flags."""
+    src = _source(name)
+    tag = hashlib.sha1(src.read_bytes()
+                       + " ".join(_flags(src)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
 def build(names) -> dict[str, float]:
-    """Compile the named sources that are not built yet, all ``nvcc``
+    """Compile the named sources that are not built yet, all compiler
     processes started together. Returns the seconds each build took."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    todo = {}
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if out.exists():
             log = out.with_suffix(".log")
             BUILD_LOGS[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        src = _source(name)
+        # find every compiler before starting any, so that none is left
+        # running when one is missing
+        todo[name] = ([nvcc() if src.suffix == ".cu" else cxx(),
+                       *_flags(src), "-o", str(tmp), str(src)], tmp, out)
+    procs = {name: (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out, time.perf_counter())
+             for name, (cmd, tmp, out) in todo.items()}
     took, failed = {}, []
-    # wait for every nvcc before reporting a failure: none is left running
+    # wait for every compiler before reporting a failure: none is left
+    # running
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.perf_counter() - t0
         BUILD_LOGS[name] = log
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            failed.append(f"{proc.args[0]} failed for csrc/"
+                          f"{_source(name).name}:\n{log}")
         else:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
@@ -82,10 +113,11 @@ def build(names) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built on first use)."""
+    """The built library for ``csrc/<name>.cu`` or ``.cpp`` (built on first
+    use)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib

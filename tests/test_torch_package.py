@@ -101,7 +101,9 @@ COPIES = [f"{pkg}/{m}.py" for pkg, mods in (
     ("rrc", ("__init__", "per", "schema", "messages", "procedures")),
     ("epc", ("__init__", "hss", "nas", "gtpc", "spgw", "mme", "mbms_gw")),
     ("s1ap", ("__init__", "per", "messages", "procedures", "transport")),
-    ("runtime", ("logging", "tun")),
+    ("runtime", ("logging", "tun", "io", "metrics", "crash", "config",
+                 "libconf", "pcap", "rf")),
+    ("utils", ("band",)),
     ("stack", ("__init__", "params", "air", "si", "mbms")),
 ) for m in mods]
 #: the only methods a copy changes: repairs of reference faults
@@ -188,13 +190,42 @@ def test_s1ap_repair_advertises_the_sessions_teid(monkeypatch):
 
 
 def test_runtime_exports_a_subset_of_the_jax_runtime():
+    """The port's runtime exports the JAX runtime's names, all of them
+    (a subset that is the whole set), each its own object."""
     import empower_srslte_tpu.runtime as jax_runtime
 
     import empower_srslte_tpu_torch.runtime as runtime
 
-    assert set(runtime.__all__) == {"LogFilter", "get_logger"}
-    assert set(runtime.__all__) <= set(jax_runtime.__all__)
-    assert runtime.get_logger is not jax_runtime.get_logger
+    assert runtime.__all__ == jax_runtime.__all__
+    for name in runtime.__all__:
+        assert getattr(runtime, name) is not getattr(jax_runtime, name)
+        assert getattr(runtime, name).__module__.startswith(
+            "empower_srslte_tpu_torch.")
+
+
+def test_ring_buffer_source_is_the_jax_packages():
+    """The port builds its own copy of the native ring buffer, byte for
+    byte the JAX package's ``native/ring_buffer.cpp``."""
+    assert ((ROOT / "empower_srslte_tpu_torch" / "csrc" / "ring_buffer.cpp")
+            .read_bytes() == (ROOT / "native" / "ring_buffer.cpp")
+            .read_bytes())
+
+
+@pytest.mark.parametrize("app", ["pdsch_enodeb", "pdsch_ue", "cell_search",
+                                 "cell_measurement"])
+def test_phy_apps_refuse_to_fall_back(app, monkeypatch, tmp_path):
+    """Each PHY app runs on the card unless given ``--cpu``, and raises
+    without one before it reads or writes a capture."""
+    mod = importlib.import_module(f"empower_srslte_tpu_torch.apps.{app}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "iq.bin"
+    io_flag = ["-o", str(path)] if app == "pdsch_enodeb" else ["-i", str(path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([*io_flag, "-p", "6"])
+    assert not path.exists()
+    if app == "pdsch_enodeb":
+        assert mod.main([*io_flag, "-p", "6", "-f", "1", "--cpu"]) == 0
+        assert path.stat().st_size == 10 * 1920 * 8
 
 
 def test_convert_round_trips_plan_and_softbuffers(rng):
