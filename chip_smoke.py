@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: builds the CUDA kernels, holds each
-against its plain PyTorch twin on the card, then drives the port's paths
-on a batch of 256 subframes each and checks what they decode:
+against its plain PyTorch twin on the card (both turbo kernels in float32
+and in bfloat16, timed in turns), then drives the port's paths on a batch
+of 256 subframes each and checks what they decode. Every decode with a
+turbo window runs the bfloat16 kernels (``TurboDecoder(dtype="auto")``,
+as the JAX package on its accelerator); each path phase holds every turbo
+shape it launched against the twin of that shape's dtype:
 
 * the no-genie 20 MHz 2x2 TM4 two-codeword UE downlink receiver
   (NII turbo kernel, Viterbi kernel);
@@ -50,7 +54,14 @@ on a batch of 256 subframes each and checks what they decode:
   it again (``app_stream``); ``cell_search`` finds the cell and reads the
   MIB of a 6-PRB capture (Viterbi kernel at K 40) and finds the cell of
   the 20 MHz one (``app_cell_search``). Each phase holds both kernels to
-  their twins at every shape it launched.
+  their twins at every shape it launched;
+* the main path's and the uplink path's stimulus with the turbo decoders
+  pinned to float32 and at "auto" (bfloat16), in turns
+  (``precision_pair``);
+* the port's BLER sweep tool on the card, float32 against bfloat16 for
+  both turbo decoders and both LLR lanes, which must keep each bfloat16
+  curve within 0.1 dB of its float32 curve and every curve below srsLTE's
+  (``bler_gate``).
 
     python3 chip_smoke.py [--baseline FILE]
 
@@ -89,6 +100,15 @@ OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 #: maxes, compares and selects
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 33.5e12
+#: the bfloat16 rate outside the tensor cores: 133.8 TFLOP/s "peak BF16
+#: (non-Tensor)" for the H100 SXM5 (NVIDIA H100 Tensor Core GPU
+#: Architecture white paper, the data-center GPU comparison table), which
+#: counts a bf16x2 FMA as 4 flops; adds, subtractions and maxes on bf16x2
+#: are 2 element operations per instruction, so 66.9e12 element operations
+#: per second that are not FMAs. The recursion probe's bf16 lane measures
+#: the add/max rate this code reaches (``kernel_recursion``), printed beside
+#: every bfloat16 bound
+PEAK_BF16_OPS_PER_S = 66.9e12
 
 BATCH = 256
 #: the uplink path's noise per grid RE: high SNR, and a mid SNR at which
@@ -116,13 +136,28 @@ WIN_OPS_STEP, WIN_OPS_EMIT, WIN_OPS_RENORM = 28, 31, 15
 #: select, shift, mask and next state. Survivor bookkeeping beyond that
 #: (register exchange) is a design's cost, not the algorithm's
 VIT_OPS_STEP, VIT_OPS_TRACE = 64 * 5 + 8, 4
+#: the Pallas site each turbo kernel source replaces
+REPLACES = {
+    "turbo_nii": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas2.py:220",
+    "turbo_win": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas.py:196"}
+#: code blocks per Eb/N0 point of the BLER gate (``phase_bler_gate``)
+BLER_CBS = 32768
 #: ptxas report of each built kernel (phase_build), for the phase lines
 PTXAS: dict = {}
 #: the --baseline module, or None
 BASELINE = None
 #: per kernel, the error against the twin at each geometry that a path
-#: phase gives the kernel (``nii_path_check``, ``vit_path_check``)
-PATH_TWIN: dict = {"turbo_nii": {}, "viterbi37": {}}
+#: phase gives the kernel (``hold_shapes``, ``vit_path_check``); the turbo
+#: kernels per metric dtype
+PATH_TWIN: dict = {"turbo_nii": {}, "turbo_nii_bf16": {}, "turbo_win": {},
+                   "turbo_win_bf16": {}, "viterbi37": {}}
+#: the launch counters read per path: (name, module, attribute); the two
+#: turbo wrappers count their float32 and bfloat16 kernels apart
+COUNTERS = (("turbo_nii", "turbo_nii", "LAUNCHES"),
+            ("turbo_nii_bf16", "turbo_nii", "LAUNCHES_BF16"),
+            ("turbo_win", "turbo_win", "LAUNCHES"),
+            ("turbo_win_bf16", "turbo_win", "LAUNCHES_BF16"),
+            ("viterbi37", "viterbi37", "LAUNCHES"))
 
 
 def emit(obj):
@@ -135,13 +170,26 @@ def emit(obj):
         f.write(line + "\n")
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """Least time for the work: bytes over the HBM rate or float32
-    operations over the non-FMA rate, whichever is larger."""
+def bound(nbytes: float, ops: float, dtype: str = "float32") -> dict:
+    """Least time for the work: bytes over the HBM rate or operations over
+    the non-FMA rate of their type ("float32" or "bfloat16"), whichever
+    is larger."""
+    rate = PEAK_BF16_OPS_PER_S if dtype == "bfloat16" else PEAK_F32_OPS_PER_S
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def dt_name(dtype) -> str:
+    """A torch dtype's name, "float32" or "bfloat16": the turbo wrappers'
+    key in their per-shape launch counts, and this script's dtype
+    argument."""
+    return str(dtype).removeprefix("torch.")
+
+
+def itemsize(dtype: str) -> int:
+    return 2 if dtype == "bfloat16" else 4
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -209,6 +257,23 @@ def ptxas_summary(log: str) -> dict:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
+def dtype_turns(f32_fn, bf16_fn, reps: int) -> dict:
+    """A kernel's float32 and bfloat16 launches timed in turns (float32,
+    bfloat16, bfloat16, float32): -> the mean ms of each and the turns."""
+    a1 = cuda_ms(f32_fn, reps)
+    b1 = cuda_ms(bf16_fn, reps)
+    b2 = cuda_ms(bf16_fn, reps)
+    a2 = cuda_ms(f32_fn, reps)
+    return {"float32": (a1 + a2) / 2, "bfloat16": (b1 + b2) / 2,
+            "turns_ms": [a1, b1, b2, a2]}
+
+
+def ptxas_of(source: str, tag: str) -> dict:
+    """The ptxas report of the entry functions of ``source`` whose name
+    holds ``tag`` (the float32 and bfloat16 instances of a template)."""
+    return {k: v for k, v in PTXAS.get(source, {}).items() if tag in k}
+
+
 def paired_ms(new_fn, old_fn, reps: int, timer=cuda_ms) -> dict:
     """The port's kernel timed alone, or beside a baseline in turns
     (baseline, port, port, baseline) when one is given."""
@@ -225,14 +290,15 @@ def paired_ms(new_fn, old_fn, reps: int, timer=cuda_ms) -> dict:
 def max_abs_err(got, ref) -> float:
     if isinstance(got, tuple):
         return max(max_abs_err(x, y) for x, y in zip(got, ref))
-    return float((got - ref).abs().max())
+    return float((got.float() - ref.float()).abs().max())
 
 
 def counted_run(run, reps: int = 3):
     """``run()`` once to warm up, once with every kernel's launch count at
     0 (CUDA events around it), then ``reps`` times for the time per call.
     -> (its result, launches, ms of the counted run, ms per call, peak
-    device memory GB over the counted run and the timed repeats)."""
+    device memory GB over the counted run and the timed repeats, launches
+    per shape of the counted run)."""
     import torch
 
     run()                                              # warm-up
@@ -243,7 +309,7 @@ def counted_run(run, reps: int = 3):
     out = run()
     e1.record()
     torch.cuda.synchronize()
-    launches = read_counts(mods)[0]
+    launches, shapes = read_counts(mods)
     ms_first = e0.elapsed_time(e1)
     e0.record()
     for _ in range(reps):
@@ -251,7 +317,34 @@ def counted_run(run, reps: int = 3):
     e1.record()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    return out, launches, ms_first, e0.elapsed_time(e1) / reps, peak
+    return out, launches, ms_first, e0.elapsed_time(e1) / reps, peak, shapes
+
+
+def counted(fn):
+    """``fn()`` with every launch count at 0: -> (its result, launches,
+    launches per shape)."""
+    import torch
+
+    mods = open_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, *read_counts(mods))
+
+
+def merge_shapes(*shapes) -> dict:
+    """Per-shape launch counts of several counted runs, summed."""
+    import collections
+
+    out = collections.defaultdict(collections.Counter)
+    for sh in shapes:
+        for name, by in sh.items():
+            out[name].update(by)
+    return {name: dict(by) for name, by in out.items()}
+
+
+def turbo_shapes(shapes: dict) -> dict:
+    """The turbo kernels' part of a run's launches per shape."""
+    return {k: v for k, v in shapes.items() if k != "viterbi37"}
 
 
 def check(phase: str, checks: dict):
@@ -293,50 +386,59 @@ def phase_build():
           "ptxas": PTXAS})
 
 
-def nii_inputs(g, k: int, l: int, b: int, apr: bool = True, bounds=None):
+def nii_inputs(g, k: int, l: int, b: int, apr: bool = True, bounds=None,
+               dtype="float32"):
     """Random inputs of one ``map_decode_nii`` call on ``b`` code blocks
-    of K=``k`` in windows of ``l``: (args, kwargs)."""
+    of K=``k`` in windows of ``l``, in ``dtype``: (args, kwargs)."""
     import torch
 
-    rn = lambda *s, sc=4.0: torch.randn(*s, generator=g,
-                                        device=g.device) * sc
+    rn = lambda *s, sc=4.0: (torch.randn(*s, generator=g, device=g.device)
+                             * sc).to(getattr(torch, dtype))
     w = k // l
     args = (rn(k, b), rn(k, b), rn(3, b), rn(3, b),
             rn(w + 1, 8, b, sc=2.0), rn(w + 1, 8, b, sc=2.0))
     return args, dict(l=l, apr=rn(k, b) if apr else None, bounds=bounds)
 
 
-def nii_work(k: int, l: int, b: int):
-    """(compulsory bytes, float32 operations) of one ``map_decode_nii``
-    launch on ``b`` code blocks of K=``k`` in windows of ``l``: u, p, apr,
-    tails, a_st, b_st read once; ext, a/b written once."""
+def nii_work(k: int, l: int, b: int, dtype="float32"):
+    """(compulsory bytes, operations) of one ``map_decode_nii`` launch on
+    ``b`` code blocks of K=``k`` in windows of ``l``: u, p, apr, tails,
+    a_st, b_st read once; ext, a/b written once, at 4 or 2 bytes a
+    value."""
     w = k // l
-    return (4 * (4 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b),
+    return (itemsize(dtype) * (4 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b),
             NII_OPS_PER_STEP * k * b)
 
 
-def nii_shape_time(k: int, l: int, b: int, seed: int) -> dict:
-    """The NII kernel timed at one launch shape (CUDA events over 10
-    launches), its plain twin (one call) and its bound. The launches are
-    not counted: no phase's count is open."""
+def nii_shape_time(k: int, l: int, b: int, seed: int,
+                   dtype="float32") -> dict:
+    """The NII kernel timed at one launch shape, in ``dtype``: ``ms`` over
+    10 launches made one by one (at a small shape this reads the
+    wrapper's host time, and in bfloat16 at an odd batch its padding),
+    ``ms_graphed`` by CUDA-graph replay (the launches back to back on the
+    card); its plain twin (one call) and its bound. The launches are not
+    counted: no phase's count is open."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
         map_decode_nii, map_decode_nii_plain)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    args, kw = nii_inputs(g, k, l, b)
-    return {"k": k, "window": l, "cbs": b,
+    args, kw = nii_inputs(g, k, l, b, dtype=dtype)
+    return {"k": k, "window": l, "cbs": b, "dtype": dtype,
             "ms": cuda_ms(lambda: map_decode_nii(*args, **kw), reps=10),
+            "ms_graphed": graph_ms(lambda: map_decode_nii(*args, **kw),
+                                   reps=10),
             "plain_ms": cuda_ms(lambda: map_decode_nii_plain(*args, **kw),
                                 reps=1),
-            **bound(*nii_work(k, l, b))}
+            **bound(*nii_work(k, l, b, dtype), dtype)}
 
 
 def nii_twin(args, kw):
     """The NII kernel and its plain twin on the same inputs: -> (max abs
-    error, the twin's output). Both do the same float32 adds in the same
-    order, so the error must be exactly 0."""
+    error, the twin's output). Both do the same adds in the same order and
+    the same dtype (float32, or bfloat16 rounded per op), so the error
+    must be exactly 0."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
@@ -348,48 +450,62 @@ def nii_twin(args, kw):
     return max_abs_err(got, ref), ref
 
 
-def nii_path_check(phase: str, cb_sizes, tbs_per_call: int,
-                   seed: int) -> dict:
-    """The NII kernel against its twin at each geometry a ``dlsch_decode``
-    on ``tbs_per_call`` TBs of code blocks ``cb_sizes`` (its plan's
-    segmentation) gives it: one launch shape per code block size K, with
-    the decoder's window and K's share of the code blocks, apr given as
-    the iteration loop gives it. Launches made here are not counted: no
-    phase's launch count is open while they run."""
-    import collections
-
-    import torch
-
-    from empower_srslte_tpu_torch.models.sch import _pick_window
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    errs = {}
-    for k, n in sorted(collections.Counter(cb_sizes).items()):
-        l = _pick_window(k) or k
-        name = f"{phase}_k{k}_l{l}_cbs{n * tbs_per_call}"
-        errs[name] = nii_twin(*nii_inputs(g, k, l, n * tbs_per_call))[0]
-    PATH_TWIN["turbo_nii"].update(errs)
-    assert not any(errs.values()), f"NII kernel vs plain twin: {errs}"
-    return errs
-
-
-def turbo_kernel_check():
-    """map_decode_nii against the plain twin, max abs error exactly 0, at
-    the geometries the kernel's code paths take: the main path's (5120
-    code blocks of K=5760, l=240, with apr), a ragged single window
-    (K=56, l=K, no apr: the top segment is 8 rows) and a trellis slice
-    with no edge (bounds (-1, -1)); then one full decode of 64 code
-    blocks where the hard bits and iteration counts must be equal. The
-    other paths' geometries are checked in their phases
-    (``nii_path_check``)."""
+def awgn_code_blocks(g, k: int, nb: int, ebn0_db: float):
+    """``nb`` CRC24B-protected code blocks of K=``k`` through the turbo
+    encoder and AWGN at ``ebn0_db``: -> (bits [nb, K], LLRs)."""
     import numpy as np
     import torch
 
-    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
     from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
+    from empower_srslte_tpu_torch.utils.crc import CRC24B
+
+    rng = np.random.default_rng(5)
+    payload = torch.as_tensor(rng.integers(0, 2, (nb, k - 24)),
+                              device=g.device)
+    u = torch.cat([payload, CRC24B.compute(payload)], -1).to(torch.int8)
+    d = turbo_encode(u).to(torch.float32)
+    n0 = 3.0 / 10 ** (ebn0_db / 10)
+    y = 1.0 - 2.0 * d + (n0 / 2) ** 0.5 * torch.randn(d.shape, generator=g,
+                                                       device=g.device)
+    return u, 4.0 / n0 * y
+
+
+def decode_vs_twin(dec, llr, u, twin) -> dict:
+    """One full decode with the CRC early stop through the kernel and
+    through its plain twin: hard bits and iteration counts must be
+    equal."""
+    import torch
+
+    from empower_srslte_tpu_torch.utils.crc import CRC24B
+
+    it_k, it_p = [], []
+    bits_k, _ = dec.decode(llr, crc=CRC24B, iters_out=it_k)
+    bits_p, _ = dec.decode(llr, crc=CRC24B, iters_out=it_p, map_decode=twin)
+    assert torch.equal(bits_k, bits_p), \
+        f"{dec.dtype} turbo hard bits differ from twin"
+    assert it_k == it_p, (it_k, it_p)
+    return {"decode_iterations": it_k,
+            "decode_bit_errors": int((bits_k != u).sum()),
+            "hard_bits_equal": True}
+
+
+def turbo_kernel_check():
+    """map_decode_nii against the plain twin, max abs error exactly 0, in
+    float32 and in bfloat16, at the geometries the kernel's code paths
+    take: the main path's (5120 code blocks of K=5760, l=240, with apr), a
+    ragged single window (K=56, l=K, no apr: the top segment is 8 rows), a
+    trellis slice with no edge (bounds (-1, -1)) and, in bfloat16, an odd
+    batch (5119 code blocks, which the wrapper pads by one); then one full
+    decode of 64 code blocks per dtype where the hard bits and iteration
+    counts must be equal. The main shape is timed in turns (float32,
+    bfloat16, bfloat16, float32). The other paths' geometries are checked
+    in their phases (``hold_shapes``). -> (float32 entry, bfloat16
+    entry) of the kernels line."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
     from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
         map_decode_nii, map_decode_nii_plain, nii_plan)
-    from empower_srslte_tpu_torch.utils.crc import CRC24B
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
@@ -399,63 +515,61 @@ def turbo_kernel_check():
     geos = {"main": (k, l, b, True, None),
             "ragged_single_window": (56, 56, b, False, None),
             "no_edge": (k, l, 512, True, (-1, -1))}
-    errs = {}
-    for name, geo in geos.items():
-        args, kw = nii_inputs(g, *geo)
-        errs[name], ref = nii_twin(args, kw)
-        if name == "main":
-            main_args, main_kw, main_ref = args, kw, ref
-    assert not any(errs.values()), f"NII kernel vs plain twin: {errs}"
-    err = max(errs.values())
+    errs, main = {}, {}
+    for dt in ("float32", "bfloat16"):
+        extra = {"odd_batch": (k, l, b - 1, True, None)} \
+            if dt == "bfloat16" else {}
+        errs[dt] = {}
+        for name, geo in {**geos, **extra}.items():
+            args, kw = nii_inputs(g, *geo, dtype=dt)
+            errs[dt][name], ref = nii_twin(args, kw)
+            if name == "main":
+                main[dt] = (args, kw, ref)
+    assert not any(v for e in errs.values() for v in e.values()), \
+        f"NII kernel vs plain twin: {errs}"
+    run = {dt: (lambda a=main[dt][0], kw=main[dt][1]:
+                map_decode_nii(*a, **kw)) for dt in main}
+    times = dtype_turns(run["float32"], run["bfloat16"], reps=10)
 
-    base = None
+    base_line = {}
     base_fn = getattr(BASELINE, "map_decode_nii", None)
     if base_fn is not None:
-        base_err = max_abs_err(base_fn(*main_args, **main_kw), main_ref)
-        base = lambda: base_fn(*main_args, **main_kw)
-    times = paired_ms(lambda: map_decode_nii(*main_args, **main_kw), base,
-                      reps=10)
-    ms = times["ms"]
-    plain_ms = cuda_ms(lambda: map_decode_nii_plain(*main_args, **main_kw),
-                       reps=1)
-    nbytes, ops = nii_work(k, l, b)
-    # what this design moves: u, p, apr read by both sweeps, ext written
-    moved = 4 * (7 * k * b + 2 * 3 * b + 4 * (w + 1) * 8 * b)
+        args, kw, ref = main["float32"]
+        base_line = {
+            **paired_ms(run["float32"], lambda: base_fn(*args, **kw),
+                        reps=10),
+            "baseline_max_abs_err": max_abs_err(base_fn(*args, **kw), ref),
+            "baseline_ptxas": ptxas_summary(
+                BASELINE.PTXAS.get("turbo_nii", ""))}
 
-    # full decode: 64 CRC24B-protected code blocks in AWGN
-    nb = 64
-    rng = np.random.default_rng(5)
-    payload = torch.as_tensor(rng.integers(0, 2, (nb, k - 24)), device=dev)
-    u = torch.cat([payload, CRC24B.compute(payload)], -1).to(torch.int8)
-    d = turbo_encode(u).to(torch.float32)
-    ebn0 = 10 ** (0.9 / 10)
-    n0 = 3.0 / ebn0
-    y = 1.0 - 2.0 * d + (n0 / 2) ** 0.5 * torch.randn(d.shape, generator=g,
-                                                       device=dev)
-    llr = 4.0 / n0 * y
-    dec = TurboDecoder(k=k, iterations=8, window=l)
-    it_k, it_p = [], []
-    bits_k, _ = dec.decode(llr, crc=CRC24B, iters_out=it_k)
-    bits_p, _ = dec.decode(llr, crc=CRC24B, iters_out=it_p,
-                           map_decode=map_decode_nii_plain)
-    assert torch.equal(bits_k, bits_p), "turbo hard bits differ from twin"
-    assert it_k == it_p, (it_k, it_p)
-    n_err = int((bits_k != u).sum())
-    line = {"phase": "kernel_turbo", "cbs": b, "k": k, "window": l,
-            "max_abs_err": err, "max_abs_err_by_geometry": errs,
-            **times, "plain_ms": plain_ms,
-            "smem_dynamic": nii_plan(l, True).smem,
-            "ptxas": PTXAS.get("turbo_nii"), "moved_gb": moved / 1e9,
-            "moved_tb_s": moved / (ms * 1e-3) / 1e12,
-            "decode_cbs": nb, "decode_iterations": it_k,
-            "decode_bit_errors": n_err, "hard_bits_equal": True}
-    if base_fn is not None:
-        line.update(baseline_max_abs_err=base_err,
-                    baseline_ptxas=ptxas_summary(
-                        BASELINE.PTXAS.get("turbo_nii", "")))
-    emit(line)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound(nbytes, ops))
+    u, llr = awgn_code_blocks(g, k, 64, 0.9)
+    out, line = {}, {"phase": "kernel_turbo", "cbs": b, "k": k, "window": l,
+                     "turns_ms": times["turns_ms"]}
+    for dt, tag in (("float32", "OpsF32"), ("bfloat16", "OpsBf16x2")):
+        args, kw, _ = main[dt]
+        ms = times[dt]
+        plain_ms = cuda_ms(lambda: map_decode_nii_plain(*args, **kw),
+                           reps=1)
+        # what this design moves: u, p, apr read by both sweeps, ext
+        # written
+        moved = itemsize(dt) * (7 * k * b + 2 * 3 * b
+                                + 4 * (w + 1) * 8 * b)
+        dec = TurboDecoder(k=k, iterations=8, window=l, dtype=dt)
+        plan = nii_plan(l, True, getattr(torch, dt))
+        entry = {"max_abs_err": max(errs[dt].values()), "ms": ms,
+                 "plain_ms": plain_ms,
+                 **bound(*nii_work(k, l, b, dt), dt)}
+        line[dt] = {**entry, "max_abs_err_by_geometry": errs[dt],
+                    "smem_dynamic": plan.smem,
+                    "cbs_per_thread": plan.cbs_per_thread,
+                    "ptxas": ptxas_of("turbo_nii", tag),
+                    "moved_gb": moved / 1e9,
+                    "moved_tb_s": moved / (ms * 1e-3) / 1e12,
+                    "decode_cbs": 64,
+                    **decode_vs_twin(dec, llr, u, map_decode_nii_plain)}
+        out[dt] = entry
+    emit({**line, **base_line})
+    return out["float32"], out["bfloat16"]
 
 
 def vit_inputs(g, k: int, words: int, kind: str = "noisy"):
@@ -594,8 +708,9 @@ def phase_main_path():
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
 
-    res, launches, ms_first, ms, peak = counted_run(
+    res, launches, ms_first, ms, peak, shapes = counted_run(
         lambda: ue_dl_tm4_batch(st.samples, st.cfg, st.plan))
+    turbo = hold_shapes("main_path", turbo_shapes(shapes), seed=51)
     b1, b2 = res.tb_bits
     ok1, ok2 = res.crc_ok
     checks = {
@@ -603,8 +718,10 @@ def phase_main_path():
         "bits_equal": bool(torch.equal(b1, st.tb) and torch.equal(b2, st.tb2)),
         "cfi_found": bool((res.cfi == st.cfg.cfi).all()),
         "dci_found": bool((res.dci_hits >= 1).all()),
-        "turbo_launched": launches["turbo_nii"] > 0,
+        "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+        "no_turbo_f32_launch": launches["turbo_nii"] == 0,
         "viterbi_launched": launches["viterbi37"] > 0,
+        **turbo_checks(turbo),
     }
     tbs = st.plan.tbs
     emit({"phase": "main_path", "batch": BATCH, "nof_prb": 100,
@@ -612,97 +729,152 @@ def phase_main_path():
           "ms_per_batch": ms, "ms_counted_run": ms_first,
           "mbps": BATCH * 2 * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": res.iterations, "launches": launches,
-          "peak_mem_gb": peak, "checks": checks})
+          "turbo_dtype": dt_name(st.plan.decoder(
+              st.plan.segm.cb_sizes[0]).metric_dtype),
+          "turbo_shapes": turbo, "peak_mem_gb": peak, "checks": checks})
     check("main path", checks)
-    return launches
+    return launches, turbo
+
+
+def win_inputs(g, k: int, b: int, dtype="float32"):
+    """Random lsa, lp [K+3, B] of one ``map_decode_win`` call, in
+    ``dtype``."""
+    import torch
+
+    return tuple((torch.randn(k + 3, b, generator=g, device=g.device)
+                  * 4.0).to(getattr(torch, dtype)) for _ in range(2))
+
+
+def win_work(k: int, l: int, o: int, b: int, dtype="float32"):
+    """(compulsory bytes, operations) of one ``map_decode_win`` launch:
+    lsa, lp read once and llr written once, at 4 or 2 bytes a value."""
+    w = k // l
+    return (itemsize(dtype) * (2 * (k + 3) + k) * b,
+            w * b * ((l + o) * 2 * WIN_OPS_STEP + l * WIN_OPS_EMIT
+                     + 2 * ((l + o) // 8) * WIN_OPS_RENORM))
+
+
+def win_twin(lsa, lp, kw):
+    """The windowed kernel and its plain twin on the same inputs: -> (max
+    abs error, the twin's output); both do the same adds in the same
+    order and dtype, so the error must be exactly 0."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_win import (
+        map_decode_win, map_decode_win_plain)
+
+    got = map_decode_win(lsa, lp, **kw)
+    ref = map_decode_win_plain(lsa, lp, **kw)
+    torch.cuda.synchronize()
+    return max_abs_err(got, ref), ref
+
+
+def win_shape_time(k: int, l: int, b: int, seed: int,
+                   dtype="float32") -> dict:
+    """The windowed kernel timed at one launch shape, in ``dtype``, as
+    ``nii_shape_time`` times the NII kernel (``ms`` launch by launch,
+    ``ms_graphed`` by CUDA-graph replay), its plain twin (one call) and its
+    bound; not counted."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_win import (
+        DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lsa, lp = win_inputs(g, k, b, dtype)
+    kw = dict(k=k, l=l, o=DEFAULT_OVERLAP)
+    return {"k": k, "window": l, "cbs": b, "dtype": dtype,
+            "ms": cuda_ms(lambda: map_decode_win(lsa, lp, **kw), reps=10),
+            "ms_graphed": graph_ms(lambda: map_decode_win(lsa, lp, **kw),
+                                   reps=10),
+            "plain_ms": cuda_ms(lambda: map_decode_win_plain(lsa, lp, **kw),
+                                reps=1),
+            **bound(*win_work(k, l, DEFAULT_OVERLAP, b, dtype), dtype)}
 
 
 def turbo_win_kernel_check():
-    """map_decode_win against the plain twin, max abs error exactly 0, at
-    the uplink path's geometry (256 x 7 code blocks of K=5824, window 224,
-    overlap 40) and at K=1024 with its decoder window; then one full
-    windowed decode of 64 code blocks near threshold where hard bits and
-    iteration counts must be equal."""
-    import numpy as np
+    """map_decode_win against the plain twin, max abs error exactly 0, in
+    float32 and in bfloat16, at the uplink path's geometry (256 x 7 code
+    blocks of K=5824, window 224, overlap 40), at K=1024 with its decoder
+    window and, in bfloat16, at an odd batch (1791 code blocks); then one
+    full windowed decode of 64 code blocks near threshold per dtype where
+    hard bits and iteration counts must be equal. The uplink shape is
+    timed in turns (float32, bfloat16, bfloat16, float32). -> (float32
+    entry, bfloat16 entry) of the kernels line."""
     import torch
 
     from empower_srslte_tpu_torch.models.sch import _pick_window
     from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
-    from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
     from empower_srslte_tpu_torch.ops.fec.turbo_win import (
         DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain, win_plan)
-    from empower_srslte_tpu_torch.utils.crc import CRC24B
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
     o = DEFAULT_OVERLAP
-    errs = {}
-    for name, (kk, bb) in {"uplink": (5824, BATCH * 7),
-                           "k1024": (1024, BATCH)}.items():
-        kw = dict(k=kk, l=_pick_window(kk), o=o)
-        lsa = torch.randn(kk + 3, bb, generator=g, device=dev) * 4.0
-        lp = torch.randn(kk + 3, bb, generator=g, device=dev) * 4.0
-        got = map_decode_win(lsa, lp, **kw)
-        ref = map_decode_win_plain(lsa, lp, **kw)
-        torch.cuda.synchronize()
-        # the same float32 adds in the same order on both sides
-        errs[name] = max_abs_err(got, ref)
-        if name == "uplink":
-            k, b, l, main = kk, bb, kw["l"], (lsa, lp, kw, ref)
-    assert not any(errs.values()), f"windowed kernel vs plain twin: {errs}"
-    err = max(errs.values())
+    k, b = 5824, BATCH * 7
+    l = _pick_window(k)
     w = k // l
-    lsa, lp, kw, ref = main
-    base = None
+    errs, main = {}, {}
+    for dt in ("float32", "bfloat16"):
+        geos = {"uplink": (k, b), "k1024": (1024, BATCH)}
+        if dt == "bfloat16":
+            geos["odd_batch"] = (k, b - 1)
+        errs[dt] = {}
+        for name, (kk, bb) in geos.items():
+            kw = dict(k=kk, l=_pick_window(kk), o=o)
+            lsa, lp = win_inputs(g, kk, bb, dt)
+            errs[dt][name], ref = win_twin(lsa, lp, kw)
+            if name == "uplink":
+                main[dt] = (lsa, lp, kw, ref)
+    assert not any(v for e in errs.values() for v in e.values()), \
+        f"windowed kernel vs plain twin: {errs}"
+    run = {dt: (lambda m=main[dt]: map_decode_win(m[0], m[1], **m[2]))
+           for dt in main}
+    times = dtype_turns(run["float32"], run["bfloat16"], reps=10)
+
+    base_line = {}
     base_fn = getattr(BASELINE, "map_decode_win", None)
     if base_fn is not None:
-        base_err = max_abs_err(base_fn(lsa, lp, **kw), ref)
-        base = lambda: base_fn(lsa, lp, **kw)
-    times = paired_ms(lambda: map_decode_win(lsa, lp, **kw), base, reps=10)
-    ms = times["ms"]
-    plain_ms = cuda_ms(lambda: map_decode_win_plain(lsa, lp, **kw), reps=1)
-    # compulsory traffic: lsa, lp in; llr out
-    nbytes = 4 * (2 * (k + 3) + k) * b
-    ops = w * b * ((l + o) * 2 * WIN_OPS_STEP + l * WIN_OPS_EMIT
-                   + 2 * ((l + o) // 8) * WIN_OPS_RENORM)
-    # what this design moves: every window's rows twice and its 2O
-    # overlap rows once more (lsa, lp), llr written once, and the
-    # 32-byte checkpoints of the segments above the first written and read
-    moved = 4 * (2 * (2 * k + 2 * o * w) + k) * b \
-        + 2 * 32 * (l // 8 - 1) * w * b
+        lsa, lp, kw, ref = main["float32"]
+        base_line = {
+            **paired_ms(run["float32"], lambda: base_fn(lsa, lp, **kw),
+                        reps=10),
+            "baseline_max_abs_err": max_abs_err(base_fn(lsa, lp, **kw), ref),
+            "baseline_ptxas": ptxas_summary(
+                BASELINE.PTXAS.get("turbo_win", ""))}
 
-    nb = 64
-    rng = np.random.default_rng(5)
-    payload = torch.as_tensor(rng.integers(0, 2, (nb, k - 24)), device=dev)
-    u = torch.cat([payload, CRC24B.compute(payload)], -1).to(torch.int8)
-    d = turbo_encode(u).to(torch.float32)
-    n0 = 3.0 / 10 ** (0.9 / 10)
-    y = 1.0 - 2.0 * d + (n0 / 2) ** 0.5 * torch.randn(d.shape, generator=g,
-                                                       device=dev)
-    llr = 4.0 / n0 * y
-    dec = TurboDecoder(k=k, iterations=8, window=l, impl="windowed")
-    it_k, it_p = [], []
-    bits_k, _ = dec.decode(llr, crc=CRC24B, iters_out=it_k)
-    bits_p, _ = dec.decode(llr, crc=CRC24B, iters_out=it_p,
-                           map_decode=map_decode_win_plain)
-    assert torch.equal(bits_k, bits_p), "windowed hard bits differ from twin"
-    assert it_k == it_p, (it_k, it_p)
-    line = {"phase": "kernel_turbo_win", "cbs": b, "k": k, "window": l,
-            "overlap": o, "max_abs_err": err,
-            "max_abs_err_by_geometry": errs, **times, "plain_ms": plain_ms,
-            "smem_dynamic": win_plan(l, o).smem,
-            "ptxas": PTXAS.get("turbo_win"), "moved_gb": moved / 1e9,
-            "moved_tb_s": moved / (ms * 1e-3) / 1e12,
-            "decode_cbs": nb, "decode_iterations": it_k,
-            "decode_bit_errors": int((bits_k != u).sum()),
-            "hard_bits_equal": True}
-    if base_fn is not None:
-        line.update(baseline_max_abs_err=base_err,
-                    baseline_ptxas=ptxas_summary(
-                        BASELINE.PTXAS.get("turbo_win", "")))
-    emit(line)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **bound(nbytes, ops))
+    u, llr = awgn_code_blocks(g, k, 64, 0.9)
+    out, line = {}, {"phase": "kernel_turbo_win", "cbs": b, "k": k,
+                     "window": l, "overlap": o,
+                     "turns_ms": times["turns_ms"]}
+    for dt, tag in (("float32", "OpsF32"), ("bfloat16", "OpsBf16x2")):
+        lsa, lp, kw, _ = main[dt]
+        ms = times[dt]
+        plain_ms = cuda_ms(lambda: map_decode_win_plain(lsa, lp, **kw),
+                           reps=1)
+        # what this design moves: every window's rows twice and its 2O
+        # overlap rows once more (lsa, lp), llr written once, and the
+        # 8-value checkpoints of the segments above the first written and
+        # read
+        moved = itemsize(dt) * ((2 * (2 * k + 2 * o * w) + k) * b
+                                + 2 * 8 * (l // 8 - 1) * w * b)
+        dec = TurboDecoder(k=k, iterations=8, window=l, impl="windowed",
+                           dtype=dt)
+        plan = win_plan(l, o, getattr(torch, dt))
+        entry = {"max_abs_err": max(errs[dt].values()), "ms": ms,
+                 "plain_ms": plain_ms,
+                 **bound(*win_work(k, l, o, b, dt), dt)}
+        line[dt] = {**entry, "max_abs_err_by_geometry": errs[dt],
+                    "smem_dynamic": plan.smem,
+                    "cbs_per_thread": plan.cbs_per_thread,
+                    "ptxas": ptxas_of("turbo_win", tag),
+                    "moved_gb": moved / 1e9,
+                    "moved_tb_s": moved / (ms * 1e-3) / 1e12,
+                    "decode_cbs": 64,
+                    **decode_vs_twin(dec, llr, u, map_decode_win_plain)}
+        out[dt] = entry
+    emit({**line, **base_line})
+    return out["float32"], out["bfloat16"]
 
 
 def recursion_kernel_check():
@@ -734,7 +906,7 @@ def recursion_kernel_check():
           "rates": rates, "launches": launches, "plain_ms": plain_ms})
     assert launches > 0
     return launches, dict(max_abs_err=err, ms=f32["ms"], plain_ms=plain_ms,
-                          **bound(2 * x.numel() * 4, f32["ops"]))
+                          **bound(2 * x.numel() * 4, f32["ops"])), rates
 
 
 def run_uplink(st, n0: float):
@@ -760,6 +932,12 @@ def uci_errors(out, plan) -> dict:
             "cqi_crc_fail": int((~out["cqi_ok"]).sum())}
 
 
+def ul_turbo_dtype(plan) -> str:
+    """The metric dtype the UL-SCH plan's decoder resolves to."""
+    data = plan.data_plan
+    return dt_name(data.decoder(data.segm.cb_sizes[0]).metric_dtype)
+
+
 def phase_uplink():
     """The uplink path: UE PUSCH+UCI transmitter (plain PyTorch) ->
     channel + AWGN -> eNB receiver, 256 subframes at n0 = UL_N0."""
@@ -777,17 +955,22 @@ def phase_uplink():
     vit = viterbi_kernel_check(
         "kernel_viterbi_uplink", [(len(st.plan.uci.cqi_bits) + 8, BATCH)],
         seed=7)
-    (out, its), launches, ms_first, ms, peak = counted_run(
+    (out, its), launches, ms_first, ms, peak, shapes = counted_run(
         lambda: run_uplink(st, UL_N0))
+    turbo = hold_shapes("uplink_path", turbo_shapes(shapes), seed=52)
     errs = uci_errors(out, st.plan)
     checks = {
         "crc_ok": bool(out["crc_ok"].all()),
         "bits_equal": bool(torch.equal(out["tb"], st.tb)),
         "ack_equal": errs["ack"] == 0, "ri_equal": errs["ri"] == 0,
         "cqi_equal": errs["cqi"] == 0, "cqi_crc_ok": errs["cqi_crc_fail"] == 0,
-        "turbo_win_2_per_iteration": launches["turbo_win"] == 2 * sum(its),
+        "turbo_win_bf16_2_per_iteration":
+            launches["turbo_win_bf16"] == 2 * sum(its),
+        "no_turbo_win_f32_launch": launches["turbo_win"] == 0,
         "viterbi_launched": launches["viterbi37"] > 0,
-        "no_nii_launch": launches["turbo_nii"] == 0,
+        "no_nii_launch": launches["turbo_nii"] + launches["turbo_nii_bf16"]
+        == 0,
+        **turbo_checks(turbo),
     }
     tbs = st.plan.tbs
     emit({"phase": "uplink_path", "batch": BATCH, "nof_prb": 100,
@@ -797,9 +980,10 @@ def phase_uplink():
           "ms_per_batch": ms, "ms_counted_run": ms_first,
           "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": its, "launches": launches,
+          "turbo_dtype": ul_turbo_dtype(st.plan), "turbo_shapes": turbo,
           "peak_mem_gb": peak, "checks": checks})
     check("uplink path", checks)
-    return launches, vit
+    return launches, vit, turbo
 
 
 def phase_uplink_midsnr():
@@ -822,6 +1006,7 @@ def phase_uplink_midsnr():
     bler = 1.0 - float(out["crc_ok"].float().mean())
     good = int(out["crc_ok"].sum())
     emit({"phase": "uplink_midsnr", "batch": BATCH, "n0": UL_N0_MID,
+          "turbo_dtype": ul_turbo_dtype(st.plan),
           "ms_per_batch": ms, "bler": bler,
           "mbps_decoded": good * st.plan.tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": its, "uci_errors": uci_errors(out, st.plan)})
@@ -854,8 +1039,8 @@ def phase_tm2():
                         device="cuda")
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
-    # both lanes decode in float32 at the same turbo geometry
-    twin = nii_path_check("tm2", st.plan.segm.cb_sizes, BATCH, seed=31)
+    # both lanes decode in the plan's dtype (bfloat16) at the same turbo
+    # geometry
     out = {}
     for phase, c in (("tm2_path", cfg),
                      ("tm2_int8_path", dataclasses.replace(cfg,
@@ -867,11 +1052,14 @@ def phase_tm2():
             return pdsch_decode(st.y, st.h, c, st.plan, noise_est=DL_N0,
                                 iters_out=its)
 
-        (bits, ok, soft), launches, ms_first, ms, peak = counted_run(run)
-        out[phase] = dict(bits=bits, launches=launches)
+        (bits, ok, soft), launches, ms_first, ms, peak, shapes = \
+            counted_run(run)
+        twin = hold_shapes(phase, turbo_shapes(shapes), seed=31)
+        out[phase] = dict(bits=bits, launches=launches, turbo=twin)
         checks = {"crc_ok": bool(ok.all()),
                   "bits_equal": bool(torch.equal(bits, st.tbs[0])),
-                  "turbo_launched": launches["turbo_nii"] > 0}
+                  "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+                  **turbo_checks(twin)}
         if c.llr_int8:
             checks["bits_equal_f32_lane"] = bool(
                 torch.equal(bits, out["tm2_path"]["bits"]))
@@ -884,12 +1072,13 @@ def phase_tm2():
               "ms_per_batch": ms, "ms_counted_run": ms_first,
               "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
               "turbo_iterations": list(its), "launches": launches,
-              "nii_twin_max_abs_err": twin,
+              "turbo_shapes": twin,
               "softbuffer_bytes_per_tb": soft_bytes_per_tb(
                   [s[0] for s in soft]),
               "peak_mem_gb": peak, "checks": checks})
         check(phase, checks)
-    return {k: v["launches"] for k, v in out.items()}
+    return ({k: v["launches"] for k, v in out.items()},
+            {k: v["turbo"] for k, v in out.items()})
 
 
 def phase_tm3():
@@ -914,7 +1103,6 @@ def phase_tm3():
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
     # both codewords share the plan: one turbo batch of 2 x BATCH TBs
-    twin = nii_path_check("tm3", plan.segm.cb_sizes, 2 * BATCH, seed=32)
     its: list = []
 
     def run():
@@ -922,11 +1110,13 @@ def phase_tm3():
         return pdsch_decode(st.y, st.h, cfg, plan, noise_est=DL_N0,
                             plan2=plan, iters_out=its)
 
-    (bits, ok, _), launches, ms_first, ms, peak = counted_run(run)
+    (bits, ok, _), launches, ms_first, ms, peak, shapes = counted_run(run)
+    twin = hold_shapes("tm3_path", turbo_shapes(shapes), seed=32)
     checks = {"crc_ok": bool(ok[0].all() and ok[1].all()),
               "bits_equal": all(bool(torch.equal(b, t))
                                 for b, t in zip(bits, st.tbs)),
-              "turbo_launched": launches["turbo_nii"] > 0}
+              "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+              **turbo_checks(twin)}
     emit({"phase": "tm3_path", "batch": BATCH, "nof_prb": 100, "ports": 2,
           "rx": 2, "mimo": "cdd", "codewords": 2, "mcs": TM3_MCS,
           "tbs": tbs, "n0": DL_N0, "channel": "iid per RE",
@@ -934,10 +1124,9 @@ def phase_tm3():
           "ms_counted_run": ms_first,
           "mbps": BATCH * 2 * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": list(its), "launches": launches,
-          "nii_twin_max_abs_err": twin,
-          "peak_mem_gb": peak, "checks": checks})
+          "turbo_shapes": twin, "peak_mem_gb": peak, "checks": checks})
     check("tm3_path", checks)
-    return launches
+    return launches, twin
 
 
 def phase_ue_dl_frame():
@@ -952,7 +1141,6 @@ def phase_ue_dl_frame():
     from empower_srslte_tpu_torch.models.dci import DciDl, DciDl1C
     from empower_srslte_tpu_torch.models.ue_dl import ue_dl_decode
     from empower_srslte_tpu_torch.ops.equalizer import MimoType
-    from empower_srslte_tpu_torch.ops.fec.cbsegm import cbsegm
 
     t0 = time.perf_counter()
     fr = enb_dl.tm2_frame_stimulus(device="cuda")
@@ -960,14 +1148,10 @@ def phase_ue_dl_frame():
     tx_s = time.perf_counter() - t0
     harq_sfs = enb_dl.FRAME_HARQ_SFS
 
-    # the kernels against their twins at the frame's shapes: one TB per
-    # call (the C-RNTI's, and the SI-RNTI's in sf 5), and each call's
-    # blind search, one Viterbi batch per DCI size over its candidates
-    # (formats 1A, 1 and 2, or 1C for the SI-RNTI, as ue_dl_decode picks)
-    nii_twin = {**nii_path_check("frame", cbsegm(fr.tb[0].numel()).cb_sizes,
-                                 1, seed=33),
-                **nii_path_check("frame_si", cbsegm(fr.si_tb.numel()).cb_sizes,
-                                 1, seed=34)}
+    # the Viterbi kernel against its twin at each call's blind search,
+    # one batch per DCI size over its candidates (formats 1A, 1 and 2, or
+    # 1C for the SI-RNTI, as ue_dl_decode picks); the turbo kernels at
+    # every shape the counted run launches (one TB per call)
     vit_geos = set().union(*(
         search_geos(fr.cell, enb_dl.FRAME_CFI, sf, rnti)
         for sf, rnti in [(sf, fr.rnti) for sf in range(10)]
@@ -987,7 +1171,8 @@ def phase_ue_dl_frame():
                                         mimo=MimoType.DIVERSITY))
         return out
 
-    res, launches, ms_first, ms, peak = counted_run(run)
+    res, launches, ms_first, ms, peak, shapes = counted_run(run)
+    nii_twin = hold_shapes("ue_dl_frame", turbo_shapes(shapes), seed=33)
     calls = len(res)
     per_sf, checks = [], {}
     ok_all = {"cfi": True, "dci": True, "crc": True, "bits": True,
@@ -1016,8 +1201,11 @@ def phase_ue_dl_frame():
     checks.update({f"{k}_all_subframes": v for k, v in ok_all.items()})
     checks["harq_sf2_fails_alone"] = per_sf[harq_sfs[0]]["crc_ok"] is False
     checks["harq_sf3_combined_ok"] = per_sf[harq_sfs[1]]["crc_ok"] is True
-    checks["turbo_launched"] = launches["turbo_nii"] > 0
+    # the frame's TBs (K 5120, l 256) in bfloat16, the SI's K 280 (no
+    # window) in float32
+    checks["turbo_bf16_launched"] = launches["turbo_nii_bf16"] > 0
     checks["viterbi_launched"] = launches["viterbi37"] > 0
+    checks.update(turbo_checks(nii_twin))
     # the TBs whose CRC passed: sf 2's copy fails, sf 3 decodes that TB
     decoded_bits = sum(int(fr.tb[x["sf"]].numel()) for x in per_sf
                        if x["crc_ok"]) \
@@ -1032,11 +1220,11 @@ def phase_ue_dl_frame():
           "ms_per_frame": ms, "ms_per_call": ms / calls,
           "ms_counted_run": ms_first,
           "mbps": decoded_bits / (ms * 1e-3) / 1e6,
-          "launches": launches, "nii_twin_max_abs_err": nii_twin,
+          "launches": launches, "turbo_shapes": nii_twin,
           "viterbi_twin_mismatched_bits": vit_twin, "peak_mem_gb": peak,
           "per_subframe": per_sf, "checks": checks})
     check("ue_dl_frame", checks)
-    return launches
+    return launches, nii_twin
 
 
 def phase_uplink_int8():
@@ -1059,23 +1247,28 @@ def phase_uplink_int8():
         return pusch_decode(enb_ul_receive_grid(st.samples, cfg.cell), cfg,
                             st.plan, noise_est=UL_N0, iters_out=its)
 
-    (bits, ok, soft), launches, ms_first, ms, peak = counted_run(run)
+    (bits, ok, soft), launches, ms_first, ms, peak, shapes = counted_run(run)
+    twin = hold_shapes("uplink_int8", turbo_shapes(shapes), seed=53)
     checks = {"crc_ok": bool(ok.all()),
               "bits_equal": bool(torch.equal(bits, st.tb)),
               "int8_softbuffers": all(s.dtype == torch.int8 for s in soft),
-              "turbo_win_launched": launches["turbo_win"] > 0,
-              "no_nii_launch": launches["turbo_nii"] == 0}
+              "turbo_win_bf16_launched": launches["turbo_win_bf16"] > 0,
+              "no_turbo_win_f32_launch": launches["turbo_win"] == 0,
+              "no_nii_launch": launches["turbo_nii"]
+              + launches["turbo_nii_bf16"] == 0,
+              **turbo_checks(twin)}
     tbs = st.plan.tbs
     emit({"phase": "uplink_int8", "batch": BATCH, "nof_prb": 100,
           "n_prb": st.cfg.n_prb, "mcs": 20, "tbs": tbs, "n0": UL_N0,
           "ms_per_batch": ms, "ms_counted_run": ms_first,
           "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": list(its), "launches": launches,
+          "turbo_dtype": "bfloat16", "turbo_shapes": twin,
           "softbuffer_bytes_per_tb": soft_bytes_per_tb(
               [s[0] for s in soft]),
           "peak_mem_gb": peak, "checks": checks})
     check("uplink_int8", checks)
-    return launches
+    return launches, twin
 
 
 def phase_uplink_msg3():
@@ -1094,9 +1287,6 @@ def phase_uplink_msg3():
 
     st = ul_stimulus(BATCH, UL_N0, grant=MSG3_GRANT, device="cuda")
     cb_sizes = st.plan.segm.cb_sizes
-    twin = nii_path_check("uplink_msg3", cb_sizes, BATCH, seed=29)
-    (k,) = set(cb_sizes)
-    nii_time = nii_shape_time(k, k, len(cb_sizes) * BATCH, seed=31)
     its: list = []
 
     def run():
@@ -1104,24 +1294,33 @@ def phase_uplink_msg3():
         return pusch_decode(enb_ul_receive_grid(st.samples, st.cfg.cell),
                             st.cfg, st.plan, noise_est=UL_N0, iters_out=its)
 
-    (bits, ok, _soft), launches, ms_first, ms, peak = counted_run(run)
+    (bits, ok, _soft), launches, ms_first, ms, peak, shapes = \
+        counted_run(run)
+    twin = hold_shapes("uplink_msg3", turbo_shapes(shapes), seed=29)
     checks = {"crc_ok": bool(ok.all()),
               "bits_equal": bool(torch.equal(bits, st.tb)),
               "k_has_no_window": all(_pick_window(k) is None
                                      for k in cb_sizes),
               "windowed_plan": st.plan.decoder_impl == "windowed",
-              "nii_2_per_iteration": launches["turbo_nii"] == 2 * sum(its),
-              "no_turbo_win_launch": launches["turbo_win"] == 0}
+              # no window: "auto" stays float32, as JAX's full sweep
+              "nii_f32_2_per_iteration":
+                  launches["turbo_nii"] == 2 * sum(its),
+              "no_bf16_launch": launches["turbo_nii_bf16"]
+              + launches["turbo_win_bf16"] == 0,
+              "no_turbo_win_launch": launches["turbo_win"] == 0,
+              **turbo_checks(twin)}
     tbs = st.plan.tbs
     emit({"phase": "uplink_msg3", "batch": BATCH, "nof_prb": 100,
           "grant": list(MSG3_GRANT), "tbs": tbs, "cb_sizes": list(cb_sizes),
           "n0": UL_N0, "ms_per_batch": ms, "ms_counted_run": ms_first,
           "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": list(its), "launches": launches,
-          "nii_twin": twin, "nii_kernel": nii_time, "peak_mem_gb": peak,
-          "checks": checks})
+          "turbo_dtype": "float32",
+          "turbo_dtype_why": "K 280 has no turbo window: 'auto' resolves "
+                             "to float32 there, as JAX's full sweep",
+          "turbo_shapes": twin, "peak_mem_gb": peak, "checks": checks})
     check("uplink_msg3", checks)
-    return launches, nii_time
+    return launches, twin
 
 
 def search_geos(cell, cfi: int, sf: int, rnti: int) -> set:
@@ -1163,7 +1362,6 @@ def phase_cold_boot():
     from empower_srslte_tpu_torch.models.ue_sync import (cell_search_vote,
                                                          sfo_estimate,
                                                          sync_and_align)
-    from empower_srslte_tpu_torch.ops.fec.cbsegm import cbsegm
     from empower_srslte_tpu_torch.utils.cell import Cell
 
     t0 = time.perf_counter()
@@ -1181,10 +1379,6 @@ def phase_cold_boot():
         "cold_boot", {(PBCH_K, 4)}
         | search_geos(cell, enb_dl.COLD_CFI, data_sf, cap.rnti)
         | search_geos(r_cell, r_cfg.cfi, r_cfg.sf_idx, r_rnti), seed=36)
-    nii_twin = {**nii_path_check("cold_boot", cbsegm(cap.tb.numel()).cb_sizes,
-                                 1, seed=37),
-                **nii_path_check("one_rx_tm4", r_plan.segm.cb_sizes, 2,
-                                 seed=38)}
     stage_events: list = []
 
     def run():
@@ -1209,7 +1403,7 @@ def phase_cold_boot():
 
     reps = 3
     ((n_id_2, votes, _psr), res, sfo, mib, out), launches, ms_first, ms, \
-        peak = counted_run(run, reps=reps)
+        peak, shapes = counted_run(run, reps=reps)
     names = ("vote", "sync", "sfo", "mib", "decode")
     stage_ms = {f"ms_{n}": sum(ev[i].elapsed_time(ev[i + 1])
                                for ev in stage_events[-reps:]) / reps
@@ -1222,7 +1416,12 @@ def phase_cold_boot():
                     nof_ports=1, sfn=cap.first_sfn)
 
     rep_y = enb_dl.one_rx_tm4_stimulus(device="cuda")[2:]
-    rep = ue_dl_decode(rep_y[0], r_cell, r_cfg.sf_idx, r_rnti)
+    rep, rep_launches, rep_shapes = counted(
+        lambda: ue_dl_decode(rep_y[0], r_cell, r_cfg.sf_idx, r_rnti))
+    # the turbo kernels at every shape both decodes launched: the data
+    # grant's TB and the format-2 subframe's two equal-plan codewords
+    nii_twin = hold_shapes("cold_boot", turbo_shapes(merge_shapes(
+        shapes, rep_shapes)), seed=37)
     checks = {
         "vote_n_id_2": n_id_2 == cell.n_id_2 and votes[n_id_2] == 2,
         "cell_id": res.cell_id == enb_dl.COLD_CELL_ID,
@@ -1236,7 +1435,9 @@ def phase_cold_boot():
         "data_bits_equal": len(hits) == 1 and bool(
             (torch.as_tensor(hits[0].tb_bits) == cap.tb.cpu()).all()),
         "viterbi_launched": launches["viterbi37"] > 0,
-        "turbo_launched": launches["turbo_nii"] > 0,
+        "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+        "one_rx_tm4_turbo_bf16_launched": rep_launches["turbo_nii_bf16"] > 0,
+        **turbo_checks(nii_twin),
         "one_rx_tm4_two_format2_results":
             [type(r.dci).__name__ for r in rep] == ["DciDl2"] * 2,
         "one_rx_tm4_cw0_ok_bits_equal": rep[0].cw == 0 and rep[0].crc_ok
@@ -1253,12 +1454,13 @@ def phase_cold_boot():
               float(sfo["drift_samples_per_frame"]), "mib": mib,
           "tbs": int(cap.tb.numel()), "tx_s": round(tx_s, 3), **stage_ms,
           "ms_acquire_total": ms, "ms_counted_run": ms_first,
-          "launches": launches, "nii_twin_max_abs_err": nii_twin,
+          "launches": launches, "one_rx_tm4_launches": rep_launches,
+          "turbo_shapes": nii_twin,
           "viterbi_twin_mismatched_bits": vit_twin, "peak_mem_gb": peak,
           "one_rx_tm4": [{"cw": r.cw, "crc_ok": r.crc_ok} for r in rep],
           "checks": checks})
     check("cold_boot", checks)
-    return launches
+    return launches, nii_twin
 
 
 def phase_pbch_batch():
@@ -1276,7 +1478,7 @@ def phase_pbch_batch():
     h, _n0 = estimate_channel(st.y, st.cell, 0)
     ms_chest = cuda_ms(lambda: estimate_channel(st.y, st.cell, 0), reps=5)
     vit_twin = vit_path_check("pbch_batch", {(PBCH_K, 4 * BATCH)}, seed=39)
-    (bits, q, ports, ok), launches, ms_first, ms, peak = counted_run(
+    (bits, q, ports, ok), launches, ms_first, ms, peak, _ = counted_run(
         lambda: pbch_decode(st.y, h, st.cell))
     checks = {"all_ok": bool(ok.all()),
               "mib_equal": bool(torch.equal(bits, st.mib)),
@@ -1313,7 +1515,7 @@ def phase_ul_control():
     st = ul_control_stimulus(BATCH, device="cuda")
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
-    out, launches, ms_first, ms, peak = counted_run(
+    out, launches, ms_first, ms, peak, _ = counted_run(
         lambda: ul_control_receive(st.samples, st))
     errors = {k: int((out[k] != v).any(-1).sum()) for k, v in st.sent.items()}
     srs_err = (out["srs_h"].mean(-1) - st.srs_gain).abs()
@@ -1378,7 +1580,7 @@ def phase_prach():
                                    freq_offset_prb=pr.STACK_FREQ_OFFSET,
                                    fmt=st.fmt, high_speed=st.high_speed)
 
-        (det, off, _m), launches, ms_first, ms, peak = counted_run(run)
+        (det, off, _m), launches, ms_first, ms, peak, _ = counted_run(run)
         sent = st.index >= 0
         rows = st.index.clamp_min(0)
         found = torch.gather(det, 1, rows) & sent
@@ -1425,28 +1627,27 @@ def phase_pmch():
     import torch
 
     from empower_srslte_tpu_torch.models import pmch
-    from empower_srslte_tpu_torch.models.sch import _pick_window
 
     t0 = time.perf_counter()
     st = pmch.pmch_stimulus(BATCH, device="cuda")
     torch.cuda.synchronize()
     tx_s = time.perf_counter() - t0
-    twin = nii_path_check("pmch", st.plan.segm.cb_sizes, BATCH, seed=40)
-    k = st.plan.segm.cb_sizes[0]
-    nii_time = nii_shape_time(k, _pick_window(k), st.plan.segm.c * BATCH,
-                              seed=41)
     its: list = []
 
     def run():
         its.clear()
         return pmch.pmch_receive(st.samples, st, iters_out=its)
 
-    (bits, ok, _), launches, ms_first, ms, peak = counted_run(run)
+    (bits, ok, _), launches, ms_first, ms, peak, shapes = counted_run(run)
     mcch = pmch.pmch_stimulus(1, mcs=pmch.MCCH_MCS, device="cuda")
-    m_bits, m_ok, _ = pmch.pmch_receive(mcch.samples, mcch)
+    (m_bits, m_ok, _), _, m_shapes = counted(
+        lambda: pmch.pmch_receive(mcch.samples, mcch))
+    twin = hold_shapes("pmch_path", turbo_shapes(merge_shapes(
+        shapes, m_shapes)), seed=40)
     checks = {"crc_ok": bool(ok.all()),
               "bits_equal": bool(torch.equal(bits, st.tb)),
-              "turbo_launched": launches["turbo_nii"] > 0,
+              "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+              **turbo_checks(twin),
               "mcch_crc_ok": bool(m_ok.all()),
               "mcch_bits_equal": bool(torch.equal(m_bits, mcch.tb))}
     tbs = st.plan.tbs
@@ -1458,12 +1659,11 @@ def phase_pmch():
           "ms_counted_run": ms_first,
           "mbps": BATCH * tbs / (ms * 1e-3) / 1e6,
           "turbo_iterations": list(its), "launches": launches,
-          "nii_twin_max_abs_err": twin, "nii_kernel": nii_time,
-          "mcch_tbs": mcch.plan.tbs,
+          "turbo_shapes": twin, "mcch_tbs": mcch.plan.tbs,
           "sample_bytes": st.samples.numel() * st.samples.element_size(),
           "peak_mem_gb": peak, "checks": checks})
     check("pmch_path", checks)
-    return launches, nii_time
+    return launches, twin
 
 
 def phase_turbo_xla():
@@ -1537,8 +1737,8 @@ def vit_shape_time(k: int, halo: int, words: int, seed: int) -> dict:
 
 def open_counts():
     """After a synchronize, the device's peak memory reset and every
-    kernel's launch count, and the per-shape counts of the two on-path
-    kernels, at 0. -> the modules, by kernel name."""
+    kernel's launch count (``COUNTERS``) and per-shape launch counts at 0.
+    -> the modules, by name."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
@@ -1548,42 +1748,68 @@ def open_counts():
     torch.cuda.reset_peak_memory_stats()
     mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
             "viterbi37": viterbi37}
+    for _name, mod, attr in COUNTERS:
+        setattr(mods[mod], attr, 0)
     for m in mods.values():
-        m.LAUNCHES = 0
-    turbo_nii.LAUNCHES_BY_SHAPE.clear()
-    viterbi37.LAUNCHES_BY_SHAPE.clear()
+        m.LAUNCHES_BY_SHAPE.clear()
     return mods
 
 
 def read_counts(mods) -> tuple:
-    """(launches by kernel, NII launches by shape, Viterbi launches by
-    shape) since ``open_counts``."""
-    return ({k: m.LAUNCHES for k, m in mods.items()},
-            dict(mods["turbo_nii"].LAUNCHES_BY_SHAPE),
-            dict(mods["viterbi37"].LAUNCHES_BY_SHAPE))
+    """(launches by kernel, launches by shape per module) since
+    ``open_counts``; a turbo shape is (K, window, code blocks, dtype)."""
+    return ({name: getattr(mods[mod], attr) for name, mod, attr in COUNTERS},
+            {name: dict(m.LAUNCHES_BY_SHAPE) for name, m in mods.items()})
 
 
-def hold_shapes(phase: str, nii_shapes: dict, vit_shapes: dict,
-                seed: int) -> dict:
-    """Each on-path kernel held to its twin, and timed, at every shape a
-    phase launched it (``read_counts``): -> {"turbo_nii": {...},
-    "viterbi37": {...}} per shape, with its launches."""
+def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
+    """Each kernel held to its twin, and timed, at every shape a phase
+    launched it (``read_counts``), the turbo kernels in the dtype of the
+    launch: -> {"turbo_nii": {...}, "turbo_win": {...}, "viterbi37":
+    {...}} per shape, with its launches. The phase's checks require every
+    error to be 0 (``turbo_checks``, ``shape_checks``)."""
     import torch
 
+    from empower_srslte_tpu_torch.ops.fec.turbo_win import DEFAULT_OVERLAP
+
     g = torch.Generator(device="cuda").manual_seed(seed)
-    nii, vit = {}, {}
-    for i, ((k, l, b), c) in enumerate(sorted(nii_shapes.items())):
-        nii[f"k{k}_l{l}_cbs{b}"] = {
-            **nii_shape_time(k, l, b, seed + i), "launches": c,
-            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b))[0]}
-    for i, ((k, h, w), c) in enumerate(sorted(vit_shapes.items())):
-        vit[f"k{k}_halo{h}_words{w}"] = {**vit_shape_time(k, h, w, seed + i),
-                                         "launches": c}
-    PATH_TWIN["turbo_nii"].update(
-        {f"{phase}_{name}": v["max_abs_err"] for name, v in nii.items()})
-    PATH_TWIN["viterbi37"].update(
-        {f"{phase}_{name}": v["mismatched_bits"] for name, v in vit.items()})
-    return {"turbo_nii": nii, "viterbi37": vit}
+    out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}}
+    i = 0
+    for (k, l, b, dt), c in sorted(shapes.get("turbo_nii", {}).items()):
+        name = f"k{k}_l{l}_cbs{b}_{dt}"
+        out["turbo_nii"][name] = {
+            **nii_shape_time(k, l, b, seed + i, dt), "launches": c,
+            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b, dtype=dt))[0]}
+        key = "turbo_nii_bf16" if dt == "bfloat16" else "turbo_nii"
+        PATH_TWIN[key][f"{phase}_{name}"] = \
+            out["turbo_nii"][name]["max_abs_err"]
+        i += 1
+    for (k, l, b, dt), c in sorted(shapes.get("turbo_win", {}).items()):
+        name = f"k{k}_l{l}_cbs{b}_{dt}"
+        out["turbo_win"][name] = {
+            **win_shape_time(k, l, b, seed + i, dt), "launches": c,
+            "max_abs_err": win_twin(*win_inputs(g, k, b, dt),
+                                    dict(k=k, l=l, o=DEFAULT_OVERLAP))[0]}
+        key = "turbo_win_bf16" if dt == "bfloat16" else "turbo_win"
+        PATH_TWIN[key][f"{phase}_{name}"] = \
+            out["turbo_win"][name]["max_abs_err"]
+        i += 1
+    for (k, h, w), c in sorted(shapes.get("viterbi37", {}).items()):
+        name = f"k{k}_halo{h}_words{w}"
+        out["viterbi37"][name] = {**vit_shape_time(k, h, w, seed + i),
+                                  "launches": c}
+        PATH_TWIN["viterbi37"][f"{phase}_{name}"] = \
+            out["viterbi37"][name]["mismatched_bits"]
+        i += 1
+    return out
+
+
+def turbo_checks(shapes: dict) -> dict:
+    """Each turbo kernel held to its twin exactly at every shape a path
+    launched it (``hold_shapes``)."""
+    return {"turbo_twin_exact_every_shape": all(
+        v["max_abs_err"] == 0.0 for name in ("turbo_nii", "turbo_win")
+        for v in shapes.get(name, {}).values())}
 
 
 def ms_stats(v) -> dict:
@@ -1620,20 +1846,20 @@ def stack_run(phase: str, enb, ue, air, max_tti: int, step, seed: int):
         n = tti + 1
         if step(tti):
             break
-    launches, nii_shapes, vit_shapes = read_counts(mods)
+    launches, shapes = read_counts(mods)
     peak = torch.cuda.max_memory_allocated() / 1e9
     return dict(ttis=n, ms_enb_tti=ms_stats(ms_enb), ms_ue_tti=ms_stats(ms_ue),
                 launches=launches, peak_mem_gb=peak,
-                shapes=hold_shapes(phase, nii_shapes, vit_shapes, seed))
+                shapes=hold_shapes(phase, shapes, seed))
 
 
 def shape_checks(shapes: dict, launches: dict) -> dict:
     """Both on-path kernels launched at a non-empty set of shapes
-    (``hold_shapes``), each held to its twin exactly (0.0 error, 0
-    bits)."""
+    (``hold_shapes``; the NII kernel in either dtype), each held to its
+    twin exactly (0.0 error, 0 bits)."""
     nii, vit = shapes["turbo_nii"], shapes["viterbi37"]
     return {"turbo_launched_shapes": bool(nii)
-            and launches["turbo_nii"] > 0,
+            and launches["turbo_nii"] + launches["turbo_nii_bf16"] > 0,
             "viterbi_launched_shapes": bool(vit)
             and launches["viterbi37"] > 0,
             "nii_twin_exact_every_shape": all(v["max_abs_err"] == 0.0
@@ -1853,11 +2079,11 @@ def phase_app_pdsch():
     ms_gen = (time.perf_counter() - t0) * 1e3 / (10 * APP_FRAMES)
     samples = np.fromfile(cap, np.complex64)
     run = pdsch_ue.receive(samples, APP_PRB, APP_RNTI, 10 * APP_FRAMES)
-    launches, nii_shapes, vit_shapes = read_counts(mods)
+    launches, shapes_run = read_counts(mods)
     peak = torch.cuda.max_memory_allocated() / 1e9
     rc_ue = pdsch_ue.main(["-i", str(cap), "-p", str(APP_PRB), "-r",
                            hex(APP_RNTI), "-n", str(10 * APP_FRAMES)])
-    shapes = hold_shapes("app_pdsch", nii_shapes, vit_shapes, seed=110)
+    shapes = hold_shapes("app_pdsch", shapes_run, seed=110)
     sf_len = 30720
     checks = {"enodeb_rc0": rc_enb == 0, "pdsch_ue_rc0": rc_ue == 0,
               "capture_size": samples.size == 10 * APP_FRAMES * sf_len,
@@ -1925,9 +2151,9 @@ def phase_app_stream(ref_run):
         APP_CELL)
     rc_meas = cell_measurement.main(["-i", str(cap2), "-p", str(APP_PRB)])
     run = pdsch_ue.receive(samples, APP_PRB, APP_RNTI, n_sf)
-    launches, nii_shapes, vit_shapes = read_counts(mods)
+    launches, shapes_run = read_counts(mods)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    shapes = hold_shapes("app_stream", nii_shapes, vit_shapes, seed=120)
+    shapes = hold_shapes("app_stream", shapes_run, seed=120)
     _, tbs, _ = pdsch_enodeb.grant(APP_PRB, APP_MCS)
     lib = stream.load_native()
     def db(m):
@@ -1994,10 +2220,10 @@ def phase_app_cell_search():
     found20 = cell_search.search(np.fromfile(cap20, np.complex64), APP_PRB)
     torch.cuda.synchronize()
     ms_search20 = (time.perf_counter() - t0) * 1e3
-    launches, nii_shapes, vit_shapes = read_counts(mods)
+    launches, shapes_run = read_counts(mods)
     peak = torch.cuda.max_memory_allocated() / 1e9
     rc_srch = cell_search.main(["-i", str(cap6), "-p", "6"])
-    shapes = hold_shapes("app_cell_search", nii_shapes, vit_shapes, seed=130)
+    shapes = hold_shapes("app_cell_search", shapes_run, seed=130)
     want_mib = dict(nof_prb=6, phich_dur=0, phich_res=1, sfn_msb=0,
                     sfn_mod4=0, nof_ports=1)
     checks = {"enodeb_rc0": rc_enb == 0, "cell_search_rc0": rc_srch == 0,
@@ -2007,11 +2233,12 @@ def phase_app_cell_search():
               "cell_id_20mhz": found20["cell_id"] == APP_CELL,
               "no_mib_at_20mhz": found20["mib"] is None,
               "pbch_k40_launched": any(
-                  k == PBCH_K for k, _h, _w in vit_shapes),
+                  k == PBCH_K for k, _h, _w in shapes_run["viterbi37"]),
               "viterbi_twin_exact_every_shape": all(
                   v["mismatched_bits"] == 0
                   for v in shapes["viterbi37"].values()),
-              "turbo_not_launched": launches["turbo_nii"] == 0}
+              "turbo_not_launched": launches["turbo_nii"]
+              + launches["turbo_nii_bf16"] == 0}
     line = {"phase": "app_cell_search", "found_6prb": found,
             "found_20mhz": found20, "ms_cell_search_6prb": ms_search6,
             "ms_cell_search_20mhz": ms_search20, "launches": launches,
@@ -2021,6 +2248,123 @@ def phase_app_cell_search():
         path.unlink()
     check("app_cell_search", checks)
     return line
+
+
+def float32_plan(plan):
+    """``plan`` (a ``DlschPlan``) with its turbo decoders pinned to
+    ``TurboDecoder.dtype = "float32"``, through a subclass defined here:
+    the port's plans gain no field."""
+    import dataclasses
+
+    from empower_srslte_tpu_torch.models.sch import DlschPlan
+
+    class Float32Plan(DlschPlan):
+        def decoder(self, k):
+            return dataclasses.replace(super().decoder(k), dtype="float32")
+
+    return Float32Plan(**{f.name: getattr(plan, f.name)
+                          for f in dataclasses.fields(plan)})
+
+
+def phase_precision_pair():
+    """``main_path``'s and ``uplink_path``'s stimulus through their
+    receivers with the turbo decoders pinned to float32 and at the default
+    ``"auto"`` (bfloat16 there), in turns (float32, auto, auto, float32),
+    each a counted run: ms per batch, Mbps, peak memory and launches per
+    precision. Both precisions must decode every TB and UCI field; each
+    launches only its own kernels. No gain is claimed either way."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
+    from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
+    from empower_srslte_tpu_torch.models.ue_ul import ul_uci_stimulus
+
+    dl = tm4_stimulus(BATCH, device="cuda")
+    ul = ul_uci_stimulus(BATCH, UL_N0, device="cuda")
+    ul32 = copy.copy(ul.plan)
+    ul32.data_plan = float32_plan(ul.plan.data_plan)
+    plans = {"main_path": {"float32": float32_plan(dl.plan),
+                           "auto": dl.plan},
+             "uplink_path": {"float32": ul32, "auto": ul.plan}}
+    kernel = {"main_path": "turbo_nii", "uplink_path": "turbo_win"}
+
+    def run(path, prec):
+        if path == "main_path":
+            return ue_dl_tm4_batch(dl.samples, dl.cfg, plans[path][prec])
+        return run_uplink(dataclasses.replace(ul, plan=plans[path][prec]),
+                          UL_N0)[0]
+
+    def ok(path, out) -> bool:
+        if path == "main_path":
+            return bool(all(o.all() for o in out.crc_ok)
+                        and torch.equal(out.tb_bits[0], dl.tb)
+                        and torch.equal(out.tb_bits[1], dl.tb2))
+        return bool(out["crc_ok"].all() and torch.equal(out["tb"], ul.tb)
+                    and not any(uci_errors(out, ul.plan).values()))
+
+    line, checks = {"phase": "precision_pair", "batch": BATCH,
+                    "order": ["float32", "auto", "auto", "float32"]}, {}
+    for path, st in (("main_path", dl), ("uplink_path", ul)):
+        tbs = st.plan.tbs * (2 if path == "main_path" else 1)
+        per = {p: {"ms_runs": [], "peak_runs": []}
+               for p in ("float32", "auto")}
+        for prec in line["order"]:
+            out, launches, _ms_first, ms, peak, _ = counted_run(
+                lambda: run(path, prec))
+            per[prec]["ms_runs"].append(ms)
+            per[prec]["peak_runs"].append(peak)
+            per[prec]["launches"] = launches
+            checks[f"{path}_{prec}_decodes"] = ok(path, out)
+        for prec, v in per.items():
+            ms = sum(v["ms_runs"]) / 2
+            v.update(ms_per_batch=ms,
+                     mbps=BATCH * tbs / (ms * 1e-3) / 1e6,
+                     peak_mem_gb=max(v["peak_runs"]))
+        k = kernel[path]
+        checks[f"{path}_float32_only_f32_kernel"] = (
+            per["float32"]["launches"][k] > 0
+            and per["float32"]["launches"][k + "_bf16"] == 0)
+        checks[f"{path}_auto_only_bf16_kernel"] = (
+            per["auto"]["launches"][k + "_bf16"] > 0
+            and per["auto"]["launches"][k] == 0)
+        line[path] = per
+    emit({**line, "checks": checks})
+    check("precision_pair", checks)
+    return {path: {p: line[path][p]["launches"] for p in ("float32", "auto")}
+            for path in ("main_path", "uplink_path")}
+
+
+def phase_bler_gate():
+    """The port's BLER sweep tool (``tools/bler_sweep.py``) on the card:
+    K 1024, 6 iterations, window 128, both kernel decoders at float32 and
+    bfloat16, float32 and int8 LLRs, ``BLER_CBS`` code blocks per point on
+    the JAX tool's grid plus 0.1 dB steps from 0.6 to 1.4 dB. Fails
+    unless ``bler_sweep.gate`` holds: each bfloat16 curve within 0.1 dB of
+    its float32 curve (3 sigma, binomial), every curve <= 0.378 (srsLTE's
+    decoder) at 1.0 dB and <= 0.05 at 1.2 dB. The kernels are held to their
+    twins at every shape the sweep launched."""
+    import torch
+
+    from empower_srslte_tpu_torch.tools import bler_sweep
+
+    t0 = time.perf_counter()
+    res, launches, shapes = counted(
+        lambda: bler_sweep.sweep(cbs=BLER_CBS, device="cuda"))
+    seconds = time.perf_counter() - t0
+    verdict = bler_sweep.gate(res)
+    twin = hold_shapes("bler_gate", turbo_shapes(shapes), seed=60)
+    checks = {**verdict["checks"], **turbo_checks(twin),
+              "every_kernel_launched": all(
+                  launches[n] > 0 for n in ("turbo_nii", "turbo_nii_bf16",
+                                            "turbo_win", "turbo_win_bf16"))}
+    emit({"phase": "bler_gate", "seconds": seconds, **res,
+          "gate": verdict, "launches": launches, "turbo_shapes": twin,
+          "device_name": torch.cuda.get_device_name(0), "checks": checks})
+    check("bler_gate", checks)
+    return launches, twin
 
 
 def n_candidates() -> int:
@@ -2056,7 +2400,7 @@ def main() -> int:
     (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
     phase_device()
     phase_build()
-    turbo = turbo_kernel_check()
+    turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
         "kernel_viterbi", [(55, words), (44, words), (PBCH_K, 4 * BATCH)],
@@ -2066,21 +2410,22 @@ def main() -> int:
                (256, 512, TRAIN_LEN, "noisy"), (55, 512, None, "noisy"),
                (256, 256, None, "noisy"), (55, 512, TRAIN_LEN, "ints"),
                (20, 512, None, "ints")])
-    win = turbo_win_kernel_check()
-    rec_launches, rec = recursion_kernel_check()
-    launches = phase_main_path()
-    ul_launches, vit_ul = phase_uplink()
+    win, win16 = turbo_win_kernel_check()
+    rec_launches, rec, rates = recursion_kernel_check()
+    probe_bf16 = next(r["tops"] for r in rates if r["type"] == "bf16")
+    launches, main_shapes = phase_main_path()
+    ul_launches, vit_ul, ul_shapes = phase_uplink()
     phase_uplink_midsnr()
-    tm2 = phase_tm2()
-    tm3 = phase_tm3()
-    frame = phase_ue_dl_frame()
-    ul8 = phase_uplink_int8()
-    msg3, msg3_nii = phase_uplink_msg3()
-    cold = phase_cold_boot()
+    tm2, tm2_shapes = phase_tm2()
+    tm3, tm3_shapes = phase_tm3()
+    frame, frame_shapes = phase_ue_dl_frame()
+    ul8, ul8_shapes = phase_uplink_int8()
+    msg3, msg3_shapes = phase_uplink_msg3()
+    cold, cold_shapes = phase_cold_boot()
     pbch = phase_pbch_batch()
     phase_ul_control()
     phase_prach()
-    pmch_launches, pmch_nii = phase_pmch()
+    pmch_launches, pmch_shapes = phase_pmch()
     phase_turbo_xla()
     stack = {"stack_attach": phase_stack_attach(),
              "stack_tm4": phase_stack_tm4(),
@@ -2089,32 +2434,59 @@ def main() -> int:
     apps = {"app_pdsch": app_pdsch,
             "app_stream": phase_app_stream(app_run),
             "app_cell_search": phase_app_cell_search()}
+    pair = phase_precision_pair()
+    gate_launches, gate_shapes = phase_bler_gate()
     shaped = {**stack, **apps}
-    # every path geometry was asserted exact in its phase; fold it in
-    turbo["max_abs_err"] = max([turbo["max_abs_err"],
-                                *PATH_TWIN["turbo_nii"].values()])
     by_path = {"main_path": launches, "uplink_path": ul_launches, **tm2,
                "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
                "uplink_msg3": msg3,
                "cold_boot": cold, "pbch_batch": pbch,
                "pmch_path": pmch_launches,
-               **{k: v["launches"] for k, v in shaped.items()}}
+               **{k: v["launches"] for k, v in shaped.items()},
+               **{f"precision_pair_{path}_{prec}": v
+                  for path, by in pair.items() for prec, v in by.items()},
+               "bler_gate": gate_launches}
+    path_shapes = {"main_path": main_shapes, "uplink_path": ul_shapes,
+                   **tm2_shapes, "tm3_path": tm3_shapes,
+                   "ue_dl_frame": frame_shapes, "uplink_int8": ul8_shapes,
+                   "uplink_msg3": msg3_shapes, "cold_boot": cold_shapes,
+                   "pmch_path": pmch_shapes, "bler_gate": gate_shapes,
+                   **{k: v["shapes"] for k, v in shaped.items()}}
 
     def per_path(name):
         return {k: v[name] for k, v in by_path.items() if v.get(name)}
 
+    def turbo_entry(name, module, entry, main_launches):
+        """A turbo kernel's entry: its launches on its main path, per
+        path, its shapes per path (the dtype's only), every path
+        geometry's error folded into ``max_abs_err``."""
+        dt = "bfloat16" if name.endswith("bf16") else "float32"
+        shapes = {p: {n: v for n, v in sh.get(module, {}).items()
+                      if v["dtype"] == dt}
+                  for p, sh in path_shapes.items()}
+        return {"name": name, "route": "cuda",
+                "source": f"empower_srslte_tpu_torch/csrc/{module}.cu",
+                "replaces": REPLACES[module], "dtype": dt,
+                "launches": main_launches,
+                "launches_by_path": per_path(name), **entry,
+                "max_abs_err": max([entry["max_abs_err"],
+                                    *PATH_TWIN[name].values()]),
+                "max_abs_err_by_path_geometry": PATH_TWIN[name],
+                "by_path_shape": {p: v for p, v in shapes.items() if v},
+                "ptxas": ptxas_of(module, "OpsBf16x2" if dt == "bfloat16"
+                                  else "OpsF32"),
+                **({"ops_rate": PEAK_BF16_OPS_PER_S,
+                    "probe_bf16_tops": probe_bf16}
+                   if dt == "bfloat16" else {}),
+                "library_ms": None}
+
     emit({"kernels": [
-        {"name": "turbo_nii", "route": "cuda",
-         "source": "empower_srslte_tpu_torch/csrc/turbo_nii.cu",
-         "replaces": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas2.py:220",
-         "launches": launches["turbo_nii"],
-         "launches_by_path": per_path("turbo_nii"), **turbo,
-         "max_abs_err_by_path_geometry": PATH_TWIN["turbo_nii"],
-         "by_path_shape": {"pmch_path": pmch_nii,
-                           "uplink_msg3": msg3_nii,
-                           **{k: v["shapes"]["turbo_nii"]
-                              for k, v in shaped.items()}},
-         "library_ms": None},
+        # the float32 kernels' path is precision_pair's float32 run (the
+        # main and uplink paths decode in bfloat16 by default)
+        turbo_entry("turbo_nii", "turbo_nii", turbo,
+                    pair["main_path"]["float32"]["turbo_nii"]),
+        turbo_entry("turbo_nii_bf16", "turbo_nii", turbo16,
+                    launches["turbo_nii_bf16"]),
         {"name": "viterbi37", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/viterbi37.cu",
          "replaces": "empower_srslte_tpu/ops/fec/viterbi_pallas.py:146",
@@ -2125,12 +2497,10 @@ def main() -> int:
                            for k, v in shaped.items()},
          "library_ms": None,
          "uplink": {"launches": ul_launches["viterbi37"], **vit_ul}},
-        {"name": "turbo_win", "route": "cuda",
-         "source": "empower_srslte_tpu_torch/csrc/turbo_win.cu",
-         "replaces": "empower_srslte_tpu/ops/fec/turbo_decoder_pallas.py:196",
-         "launches": ul_launches["turbo_win"],
-         "launches_by_path": per_path("turbo_win"), **win,
-         "library_ms": None},
+        turbo_entry("turbo_win", "turbo_win", win,
+                    pair["uplink_path"]["float32"]["turbo_win"]),
+        turbo_entry("turbo_win_bf16", "turbo_win", win16,
+                    ul_launches["turbo_win_bf16"]),
         {"name": "recursion_probe", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",
          "replaces": "tools/microbench_vpu.py:55",

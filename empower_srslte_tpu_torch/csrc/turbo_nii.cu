@@ -56,7 +56,27 @@
 //
 // Built with --fmad=false: every product here is by 0.5 (exact), so FMA
 // contraction would not change results, but the flag keeps it certain.
+//
+// bfloat16 (nii_kernel<OpsBf16x2, ...>, launcher turbo_nii_launch_bf16).
+// The JAX kernel takes its dtype from its input, and its decoder feeds it
+// bfloat16 by default (turbo_decoder.py:453); every add, subtraction,
+// max and halving then rounds to bfloat16. Here one thread decodes two
+// neighbouring code blocks packed in one bf16x2 register: the [K, B]
+// bfloat16 arrays are read as [K, B/2] bf16x2 pairs (B even; the wrapper
+// pads an odd batch with one column), code block 2j in the low half, so a
+// warp covers 64 code blocks and a trellis row is still one 128-byte line
+// per warp. The same template runs with add/sub/mul.rn.bf16x2 and
+// max/neg.bf16x2 in place of the float ops: one rounding per operation,
+// no FMA, no float intermediate, in the JAX kernel's order (a-priori add
+// at staging, (u+p)*0.5 and (u-p)*0.5, branch sums then the beta add,
+// (tot0 - tot1) - u as two roundings, renormalization as v - max). The 8
+// metrics are 8 registers, a checkpoint is 32 bytes and a staged value 4,
+// as in float32, so a block needs the same shared memory for twice the
+// code blocks, and a launch half the blocks. The boundary metric is
+// bf16(-1e30), which g cannot move: bf16(-1e30) + g == bf16(-1e30) in the
+// tail walk and the exact initial alpha, as in the JAX kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +85,67 @@
 #define SEG 16
 // slots of the input ring
 #define NSLOT 2
+
+// The metric arithmetic: float32, or two bfloat16 code blocks per register
+// with every operation rounded to nearest even (sm_90 add/sub/mul.rn).
+struct OpsF32 {
+  typedef float T;
+  static __device__ __forceinline__ T add(T a, T b) { return a + b; }
+  static __device__ __forceinline__ T sub(T a, T b) { return a - b; }
+  static __device__ __forceinline__ T max(T a, T b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ T neg(T a) { return -a; }
+  static __device__ __forceinline__ T half(T a) { return a * 0.5f; }
+  static __device__ __forceinline__ T lit(float x) { return x; }
+  // the 4 bytes of a metric as a float (for 16-byte shared stores)
+  static __device__ __forceinline__ float pack(T a) { return a; }
+  static __device__ __forceinline__ T unpack(float a) { return a; }
+};
+
+struct OpsBf16x2 {
+  typedef __nv_bfloat162 T;
+  static __device__ __forceinline__ unsigned bits(T a) {
+    return *reinterpret_cast<unsigned*>(&a);
+  }
+  static __device__ __forceinline__ T of(unsigned v) {
+    return *reinterpret_cast<T*>(&v);
+  }
+  static __device__ __forceinline__ T add(T a, T b) {
+    unsigned d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T sub(T a, T b) {
+    unsigned d;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T max(T a, T b) {
+    unsigned d;
+    asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T neg(T a) {
+    unsigned d;
+    asm("neg.bf16x2 %0, %1;" : "=r"(d) : "r"(bits(a)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T half(T a) {
+    unsigned d;
+    // 0x3f00 is bfloat16 0.5 in both halves
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)),
+        "r"(0x3f003f00u));
+    return of(d);
+  }
+  static __device__ __forceinline__ T lit(float x) {
+    return __float2bfloat162_rn(x);
+  }
+  static __device__ __forceinline__ float pack(T a) {
+    return __uint_as_float(bits(a));
+  }
+  static __device__ __forceinline__ T unpack(float a) {
+    return of(__float_as_uint(a));
+  }
+};
 
 // LTE RSC trellis, state s = (r1 << 2) | (r2 << 1) | r3
 // (empower_srslte_tpu_torch/ops/fec/turbo_encoder.py TurboTrellis).
@@ -86,42 +167,70 @@ __device__ __forceinline__ int tr_ps(int sp, int u) {
 }
 
 // branch metric g(u, parity): g00, g01, -g01, -g00
-__device__ __forceinline__ float gsel(float g00, float g01, int u, int par) {
-  return u == 0 ? (par == 0 ? g00 : g01) : (par == 0 ? -g01 : -g00);
+template <class Op>
+__device__ __forceinline__ typename Op::T gsel(typename Op::T g00,
+                                               typename Op::T g01, int u,
+                                               int par) {
+  return u == 0 ? (par == 0 ? g00 : g01)
+                : (par == 0 ? Op::neg(g01) : Op::neg(g00));
 }
 
-__device__ __forceinline__ void norm8(float* v) {
-  float m = v[0];
+template <class Op>
+__device__ __forceinline__ void norm8(typename Op::T* v) {
+  typename Op::T m = v[0];
 #pragma unroll
-  for (int s = 1; s < 8; ++s) m = fmaxf(m, v[s]);
+  for (int s = 1; s < 8; ++s) m = Op::max(m, v[s]);
 #pragma unroll
-  for (int s = 0; s < 8; ++s) v[s] = v[s] - m;
+  for (int s = 0; s < 8; ++s) v[s] = Op::sub(v[s], m);
 }
 
-__device__ __forceinline__ void beta_step(float* beta, float g00, float g01) {
-  float nb[8];
+template <class Op>
+__device__ __forceinline__ void beta_step(typename Op::T* beta,
+                                          typename Op::T g00,
+                                          typename Op::T g01) {
+  typename Op::T nb[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    float c0 = beta[tr_ns(s, 0)] + gsel(g00, g01, 0, tr_par(s, 0));
-    float c1 = beta[tr_ns(s, 1)] + gsel(g00, g01, 1, tr_par(s, 1));
-    nb[s] = fmaxf(c0, c1);
+    typename Op::T c0 =
+        Op::add(beta[tr_ns(s, 0)], gsel<Op>(g00, g01, 0, tr_par(s, 0)));
+    typename Op::T c1 =
+        Op::add(beta[tr_ns(s, 1)], gsel<Op>(g00, g01, 1, tr_par(s, 1)));
+    nb[s] = Op::max(c0, c1);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) beta[s] = nb[s];
 }
 
-// 8 metrics <-> two float4 of a [n][2][T] shared array (thread fastest)
-__device__ __forceinline__ void put8(float4* dst, int T, const float* v) {
-  dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-  dst[T] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void get8(const float4* src, int T, float* v) {
-  const float4 a = src[0], c = src[T];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+// (u + p) * 0.5 and (u - p) * 0.5
+template <class Op>
+__device__ __forceinline__ void gammas(typename Op::T uu, typename Op::T pp,
+                                       typename Op::T* g00,
+                                       typename Op::T* g01) {
+  *g00 = Op::half(Op::add(uu, pp));
+  *g01 = Op::half(Op::sub(uu, pp));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+// 8 metrics <-> two float4 of a [n][2][T] shared array (thread fastest);
+// a metric is 4 bytes in both types
+template <class Op>
+__device__ __forceinline__ void put8(float4* dst, int T,
+                                     const typename Op::T* v) {
+  dst[0] = make_float4(Op::pack(v[0]), Op::pack(v[1]), Op::pack(v[2]),
+                       Op::pack(v[3]));
+  dst[T] = make_float4(Op::pack(v[4]), Op::pack(v[5]), Op::pack(v[6]),
+                       Op::pack(v[7]));
+}
+template <class Op>
+__device__ __forceinline__ void get8(const float4* src, int T,
+                                     typename Op::T* v) {
+  const float4 a = src[0], c = src[T];
+  v[0] = Op::unpack(a.x); v[1] = Op::unpack(a.y);
+  v[2] = Op::unpack(a.z); v[3] = Op::unpack(a.w);
+  v[4] = Op::unpack(c.x); v[5] = Op::unpack(c.y);
+  v[6] = Op::unpack(c.z); v[7] = Op::unpack(c.w);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src)
@@ -136,78 +245,88 @@ __device__ __forceinline__ void cp_async_wait_ring() {
 }
 
 // staged row i of a slot: uu = u (+ apr), pp = p
-template <bool APR>
-__device__ __forceinline__ void stage_row(const float* s, int i, int T,
-                                          float* uu, float* pp) {
+template <class Op, bool APR>
+__device__ __forceinline__ void stage_row(const typename Op::T* s, int i,
+                                          int T, typename Op::T* uu,
+                                          typename Op::T* pp) {
   constexpr int NIN = APR ? 3 : 2;
-  const float* q = s + (size_t)i * NIN * T;
-  float x = q[0];
-  if (APR) x = x + q[2 * T];
+  const typename Op::T* q = s + (size_t)i * NIN * T;
+  typename Op::T x = q[0];
+  if (APR) x = Op::add(x, q[2 * T]);
   *uu = x;
   *pp = q[T];
 }
 
 // N backward steps over a staged segment, rows N-1 .. 0; with STORE the
 // carry entering each row goes to the segment buffer
-template <bool APR, int N, bool STORE>
-__device__ __forceinline__ void seg_backward(float* beta, const float* s,
-                                             float (*bk)[8], int T) {
+template <class Op, bool APR, int N, bool STORE>
+__device__ __forceinline__ void seg_backward(typename Op::T* beta,
+                                             const typename Op::T* s,
+                                             typename Op::T (*bk)[8],
+                                             int T) {
 #pragma unroll
   for (int i = N - 1; i >= 0; --i) {
-    float uu, pp;
-    stage_row<APR>(s, i, T, &uu, &pp);
+    typename Op::T uu, pp, g00, g01;
+    stage_row<Op, APR>(s, i, T, &uu, &pp);
     if (STORE) {
 #pragma unroll
       for (int m = 0; m < 8; ++m) bk[i][m] = beta[m];
     }
-    beta_step(beta, (uu + pp) * 0.5f, (uu - pp) * 0.5f);
+    gammas<Op>(uu, pp, &g00, &g01);
+    beta_step<Op>(beta, g00, g01);
   }
 }
 
 // N forward steps over a staged segment starting at window row r0:
 // alpha recursion and the extrinsic emission
-template <bool APR, int N>
-__device__ __forceinline__ void seg_forward(float* alpha, const float* s,
-                                            const float (*bk)[8], int T,
-                                            float* ext_col, int B, int r0,
-                                            int l) {
+template <class Op, bool APR, int N>
+__device__ __forceinline__ void seg_forward(typename Op::T* alpha,
+                                            const typename Op::T* s,
+                                            const typename Op::T (*bk)[8],
+                                            int T, typename Op::T* ext_col,
+                                            int B, int r0, int l) {
+  typedef typename Op::T V;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    float uu, pp;
-    stage_row<APR>(s, i, T, &uu, &pp);
-    const float g00 = (uu + pp) * 0.5f;
-    const float g01 = (uu - pp) * 0.5f;
-    const float* bk1 = bk[i];
-    float br0[8], br1[8];
+    V uu, pp, g00, g01;
+    stage_row<Op, APR>(s, i, T, &uu, &pp);
+    gammas<Op>(uu, pp, &g00, &g01);
+    const V* bk1 = bk[i];
+    V br0[8], br1[8];
 #pragma unroll
     for (int st = 0; st < 8; ++st) {
-      br0[st] = alpha[st] + gsel(g00, g01, 0, tr_par(st, 0));
-      br1[st] = alpha[st] + gsel(g00, g01, 1, tr_par(st, 1));
+      br0[st] = Op::add(alpha[st], gsel<Op>(g00, g01, 0, tr_par(st, 0)));
+      br1[st] = Op::add(alpha[st], gsel<Op>(g00, g01, 1, tr_par(st, 1)));
     }
-    float tot0 = br0[0] + bk1[tr_ns(0, 0)];
-    float tot1 = br1[0] + bk1[tr_ns(0, 1)];
+    V tot0 = Op::add(br0[0], bk1[tr_ns(0, 0)]);
+    V tot1 = Op::add(br1[0], bk1[tr_ns(0, 1)]);
 #pragma unroll
     for (int st = 1; st < 8; ++st) {
-      tot0 = fmaxf(tot0, br0[st] + bk1[tr_ns(st, 0)]);
-      tot1 = fmaxf(tot1, br1[st] + bk1[tr_ns(st, 1)]);
+      tot0 = Op::max(tot0, Op::add(br0[st], bk1[tr_ns(st, 0)]));
+      tot1 = Op::max(tot1, Op::add(br1[st], bk1[tr_ns(st, 1)]));
     }
-    ext_col[(size_t)i * B] = (tot0 - tot1) - uu;
+    ext_col[(size_t)i * B] = Op::sub(Op::sub(tot0, tot1), uu);
 #pragma unroll
     for (int st = 0; st < 8; ++st)
-      alpha[st] = fmaxf(br0[tr_ps(st, 0)], br1[tr_ps(st, 1)]);
+      alpha[st] = Op::max(br0[tr_ps(st, 0)], br1[tr_ps(st, 1)]);
     const int r = r0 + i;
-    if ((r & 15) == 15 || r == l - 1) norm8(alpha);
+    if ((r & 15) == 15 || r == l - 1) norm8<Op>(alpha);
   }
 }
 
-template <bool APR>
+// B: columns of the [K, B] arrays in units of Op::T (code blocks in
+// float32, code block pairs in bf16x2)
+template <class Op, bool APR>
 __global__ void __launch_bounds__(32) nii_kernel(
-    const float* __restrict__ u, const float* __restrict__ p,
-    const float* __restrict__ apr, const float* __restrict__ tail_u,
-    const float* __restrict__ tail_p, const float* __restrict__ a_st,
-    const float* __restrict__ b_st, float* __restrict__ ext,
-    float* __restrict__ a_next, float* __restrict__ b_next, int B, int l,
-    int W, int first_w, int last_w) {
+    const typename Op::T* __restrict__ u, const typename Op::T* __restrict__ p,
+    const typename Op::T* __restrict__ apr,
+    const typename Op::T* __restrict__ tail_u,
+    const typename Op::T* __restrict__ tail_p,
+    const typename Op::T* __restrict__ a_st,
+    const typename Op::T* __restrict__ b_st, typename Op::T* __restrict__ ext,
+    typename Op::T* __restrict__ a_next, typename Op::T* __restrict__ b_next,
+    int B, int l, int W, int first_w, int last_w) {
+  typedef typename Op::T V;
   constexpr int NIN = APR ? 3 : 2;
   extern __shared__ float4 smem[];
   const int T = blockDim.x, t = threadIdx.x;
@@ -216,9 +335,10 @@ __global__ void __launch_bounds__(32) nii_kernel(
   if (b >= B) return;
   const int nseg = (l + SEG - 1) / SEG;
   const int nunit = 2 * nseg - 1;
+  const V zero = Op::lit(0.0f), neg = Op::lit(NEG);
   float4* ck = smem + t;                                  // [nseg-1][2][T]
-  float* ring = reinterpret_cast<float*>(smem + (size_t)(nseg - 1) * 2 * T)
-                + t;                                 // [NSLOT][SEG][NIN][T]
+  V* ring = reinterpret_cast<V*>(smem + (size_t)(nseg - 1) * 2 * T)
+            + t;                                     // [NSLOT][SEG][NIN][T]
   const size_t row0 = (size_t)w * l;
 
   // unit v's segment: backward units walk nseg-1 .. 0, forward units
@@ -232,7 +352,7 @@ __global__ void __launch_bounds__(32) nii_kernel(
   auto load = [&](int v) {
     if (v < nunit) {
       const int r0 = seg_of(v) * SEG, n = min(SEG, l - r0);
-      float* d = slot(v);
+      V* d = slot(v);
       for (int i = 0; i < n; ++i, d += NIN * T) {
         const size_t g = (row0 + r0 + i) * B + b;
         cp_async4(d, u + g);
@@ -245,49 +365,50 @@ __global__ void __launch_bounds__(32) nii_kernel(
   for (int v = 0; v < NSLOT - 1; ++v) load(v);
 
   // ---- beta init: terminated tail walk, or the stored boundary ----
-  float beta[8];
+  V beta[8];
   if (w == last_w) {
 #pragma unroll
-    for (int s = 0; s < 8; ++s) beta[s] = s == 0 ? 0.0f : NEG;
+    for (int s = 0; s < 8; ++s) beta[s] = s == 0 ? zero : neg;
     for (int j = 2; j >= 0; --j) {
-      float uu = tail_u[(size_t)j * B + b];
-      float pp = tail_p[(size_t)j * B + b];
-      beta_step(beta, (uu + pp) * 0.5f, (uu - pp) * 0.5f);
+      V g00, g01;
+      gammas<Op>(tail_u[(size_t)j * B + b], tail_p[(size_t)j * B + b], &g00,
+                 &g01);
+      beta_step<Op>(beta, g00, g01);
     }
-    norm8(beta);
+    norm8<Op>(beta);
   } else {
 #pragma unroll
     for (int s = 0; s < 8; ++s)
       beta[s] = b_st[((size_t)(w + 1) * 8 + s) * B + b];
   }
 
-  float alpha[8], bk[SEG][8];
+  V alpha[8], bk[SEG][8];
   for (int v = 0; v < nunit; ++v) {
     load(v + NSLOT - 1);
     cp_async_wait_ring();
     const int j = seg_of(v);
     const int r0 = j * SEG;
     const bool full = l - r0 >= SEG;   // else the 8-row top segment
-    const float* s = slot(v);
+    const V* s = slot(v);
     if (v < nseg) {
       // ---- backward sweep over segment j (renorm after its row r0) ----
       if (j > 0) {
-        put8(ck + (size_t)(j - 1) * 2 * T, T, beta);
-        if (full) seg_backward<APR, SEG, false>(beta, s, bk, T);
-        else      seg_backward<APR, SEG / 2, false>(beta, s, bk, T);
-        norm8(beta);
+        put8<Op>(ck + (size_t)(j - 1) * 2 * T, T, beta);
+        if (full) seg_backward<Op, APR, SEG, false>(beta, s, bk, T);
+        else      seg_backward<Op, APR, SEG / 2, false>(beta, s, bk, T);
+        norm8<Op>(beta);
         continue;
       }
-      seg_backward<APR, SEG, true>(beta, s, bk, T);
-      norm8(beta);
+      seg_backward<Op, APR, SEG, true>(beta, s, bk, T);
+      norm8<Op>(beta);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         b_next[((size_t)w * 8 + q) * B + b] = beta[q];
-        if (w == W - 1) b_next[((size_t)W * 8 + q) * B + b] = 0.0f;
+        if (w == W - 1) b_next[((size_t)W * 8 + q) * B + b] = zero;
       }
       if (w == first_w) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) alpha[q] = q == 0 ? 0.0f : NEG;
+        for (int q = 0; q < 8; ++q) alpha[q] = q == 0 ? zero : neg;
       } else {
 #pragma unroll
         for (int q = 0; q < 8; ++q)
@@ -295,59 +416,91 @@ __global__ void __launch_bounds__(32) nii_kernel(
       }
     } else {
       // ---- recompute segment j's betas from its checkpoint ----
-      get8(ck + (size_t)(j - 1) * 2 * T, T, beta);
-      if (full) seg_backward<APR, SEG, true>(beta, s, bk, T);
-      else      seg_backward<APR, SEG / 2, true>(beta, s, bk, T);
+      get8<Op>(ck + (size_t)(j - 1) * 2 * T, T, beta);
+      if (full) seg_backward<Op, APR, SEG, true>(beta, s, bk, T);
+      else      seg_backward<Op, APR, SEG / 2, true>(beta, s, bk, T);
     }
     // ---- forward sweep + extrinsic emission over segment j ----
-    float* ext_col = ext + (row0 + r0) * B + b;
-    if (full) seg_forward<APR, SEG>(alpha, s, bk, T, ext_col, B, r0, l);
-    else      seg_forward<APR, SEG / 2>(alpha, s, bk, T, ext_col, B, r0, l);
+    V* ext_col = ext + (row0 + r0) * B + b;
+    if (full) seg_forward<Op, APR, SEG>(alpha, s, bk, T, ext_col, B, r0, l);
+    else      seg_forward<Op, APR, SEG / 2>(alpha, s, bk, T, ext_col, B, r0,
+                                            l);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
     a_next[((size_t)(w + 1) * 8 + s) * B + b] = alpha[s];
-    if (w == 0) a_next[(size_t)s * B + b] = 0.0f;
+    if (w == 0) a_next[(size_t)s * B + b] = zero;
   }
 }
 
-// shared bytes of a block (must equal ops/fec/turbo_nii.py nii_plan)
+// shared bytes of a block (must equal ops/fec/turbo_nii.py nii_plan): per
+// thread 32 B per checkpoint and 4 B per staged value, in both types
 static size_t nii_smem_bytes(int l, int threads, bool apr) {
   const int nseg = (l + SEG - 1) / SEG;
   return (size_t)threads * (32 * (size_t)(nseg - 1)
                             + 4 * (size_t)NSLOT * SEG * (apr ? 3 : 2));
 }
 
-extern "C" int turbo_nii_launch(const float* u, const float* p,
-                                const float* apr, const float* tail_u,
-                                const float* tail_p, const float* a_st,
-                                const float* b_st, float* ext, float* a_next,
-                                float* b_next, int B, int l, int W,
-                                int first_w, int last_w, int threads,
-                                int smem_bytes, void* stream) {
+// cols: columns of the arrays in units of Op::T
+template <class Op>
+static int nii_launch(const void* u, const void* p, const void* apr,
+                      const void* tail_u, const void* tail_p,
+                      const void* a_st, const void* b_st, void* ext,
+                      void* a_next, void* b_next, int cols, int l, int W,
+                      int first_w, int last_w, int threads, int smem_bytes,
+                      void* stream) {
+  typedef typename Op::T V;
   const bool has_apr = apr != nullptr;
   if (threads != 32 || l % 8 != 0 || l < SEG ||
       (size_t)smem_bytes != nii_smem_bytes(l, threads, has_apr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((B + threads - 1) / threads), (unsigned)W);
+  const dim3 grid((unsigned)((cols + threads - 1) / threads), (unsigned)W);
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
+#define NII_ARGS                                                          \
+  (const V*)u, (const V*)p, (const V*)apr, (const V*)tail_u,              \
+      (const V*)tail_p, (const V*)a_st, (const V*)b_st, (V*)ext,          \
+      (V*)a_next, (V*)b_next, cols, l, W, first_w, last_w
   if (has_apr) {
-    e = cudaFuncSetAttribute(nii_kernel<true>,
+    e = cudaFuncSetAttribute(nii_kernel<Op, true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    nii_kernel<true><<<grid, threads, smem_bytes, st>>>(
-        u, p, apr, tail_u, tail_p, a_st, b_st, ext, a_next, b_next, B, l, W,
-        first_w, last_w);
+    nii_kernel<Op, true><<<grid, threads, smem_bytes, st>>>(NII_ARGS);
   } else {
-    e = cudaFuncSetAttribute(nii_kernel<false>,
+    e = cudaFuncSetAttribute(nii_kernel<Op, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    nii_kernel<false><<<grid, threads, smem_bytes, st>>>(
-        u, p, apr, tail_u, tail_p, a_st, b_st, ext, a_next, b_next, B, l, W,
-        first_w, last_w);
+    nii_kernel<Op, false><<<grid, threads, smem_bytes, st>>>(NII_ARGS);
   }
+#undef NII_ARGS
   return (int)cudaGetLastError();
+}
+
+// float32: B code blocks, one per thread
+extern "C" int turbo_nii_launch(const void* u, const void* p, const void* apr,
+                                const void* tail_u, const void* tail_p,
+                                const void* a_st, const void* b_st, void* ext,
+                                void* a_next, void* b_next, int B, int l,
+                                int W, int first_w, int last_w, int threads,
+                                int smem_bytes, void* stream) {
+  return nii_launch<OpsF32>(u, p, apr, tail_u, tail_p, a_st, b_st, ext,
+                            a_next, b_next, B, l, W, first_w, last_w,
+                            threads, smem_bytes, stream);
+}
+
+// bfloat16: B code blocks (even), two per thread
+extern "C" int turbo_nii_launch_bf16(const void* u, const void* p,
+                                     const void* apr, const void* tail_u,
+                                     const void* tail_p, const void* a_st,
+                                     const void* b_st, void* ext,
+                                     void* a_next, void* b_next, int B, int l,
+                                     int W, int first_w, int last_w,
+                                     int threads, int smem_bytes,
+                                     void* stream) {
+  if (B % 2 != 0) return (int)cudaErrorInvalidValue;
+  return nii_launch<OpsBf16x2>(u, p, apr, tail_u, tail_p, a_st, b_st, ext,
+                               a_next, b_next, B / 2, l, W, first_w, last_w,
+                               threads, smem_bytes, stream);
 }

@@ -61,7 +61,23 @@
 // its 2O overlap rows once more, and moves the checkpoints: ~0.32 GB.
 //
 // Built with --fmad=false: every product here is by 0.5 (exact).
+//
+// bfloat16 (win_kernel<OpsBf16x2>, launcher turbo_win_launch_bf16). The
+// JAX v1 decoder feeds its kernel bfloat16 whenever it takes the kernel
+// path with dtype "auto" (turbo_decoder.py:531-533), and the kernel then
+// rounds every operation to bfloat16. Here one thread decodes two
+// neighbouring code blocks packed in one bf16x2 register (code block 2j
+// in the low half; B even, the wrapper pads an odd batch), so a warp
+// covers 64 code blocks and a trellis row is still one 128-byte line. The
+// same template runs add/sub/mul.rn.bf16x2 and max/neg.bf16x2: rows are
+// halved at load (one rounding, exact), gammas ls + lp and ls - lp, branch
+// sums alpha + g then + beta, one rounding per operation, no FMA. The
+// padding reads PAD_LLR rounded to bfloat16 (99,840, what the JAX
+// decoder's jnp.full(..., 1e5, bf16) holds) and 0; the boundary metric is
+// bf16(-1e30), which no g moves. The checkpoints are 8 bf16x2 values per
+// thread, so the wrapper's buffer holds half the bytes per code block.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +88,58 @@
 // slots of the input ring; a slot holds 8 rows x 4 values
 #define NSLOT 2
 #define SLOT_VALS 4
+
+// The metric arithmetic: float32, or two bfloat16 code blocks per register
+// with every operation rounded to nearest even (sm_90 add/sub/mul.rn).
+struct OpsF32 {
+  typedef float T;
+  static __device__ __forceinline__ T add(T a, T b) { return a + b; }
+  static __device__ __forceinline__ T sub(T a, T b) { return a - b; }
+  static __device__ __forceinline__ T max(T a, T b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ T neg(T a) { return -a; }
+  static __device__ __forceinline__ T half(T a) { return a * 0.5f; }
+  static __device__ __forceinline__ T lit(float x) { return x; }
+};
+
+struct OpsBf16x2 {
+  typedef __nv_bfloat162 T;
+  static __device__ __forceinline__ unsigned bits(T a) {
+    return *reinterpret_cast<unsigned*>(&a);
+  }
+  static __device__ __forceinline__ T of(unsigned v) {
+    return *reinterpret_cast<T*>(&v);
+  }
+  static __device__ __forceinline__ T add(T a, T b) {
+    unsigned d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T sub(T a, T b) {
+    unsigned d;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T max(T a, T b) {
+    unsigned d;
+    asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T neg(T a) {
+    unsigned d;
+    asm("neg.bf16x2 %0, %1;" : "=r"(d) : "r"(bits(a)));
+    return of(d);
+  }
+  static __device__ __forceinline__ T half(T a) {
+    unsigned d;
+    // 0x3f00 is bfloat16 0.5 in both halves
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bits(a)),
+        "r"(0x3f003f00u));
+    return of(d);
+  }
+  static __device__ __forceinline__ T lit(float x) {
+    return __float2bfloat162_rn(x);
+  }
+};
 
 // LTE RSC trellis, state s = (r1 << 2) | (r2 << 1) | r3
 // (empower_srslte_tpu_torch/ops/fec/turbo_encoder.py TurboTrellis).
@@ -93,44 +161,56 @@ __device__ __forceinline__ int tr_ps(int sp, int u) {
 }
 
 // branch metric g(u, parity): g00, g01, -g01, -g00
-__device__ __forceinline__ float gsel(float g00, float g01, int u, int par) {
-  return u == 0 ? (par == 0 ? g00 : g01) : (par == 0 ? -g01 : -g00);
+template <class Op>
+__device__ __forceinline__ typename Op::T gsel(typename Op::T g00,
+                                               typename Op::T g01, int u,
+                                               int par) {
+  return u == 0 ? (par == 0 ? g00 : g01)
+                : (par == 0 ? Op::neg(g01) : Op::neg(g00));
 }
 
-__device__ __forceinline__ void norm8(float* v) {
-  float m = v[0];
+template <class Op>
+__device__ __forceinline__ void norm8(typename Op::T* v) {
+  typename Op::T m = v[0];
 #pragma unroll
-  for (int s = 1; s < 8; ++s) m = fmaxf(m, v[s]);
+  for (int s = 1; s < 8; ++s) m = Op::max(m, v[s]);
 #pragma unroll
-  for (int s = 0; s < 8; ++s) v[s] = v[s] - m;
+  for (int s = 0; s < 8; ++s) v[s] = Op::sub(v[s], m);
 }
 
-__device__ __forceinline__ void beta_step(float* beta, float g00, float g01) {
-  float nb[8];
+template <class Op>
+__device__ __forceinline__ void beta_step(typename Op::T* beta,
+                                          typename Op::T g00,
+                                          typename Op::T g01) {
+  typename Op::T nb[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    float c0 = beta[tr_ns(s, 0)] + gsel(g00, g01, 0, tr_par(s, 0));
-    float c1 = beta[tr_ns(s, 1)] + gsel(g00, g01, 1, tr_par(s, 1));
-    nb[s] = fmaxf(c0, c1);
+    typename Op::T c0 =
+        Op::add(beta[tr_ns(s, 0)], gsel<Op>(g00, g01, 0, tr_par(s, 0)));
+    typename Op::T c1 =
+        Op::add(beta[tr_ns(s, 1)], gsel<Op>(g00, g01, 1, tr_par(s, 1)));
+    nb[s] = Op::max(c0, c1);
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s) beta[s] = nb[s];
 }
 
-__device__ __forceinline__ void alpha_step(float* alpha, float g00,
-                                           float g01) {
-  float br0[8], br1[8];
+template <class Op>
+__device__ __forceinline__ void alpha_step(typename Op::T* alpha,
+                                           typename Op::T g00,
+                                           typename Op::T g01) {
+  typename Op::T br0[8], br1[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    br0[s] = alpha[s] + gsel(g00, g01, 0, tr_par(s, 0));
-    br1[s] = alpha[s] + gsel(g00, g01, 1, tr_par(s, 1));
+    br0[s] = Op::add(alpha[s], gsel<Op>(g00, g01, 0, tr_par(s, 0)));
+    br1[s] = Op::add(alpha[s], gsel<Op>(g00, g01, 1, tr_par(s, 1)));
   }
 #pragma unroll
   for (int s = 0; s < 8; ++s)
-    alpha[s] = fmaxf(br0[tr_ps(s, 0)], br1[tr_ps(s, 1)]);
+    alpha[s] = Op::max(br0[tr_ps(s, 0)], br1[tr_ps(s, 1)]);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src)
@@ -146,15 +226,15 @@ __device__ __forceinline__ void cp_async_wait_ring() {
 
 // copy trellis rows t0 .. t0+7 of lsa, lp into values c, c+1 of a slot;
 // rows outside [0, rows) are padding and are not copied
-__device__ __forceinline__ void copy_tile(float* d, const float* lsa,
-                                          const float* lp, long long t0,
-                                          int rows, int B, int b, int c,
-                                          int T) {
+template <class V>
+__device__ __forceinline__ void copy_tile(V* d, const V* lsa, const V* lp,
+                                          long long t0, int rows, int B,
+                                          int b, int c, int T) {
 #pragma unroll
   for (int q = 0; q < GROUP; ++q) {
     const long long r = t0 + q;
     if (r >= 0 && r < rows) {
-      float* e = d + (size_t)(q * SLOT_VALS + c) * T;
+      V* e = d + (size_t)(q * SLOT_VALS + c) * T;
       cp_async4(e, lsa + (size_t)r * B + b);
       cp_async4(e + T, lp + (size_t)r * B + b);
     }
@@ -163,26 +243,32 @@ __device__ __forceinline__ void copy_tile(float* d, const float* lsa,
 
 // gammas of staged row q (trellis row r) from values c, c+1 of a slot:
 // halved at load, padding substituted by index
-__device__ __forceinline__ void gammas(const float* s, int q, int c,
+template <class Op>
+__device__ __forceinline__ void gammas(const typename Op::T* s, int q, int c,
                                        long long r, int rows, int T,
-                                       float* g00, float* g01) {
-  float ls, lq;
+                                       typename Op::T* g00,
+                                       typename Op::T* g01) {
+  typename Op::T ls, lq;
   if (r < 0 || r >= rows) {
-    ls = PAD_LLR;
-    lq = 0.0f;
+    ls = Op::lit(PAD_LLR);
+    lq = Op::lit(0.0f);
   } else {
-    const float* e = s + (size_t)(q * SLOT_VALS + c) * T;
-    ls = e[0] * 0.5f;
-    lq = e[T] * 0.5f;
+    const typename Op::T* e = s + (size_t)(q * SLOT_VALS + c) * T;
+    ls = Op::half(e[0]);
+    lq = Op::half(e[T]);
   }
-  *g00 = ls + lq;
-  *g01 = ls - lq;
+  *g00 = Op::add(ls, lq);
+  *g01 = Op::sub(ls, lq);
 }
 
+// B: columns of the [K+3, B] arrays in units of Op::T (code blocks in
+// float32, code block pairs in bf16x2)
+template <class Op>
 __global__ void __launch_bounds__(32) win_kernel(
-    const float* __restrict__ lsa, const float* __restrict__ lp,
-    float* __restrict__ llr, float* __restrict__ ckpt, int B, int K, int L,
-    int O) {
+    const typename Op::T* __restrict__ lsa,
+    const typename Op::T* __restrict__ lp, typename Op::T* __restrict__ llr,
+    typename Op::T* __restrict__ ckpt, int B, int K, int L, int O) {
+  typedef typename Op::T V;
   extern __shared__ float4 smem[];
   const int T = blockDim.x, t = threadIdx.x;
   const int b = blockIdx.x * T + t;
@@ -194,8 +280,9 @@ __global__ void __launch_bounds__(32) win_kernel(
   const int nA = O / GROUP, nB = L / GROUP;
   const int nunit = nA + 2 * nB - 1;
   const size_t nthr = (size_t)W * B;
-  float* ck = ckpt + (size_t)w * B + b;                  // [nB-1][8][W*B]
-  float* ring = reinterpret_cast<float*>(smem) + t;      // [NSLOT][8][4][T]
+  const V zero = Op::lit(0.0f), neg = Op::lit(NEG);
+  V* ck = ckpt + (size_t)w * B + b;                      // [nB-1][8][W*B]
+  V* ring = reinterpret_cast<V*>(smem) + t;              // [NSLOT][8][4][T]
 
   // unit v: v < nA trains (beta tile m = v from the top of the overlap
   // after the window, alpha tile m from the start of the overlap before
@@ -209,7 +296,7 @@ __global__ void __launch_bounds__(32) win_kernel(
   };
   auto load = [&](int v) {
     if (v < nunit) {
-      float* d = slot(v);
+      V* d = slot(v);
       if (v < nA) {
         copy_tile(d, lsa, lp, row0 + L + O - GROUP * (v + 1), rows, B, b, 0,
                   T);
@@ -223,17 +310,17 @@ __global__ void __launch_bounds__(32) win_kernel(
   for (int v = 0; v < NSLOT - 1; ++v) load(v);
 
   // bk: the segment's stored betas; nxt: the next segment's checkpoint
-  float beta[8], alpha[8], bk[GROUP][8], nxt[8];
+  V beta[8], alpha[8], bk[GROUP][8], nxt[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    beta[s] = (w == W - 1 && s != 0) ? NEG : 0.0f;
-    alpha[s] = (w == 0 && s != 0) ? NEG : 0.0f;
+    beta[s] = (w == W - 1 && s != 0) ? neg : zero;
+    alpha[s] = (w == 0 && s != 0) ? neg : zero;
   }
 
   for (int v = 0; v < nunit; ++v) {
     load(v + NSLOT - 1);
     cp_async_wait_ring();
-    const float* s = slot(v);
+    const V* s = slot(v);
     if (v < nA) {
       // ---- phase A: beta and alpha training, interleaved ----
       const long long tb = row0 + L + O - GROUP * (v + 1);
@@ -241,14 +328,14 @@ __global__ void __launch_bounds__(32) win_kernel(
 #pragma unroll
       for (int k = 0; k < GROUP; ++k) {
         const int q = GROUP - 1 - k;
-        float g00, g01, h00, h01;
-        gammas(s, q, 0, tb + q, rows, T, &g00, &g01);
-        gammas(s, k, 2, ta + k, rows, T, &h00, &h01);
-        beta_step(beta, g00, g01);
-        alpha_step(alpha, h00, h01);
+        V g00, g01, h00, h01;
+        gammas<Op>(s, q, 0, tb + q, rows, T, &g00, &g01);
+        gammas<Op>(s, k, 2, ta + k, rows, T, &h00, &h01);
+        beta_step<Op>(beta, g00, g01);
+        alpha_step<Op>(alpha, h00, h01);
       }
-      norm8(beta);
-      norm8(alpha);
+      norm8<Op>(beta);
+      norm8<Op>(alpha);
       continue;
     }
     const int j = seg_of(v);
@@ -262,15 +349,15 @@ __global__ void __launch_bounds__(32) win_kernel(
       }
 #pragma unroll
       for (int q = GROUP - 1; q >= 0; --q) {
-        float g00, g01;
-        gammas(s, q, 0, tr + q, rows, T, &g00, &g01);
+        V g00, g01;
+        gammas<Op>(s, q, 0, tr + q, rows, T, &g00, &g01);
         if (j == 0) {
 #pragma unroll
           for (int m = 0; m < 8; ++m) bk[q][m] = beta[m];
         }
-        beta_step(beta, g00, g01);
+        beta_step<Op>(beta, g00, g01);
       }
-      norm8(beta);
+      norm8<Op>(beta);
       if (j > 0) continue;
       if (nB > 1) {
 #pragma unroll
@@ -286,55 +373,76 @@ __global__ void __launch_bounds__(32) win_kernel(
       }
 #pragma unroll
       for (int q = GROUP - 1; q >= 0; --q) {
-        float g00, g01;
-        gammas(s, q, 0, tr + q, rows, T, &g00, &g01);
+        V g00, g01;
+        gammas<Op>(s, q, 0, tr + q, rows, T, &g00, &g01);
 #pragma unroll
         for (int m = 0; m < 8; ++m) bk[q][m] = beta[m];
-        beta_step(beta, g00, g01);
+        beta_step<Op>(beta, g00, g01);
       }
     }
     // ---- alpha sweep + emission over segment j (renorm after row 7) ----
 #pragma unroll
     for (int q = 0; q < GROUP; ++q) {
-      float g00, g01;
-      gammas(s, q, 0, tr + q, rows, T, &g00, &g01);
-      float br0[8], br1[8];
+      V g00, g01;
+      gammas<Op>(s, q, 0, tr + q, rows, T, &g00, &g01);
+      V br0[8], br1[8];
 #pragma unroll
       for (int m = 0; m < 8; ++m) {
-        br0[m] = alpha[m] + gsel(g00, g01, 0, tr_par(m, 0));
-        br1[m] = alpha[m] + gsel(g00, g01, 1, tr_par(m, 1));
+        br0[m] = Op::add(alpha[m], gsel<Op>(g00, g01, 0, tr_par(m, 0)));
+        br1[m] = Op::add(alpha[m], gsel<Op>(g00, g01, 1, tr_par(m, 1)));
       }
-      float tot0 = br0[0] + bk[q][tr_ns(0, 0)];
-      float tot1 = br1[0] + bk[q][tr_ns(0, 1)];
+      V tot0 = Op::add(br0[0], bk[q][tr_ns(0, 0)]);
+      V tot1 = Op::add(br1[0], bk[q][tr_ns(0, 1)]);
 #pragma unroll
       for (int m = 1; m < 8; ++m) {
-        tot0 = fmaxf(tot0, br0[m] + bk[q][tr_ns(m, 0)]);
-        tot1 = fmaxf(tot1, br1[m] + bk[q][tr_ns(m, 1)]);
+        tot0 = Op::max(tot0, Op::add(br0[m], bk[q][tr_ns(m, 0)]));
+        tot1 = Op::max(tot1, Op::add(br1[m], bk[q][tr_ns(m, 1)]));
       }
-      llr[(size_t)(tr + q) * B + b] = tot0 - tot1;
+      llr[(size_t)(tr + q) * B + b] = Op::sub(tot0, tot1);
 #pragma unroll
       for (int m = 0; m < 8; ++m)
-        alpha[m] = fmaxf(br0[tr_ps(m, 0)], br1[tr_ps(m, 1)]);
+        alpha[m] = Op::max(br0[tr_ps(m, 0)], br1[tr_ps(m, 1)]);
     }
-    norm8(alpha);
+    norm8<Op>(alpha);
   }
 }
 
-// shared bytes of a block (must equal ops/fec/turbo_win.py win_plan)
+// shared bytes of a block (must equal ops/fec/turbo_win.py win_plan): 4 B
+// per staged value in both types
 static size_t win_smem_bytes(int threads) {
   return (size_t)threads * 4 * NSLOT * GROUP * SLOT_VALS;
 }
 
-extern "C" int turbo_win_launch(const float* lsa, const float* lp,
-                                float* llr, float* ckpt, int B, int K, int L,
-                                int O, int threads, int smem_bytes,
-                                void* stream) {
+// cols: columns of the arrays in units of Op::T
+template <class Op>
+static int win_launch(const void* lsa, const void* lp, void* llr, void* ckpt,
+                      int cols, int K, int L, int O, int threads,
+                      int smem_bytes, void* stream) {
+  typedef typename Op::T V;
   if (threads != 32 || L % GROUP != 0 || O % GROUP != 0 || O > L ||
       K % L != 0 || (size_t)smem_bytes != win_smem_bytes(threads))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((B + threads - 1) / threads),
+  const dim3 grid((unsigned)((cols + threads - 1) / threads),
                   (unsigned)(K / L));
-  win_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      lsa, lp, llr, ckpt, B, K, L, O);
+  win_kernel<Op><<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const V*)lsa, (const V*)lp, (V*)llr, (V*)ckpt, cols, K, L, O);
   return (int)cudaGetLastError();
+}
+
+// float32: B code blocks, one per thread
+extern "C" int turbo_win_launch(const void* lsa, const void* lp, void* llr,
+                                void* ckpt, int B, int K, int L, int O,
+                                int threads, int smem_bytes, void* stream) {
+  return win_launch<OpsF32>(lsa, lp, llr, ckpt, B, K, L, O, threads,
+                            smem_bytes, stream);
+}
+
+// bfloat16: B code blocks (even), two per thread
+extern "C" int turbo_win_launch_bf16(const void* lsa, const void* lp,
+                                     void* llr, void* ckpt, int B, int K,
+                                     int L, int O, int threads,
+                                     int smem_bytes, void* stream) {
+  if (B % 2 != 0) return (int)cudaErrorInvalidValue;
+  return win_launch<OpsBf16x2>(lsa, lp, llr, ckpt, B / 2, K, L, O, threads,
+                               smem_bytes, stream);
 }

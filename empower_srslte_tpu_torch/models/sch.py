@@ -95,6 +95,26 @@ class DlschPlan:
                             window=_pick_window(k), impl=self.decoder_impl)
 
 
+def filler_prior(llrs: torch.Tensor, plan: DlschPlan):
+    """The known-zero LLR of the filler bits, or None for ``FILLER_LLR``.
+
+    A float32 decode keeps the fixed 1e4. A bfloat16 decode (the filler
+    code block's decoder resolves to bfloat16) takes the JAX package's
+    fused-path rule (empower_srslte_tpu/models/sch.py:592-613): 1e4 would
+    put a common offset of ~1e4 * F / 2 on the metrics inside each
+    16-row renormalization group, and its bfloat16 ulp would swamp the
+    real LLRs. The prior is ``c_f * mean|llrs|`` per codeword, in
+    float32, with ``c_f = min(8, 128 / F)``; on the int8 lane it stays
+    127 (``RateMatchTurbo.rx``). -> a float32 tensor over the leading
+    dims of ``llrs``, or None."""
+    k, _e, f, _off = plan.cb_plans[0]
+    if f == 0 or llrs.dtype == torch.int8 \
+            or plan.decoder(k).metric_dtype != torch.bfloat16:
+        return None
+    c_f = min(8.0, 128.0 / f)
+    return c_f * llrs.abs().to(torch.float32).mean(-1)
+
+
 def dlsch_encode(tb_bits: torch.Tensor, plan: DlschPlan) -> torch.Tensor:
     """Encode tb_bits[..., tbs] -> codeword bits [..., G] int8
     (encode_tb_off, sch.c:188-298)."""
@@ -136,12 +156,13 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
     per K, CB CRC checks, reassembly, TB CRC. ``iters_out`` (a list)
     receives each turbo call's iteration count. The three steps run in
     the profiler ranges ``dlsch.derm``, ``dlsch.turbo_decode`` and
-    ``dlsch.crc_reassembly``.
+    ``dlsch.crc_reassembly``. The filler bits' prior is ``filler_prior``.
     """
     segm = plan.segm
     stop_crc = (CRC24B if segm.c > 1 else CRC24A) if plan.early_stop else None
 
     with record_function("dlsch.derm"):
+        prior = filler_prior(llrs, plan)
         groups: dict = {}
         for idx, (k, e, f, off) in enumerate(plan.cb_plans):
             groups.setdefault((k, e, f), []).append((idx, off))
@@ -153,7 +174,8 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
             sb = (torch.stack([softbuffers[idx] for idx, _ in members],
                               dim=-2)
                   if softbuffers is not None else None)
-            d_llr, ns = plan.rm(k, f).rx(seg, plan.rv, softbuffer=sb)
+            d_llr, ns = plan.rm(k, f).rx(seg, plan.rv, softbuffer=sb,
+                                         filler=prior)
             derm.setdefault(k, []).append((f, members, d_llr, ns))
 
     with record_function("dlsch.turbo_decode"):

@@ -27,7 +27,9 @@ PERM = np.array(
 )
 
 _NULL = -1
-#: known-zero LLR pinned on filler positions (llr > 0 <=> bit 0)
+#: known-zero LLR pinned on filler positions (llr > 0 <=> bit 0) for a
+#: float32 decode; a bfloat16 decode takes a prior scaled to the data
+#: (models/sch.py ``filler_prior``)
 FILLER_LLR = 1e4
 
 
@@ -112,14 +114,16 @@ class RateMatchTurbo:
         flat = d_streams.reshape(*d_streams.shape[:-2], 3 * self.d)
         return flat[..., idx]
 
-    def rx(self, llr_e, rv: int, softbuffer=None):
+    def rx(self, llr_e, rv: int, softbuffer=None, filler=None):
         """Soft de-rate-matching with HARQ combining.
 
         llr_e[..., E] -> (d_llr[..., 3, K+4], new softbuffer[..., 3*(K+4)]).
         ``softbuffer`` carries combined LLRs across retransmissions (the
         reference's srslte_softbuffer_rx_t, softbuffer.c); None for a
         first transmission. Filler positions come out as strong known-zero
-        LLRs.
+        LLRs: ``filler`` (a tensor over the leading dims of ``llr_e`` but
+        its code block axis), else ``FILLER_LLR``. The prior enters
+        ``d_llr`` only, never the softbuffer.
 
         int8 LLRs take the 8-bit lane (rm_turbo.c:378-905): the repetition
         sum and the HARQ add run in int32 and saturate back to +-127 (torch
@@ -149,5 +153,7 @@ class RateMatchTurbo:
         d_llr = acc.reshape(*acc.shape[:-1], 3, self.d)
         if self.f > 0:
             d_llr = d_llr.clone()
-            d_llr[..., 0, :self.f] = 127 if int8_lane else FILLER_LLR
+            d_llr[..., 0, :self.f] = (
+                127 if int8_lane else FILLER_LLR if filler is None
+                else filler[..., None, None])
         return d_llr, acc

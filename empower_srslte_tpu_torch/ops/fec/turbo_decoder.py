@@ -29,8 +29,16 @@ window of l = K, as ``"nii"`` does; JAX's ``run_map`` takes its full sweep
 there. The two agree (bits equal, LLRs within 0.1).
 
 Extrinsics move between the two constituents through the QPP
-(de)interleaver as row gathers of time-major [K, B] arrays. Metrics are
-float32.
+(de)interleaver as row gathers of time-major [K, B] arrays.
+
+Metric precision (``dtype``, the JAX field and values): ``"auto"``
+decodes in bfloat16 on the kernel paths, ``"nii"`` and ``"windowed"``
+with a window, exactly where the JAX package's ``"auto"`` does on its
+accelerator (its ``_decode_nii`` and the v1 kernel path), and in float32
+otherwise (``"xla"``, and a K without a window, where JAX runs its
+float32 full sweep). The rule is the same on every device, so the CPU
+twins compute what the card computes. The iteration glue runs in the
+resolved dtype, in JAX's order; ``decode`` returns LLRs in it.
 
 LLR convention: positive LLR <=> bit 0.
 """
@@ -71,11 +79,11 @@ def parity_rows_interleaved(crc, k: int, device) -> torch.Tensor:
             crc.parity_matrix(k).astype(np.float32)[qpp_interleaver(k)].T))
 
 
-def _sweep_tables(device):
+def _sweep_tables(device, dtype=torch.float32):
     """Trellis wiring of the plain sweeps, both inputs stacked (u-major,
     16 rows): next states and previous states [16] int64, and the signs
     of the systematic / parity terms of the forward and backward branch
-    metrics [16, 1] float32."""
+    metrics [16, 1] in the metric ``dtype`` (exact: +-1)."""
     def build():
         t = trellis()
         su = np.repeat([1.0, -1.0], 8)[:, None]
@@ -85,8 +93,10 @@ def _sweep_tables(device):
                     su=su.astype(np.float32),
                     sp=sign(t.parity).astype(np.float32),
                     spp=sign(t.prev_parity).astype(np.float32))
-    return {k: device_table(("turbo_sweep", k), device, lambda k=k: build()[k])
-            for k in ("ns", "ps", "su", "sp", "spp")}
+    tb = {k: device_table(("turbo_sweep", k), device, lambda k=k: build()[k])
+          for k in ("ns", "ps", "su", "sp", "spp")}
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in tb.items()}
 
 
 def _renorm(m16: torch.Tensor) -> torch.Tensor:
@@ -127,10 +137,10 @@ def _alpha_sweep(lsa, lp, betas, alpha0, tb, skip: int = 0):
     return torch.stack(llrs)
 
 
-def _edge_metric(device) -> torch.Tensor:
+def _edge_metric(device, dtype=torch.float32) -> torch.Tensor:
     """The terminated state metric {state 0: 0, others: NEG_INF} [8]."""
     return device_table("turbo_edge", device, lambda: np.asarray(
-        [0.0] + [NEG_INF] * 7, np.float32))
+        [0.0] + [NEG_INF] * 7, np.float32)).to(dtype)
 
 
 def _map_decode(lsa, lp, n_tail: int, init_alpha, init_beta):
@@ -142,7 +152,7 @@ def _map_decode(lsa, lp, n_tail: int, init_alpha, init_beta):
     output), init_alpha / init_beta [8] initial state metrics.
     Returns llr_out [T - n_tail, B], the a-posteriori LLRs.
     """
-    tb = _sweep_tables(lsa.device)
+    tb = _sweep_tables(lsa.device, lsa.dtype)
     b = lsa.shape[1]
     betas = _beta_sweep(lsa, lp, init_beta[:, None].expand(8, b), tb)
     llrs = _alpha_sweep(lsa, lp, betas, init_alpha[:, None].expand(8, b),
@@ -194,7 +204,7 @@ def _windowed_map_decode(lsa, lp, k: int, overlap: int, window: int,
     """
     b = lsa.shape[1]
     w, l, o = k // window, window, overlap
-    tb = _sweep_tables(lsa.device)
+    tb = _sweep_tables(lsa.device, lsa.dtype)
     lsa_a, lp_a, lsa_b, lp_b = _prepare_windows(lsa, lp, k, o, l)
     zeros = torch.zeros((8, w - 1, b), dtype=lsa.dtype, device=lsa.device)
     edge = lambda m: m[:, None, None].expand(8, 1, b)
@@ -211,7 +221,7 @@ def map_decode_xla(lsa, lp, *, k: int, l: int | None,
     [K+3, B] -> a-posteriori LLRs [K, B], from the terminated state at
     both trellis ends; the full sweep when ``l`` is None, else the
     windowed sweep with windows of ``l`` and overlap ``o``."""
-    edge = _edge_metric(lsa.device)
+    edge = _edge_metric(lsa.device, lsa.dtype)
     if l is None:
         return _map_decode(lsa, lp, 3, edge, edge)
     return _windowed_map_decode(lsa, lp, k, o, l, edge, edge)
@@ -225,7 +235,10 @@ class TurboDecoder:
     whole trellis: as one NII window (``"nii"`` and ``"windowed"``), or by
     the full sweep ``_map_decode`` (``"xla"``, as the JAX package does).
     ``impl``: ``"nii"``, ``"windowed"`` or ``"xla"``;
-    ``overlap``: the windowed decoders' training length.
+    ``overlap``: the windowed decoders' training length;
+    ``dtype``: the metric precision, ``"auto"`` (bfloat16 for ``"nii"``
+    and ``"windowed"`` with a window, float32 otherwise: see
+    ``metric_dtype``), ``"float32"`` or ``"bfloat16"``.
     """
 
     k: int
@@ -233,11 +246,28 @@ class TurboDecoder:
     window: int | None = None
     impl: str = "nii"
     overlap: int = DEFAULT_OVERLAP
+    dtype: str = "auto"
 
     def __post_init__(self):
         if self.impl not in ("nii", "windowed", "xla"):
             raise ValueError(
                 f"impl {self.impl!r}: 'nii', 'windowed' or 'xla'")
+        if self.dtype not in ("auto", "float32", "bfloat16"):
+            raise ValueError(
+                f"dtype {self.dtype!r}: 'auto', 'float32' or 'bfloat16'")
+
+    @property
+    def metric_dtype(self) -> torch.dtype:
+        """The resolved metric dtype. ``"auto"`` is bfloat16 exactly where
+        the JAX package's ``"auto"`` decodes in bfloat16 on its
+        accelerator: a kernel decoder (``"nii"``, ``"windowed"``) with a
+        window (JAX turbo_decoder.py:453, :528-533); float32 for
+        ``"xla"`` and for a K without a window (JAX's full sweep)."""
+        if self.dtype == "auto":
+            kernel = self.impl in ("nii", "windowed") \
+                and self.window is not None
+            return torch.bfloat16 if kernel else torch.float32
+        return getattr(torch, self.dtype)
 
     def _split_streams(self, d_llr):
         """d_llr[..., 3, K+4] -> per-constituent (sys1, par1, sys2_tail,
@@ -278,8 +308,7 @@ class TurboDecoder:
         pinv = _perm("pinv", k, dev)
         b = sys.shape[1]
         w_count = k // l
-        zst = torch.zeros((w_count + 1, 8, b), dtype=torch.float32,
-                          device=dev)
+        zst = torch.zeros((w_count + 1, 8, b), dtype=sys.dtype, device=dev)
         sys_int = sys[pi]
         p_int = None if crc is None else parity_rows_interleaved(crc, k, dev)
 
@@ -351,12 +380,14 @@ class TurboDecoder:
                map_decode=None):
         """Decode d_llr[..., 3, K+4] -> (bits[..., K] int8, llr[..., K]).
 
-        Leading dims are batch. ``iters_out`` (a list) receives the
+        Leading dims are batch. The input (float32, bfloat16 or an int8
+        lane's LLRs, exact in bfloat16) is cast to ``metric_dtype``, and
+        the LLRs come back in it. ``iters_out`` (a list) receives the
         iteration count. ``map_decode`` replaces the constituent kernel
         wrapper of ``impl`` (with its plain twin, to compare the two).
         """
         k = self.k
-        d_llr = d_llr.to(torch.float32)
+        d_llr = d_llr.to(self.metric_dtype)
         sys1, par1, sys2_tail, par2 = self._split_streams(d_llr)
         lead = sys1.shape[:-1]
         b = int(np.prod(lead)) if lead else 1

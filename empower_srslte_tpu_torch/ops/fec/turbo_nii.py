@@ -15,7 +15,8 @@ Layout is time-major: rows (trellis steps) major, code blocks minor, so
 the kernel's threads — one per (window, code block), code block fastest —
 read and write neighbouring addresses.
 
-  u, p, apr        [K, B] float32 (systematic, parity, a-priori)
+  u, p, apr        [K, B] float32 or bfloat16 (systematic, parity,
+                   a-priori), every input of a call in one dtype
   tail_u, tail_p   [3, B] termination rows of this constituent
   a_st, b_st       [W+1, 8, B] boundary metrics; slot w holds window w's
                    alpha init, slot w+1 window w's beta init (the JAX
@@ -23,11 +24,17 @@ read and write neighbouring addresses.
 
 On a CUDA tensor ``map_decode_nii`` launches ``csrc/turbo_nii.cu``; on a
 CPU tensor it runs ``map_decode_nii_plain``, a torch recursion
-vectorized over windows and code blocks with the same float32 operation
-order (so the two agree bit for bit on the same device). The kernel keeps
-no beta store in device memory: it checkpoints the backward carry once
-per 16-row segment and recomputes each segment's betas on chip;
-``nii_plan`` gives its block size, segments and shared-memory bytes.
+vectorized over windows and code blocks with the same operation order
+(so the two agree bit for bit on the same device). The outputs and the
+boundary metrics come back in the inputs' dtype. In bfloat16 every add,
+subtraction and halving rounds to bfloat16, as the JAX kernel does when
+its input is bfloat16 (``TurboDecoder(dtype="auto")`` on its kernel
+path): the twin's torch bfloat16 ops round per op, the kernel
+(``nii_kernel_bf16``) runs bf16x2 instructions on two neighbouring code
+blocks per thread. The kernel keeps no beta store in device memory: it
+checkpoints the backward carry once per 16-row segment and recomputes
+each segment's betas on chip; ``nii_plan`` gives its block size,
+segments and shared-memory bytes.
 """
 
 from __future__ import annotations
@@ -47,26 +54,33 @@ NEG = -1e30
 #: steps between renormalizations (the JAX kernel's ``group``)
 GROUP = 16
 
-#: kernel launches made by ``map_decode_nii`` (read by chip_smoke.py)
+#: float32 kernel launches made by ``map_decode_nii`` (read by
+#: chip_smoke.py)
 LAUNCHES = 0
-#: the same launches per shape (K, window l, code blocks); reset it with
-#: ``LAUNCHES_BY_SHAPE.clear()``
+#: bfloat16 kernel launches made by ``map_decode_nii``
+LAUNCHES_BF16 = 0
+#: the same launches per shape (K, window l, code blocks, dtype name:
+#: "float32" or "bfloat16"); reset it with ``LAUNCHES_BY_SHAPE.clear()``
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 #: shared memory one block may use on sm_90 (227 KB)
 MAX_SMEM = 232_448
+#: metric dtypes the kernel takes
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """Geometry of one kernel launch: ``threads`` per block (one code
-    block each), ``segments`` ([lo, hi) window rows, bottom up; the
-    backward sweep checkpoints its carry entering each one above the
-    first), and the block's dynamic shared-memory ``smem`` bytes."""
+    """Geometry of one kernel launch: ``threads`` per block, each
+    decoding ``cbs_per_thread`` code blocks (1 in float32, 2 packed in
+    bf16x2), ``segments`` ([lo, hi) window rows, bottom up; the backward
+    sweep checkpoints its carry entering each one above the first), and
+    the block's dynamic shared-memory ``smem`` bytes."""
 
     threads: int
     segments: tuple
     smem: int
+    cbs_per_thread: int = 1
 
     @property
     def checkpoints(self) -> tuple:
@@ -75,13 +89,19 @@ class LaunchPlan:
         return tuple(hi - 1 for _, hi in self.segments[1:])
 
 
-def nii_plan(l: int, apr: bool) -> LaunchPlan:
+def nii_plan(l: int, apr: bool, dtype=torch.float32) -> LaunchPlan:
     """Launch plan of ``csrc/turbo_nii.cu`` for window ``l`` (with or
-    without an a-priori input). Segments are the 16-row renormalization
-    groups, the top one 8 rows when l % 16 == 8. Shared memory per thread:
-    32 B per checkpoint and a two-slot ring of 16 staged rows of u, p (and
-    apr); the segment's betas stay in registers. Raises ``ValueError``
-    when the window does not fit."""
+    without an a-priori input) and metric ``dtype``. Segments are the
+    16-row renormalization groups, the top one 8 rows when l % 16 == 8.
+    Shared memory per thread: one checkpoint (8 metrics) per segment above
+    the first and a two-slot ring of 16 staged rows of u, p (and apr); the
+    segment's betas stay in registers. A float32 thread decodes one code
+    block (32 B per checkpoint, 4 B per staged value); a bfloat16 thread
+    decodes two neighbouring ones packed in bf16x2, with the same bytes
+    per thread, so a 32-thread block covers 64 code blocks in the same
+    shared memory. Raises ``ValueError`` when the window does not fit."""
+    if dtype not in DTYPES:
+        raise TypeError(f"dtype {dtype}: the kernel takes {DTYPES}")
     if l % 8 or l < GROUP:
         raise ValueError(f"window {l}: the kernel needs a multiple of 8 "
                          f">= {GROUP}")
@@ -92,7 +112,8 @@ def nii_plan(l: int, apr: bool) -> LaunchPlan:
     if smem > MAX_SMEM:
         raise ValueError(f"window {l}: {smem} B of shared memory per block "
                          f"exceeds {MAX_SMEM}")
-    return LaunchPlan(threads, segments, smem)
+    return LaunchPlan(threads, segments, smem,
+                      2 if dtype == torch.bfloat16 else 1)
 
 
 @functools.lru_cache(maxsize=1)
@@ -117,13 +138,15 @@ def _gammas(uu, pp):
     return torch.stack([g00, g01, -g01, -g00])
 
 
-def _exact(shape, device):
-    e = torch.full((8, *shape), NEG, dtype=torch.float32, device=device)
+def _exact(shape, device, dtype=torch.float32):
+    e = torch.full((8, *shape), NEG, dtype=dtype, device=device)
     e[0] = 0.0
     return e
 
 
 def _check(u, p, tail_u, tail_p, a_st, b_st, l, apr):
+    """Shapes, one dtype of ``DTYPES``, one device, contiguity: -> (K, B,
+    W)."""
     k, b = u.shape
     if k % l:
         raise ValueError(f"K={k} is not a multiple of the window {l}")
@@ -136,8 +159,9 @@ def _check(u, p, tail_u, tail_p, a_st, b_st, l, apr):
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {x.dtype}, want float32")
+        if x.dtype != u.dtype or u.dtype not in DTYPES:
+            raise TypeError(f"{name}: dtype {x.dtype}, u {u.dtype}; all "
+                            f"inputs must share one of {DTYPES}")
         if x.device != u.device:
             raise ValueError(f"{name} is on {x.device}, u on {u.device}")
         if not x.is_contiguous():
@@ -151,7 +175,7 @@ def map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, *, l: int,
     Returns (ext [K, B], a_next [W+1, 8, B], b_next [W+1, 8, B])."""
     k, b, w_count = _check(u, p, tail_u, tail_p, a_st, b_st, l, apr)
     first, last = (0, w_count - 1) if bounds is None else bounds
-    dev = u.device
+    dev, dt = u.device, u.dtype
     ns0, ns1, gi0, gi1, ps0, ps1 = _wiring(dev)
     uu_all = u + apr if apr is not None else u
     uw = uu_all.view(w_count, l, b)
@@ -159,12 +183,12 @@ def map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, *, l: int,
 
     beta = b_st[1:].permute(1, 0, 2).clone()               # [8, W, B]
     if 0 <= last < w_count:
-        bt = _exact((b,), dev)
+        bt = _exact((b,), dev, dt)
         for j in (2, 1, 0):
             g = _gammas(tail_u[j], tail_p[j])
             bt = torch.maximum(bt[ns0] + g[gi0], bt[ns1] + g[gi1])
         beta[:, last] = bt - torch.amax(bt, 0)
-    betas = torch.empty((l, 8, w_count, b), dtype=torch.float32, device=dev)
+    betas = torch.empty((l, 8, w_count, b), dtype=dt, device=dev)
     for r in range(l - 1, -1, -1):
         g = _gammas(uw[:, r], pw[:, r])                    # [4, W, B]
         betas[r] = beta
@@ -176,8 +200,8 @@ def map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, *, l: int,
 
     alpha = a_st[:w_count].permute(1, 0, 2).clone()
     if 0 <= first < w_count:
-        alpha[:, first] = _exact((b,), dev)
-    ext = torch.empty((w_count, l, b), dtype=torch.float32, device=dev)
+        alpha[:, first] = _exact((b,), dev, dt)
+    ext = torch.empty((w_count, l, b), dtype=dt, device=dev)
     for r in range(l):
         g = _gammas(uw[:, r], pw[:, r])
         br0 = alpha + g[gi0]
@@ -194,45 +218,68 @@ def map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, *, l: int,
     return ext.reshape(k, b), a_next, b_next
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
+@functools.lru_cache(maxsize=2)
+def _lib(dtype):
     from ...utils.cuda_build import load
 
-    fn = load("turbo_nii").turbo_nii_launch
+    lib = load("turbo_nii")
+    fn = (lib.turbo_nii_launch_bf16 if dtype == torch.bfloat16
+          else lib.turbo_nii_launch)
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _pad_even(x):
+    """[..., B] -> [..., B + 1] with a zero column when B is odd (the
+    bfloat16 kernel packs two code blocks per thread)."""
+    return torch.nn.functional.pad(x, (0, 1)) if x.shape[-1] % 2 else x
+
+
 def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
                    bounds=None):
     """One NII constituent decode; see the module docstring.
 
-    ``bounds`` = (first, last): the windows holding the globally first /
-    last trellis step (default (0, W-1); (-1, -1) marks a trellis slice
-    with no edge, every boundary metric coming from a_st / b_st).
+    Inputs are all float32 or all bfloat16; the outputs come back in that
+    dtype. ``bounds`` = (first, last): the windows holding the globally
+    first / last trellis step (default (0, W-1); (-1, -1) marks a trellis
+    slice with no edge, every boundary metric coming from a_st / b_st).
     Returns (ext [K, B], a_next, b_next) in the slot convention above,
-    ready to pass back on the next call.
+    ready to pass back on the next call. In bfloat16 an odd batch is
+    padded with one code block of zeros for the launch and dropped again.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     if not u.is_cuda:
         return map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, l=l,
                                     apr=apr, bounds=bounds)
     k, b, w_count = _check(u, p, tail_u, tail_p, a_st, b_st, l, apr)
     first, last = (0, w_count - 1) if bounds is None else bounds
-    plan = nii_plan(l, apr is not None)
+    dt = u.dtype
+    plan = nii_plan(l, apr is not None, dt)
+    odd = dt == torch.bfloat16 and b % 2
+    if odd:
+        u, p, tail_u, tail_p, a_st, b_st = map(
+            _pad_even, (u, p, tail_u, tail_p, a_st, b_st))
+        apr = None if apr is None else _pad_even(apr)
     ext = torch.empty_like(u)
     a_next = torch.empty_like(a_st)
     b_next = torch.empty_like(b_st)
-    rc = _lib()(u.data_ptr(), p.data_ptr(),
-                None if apr is None else apr.data_ptr(),
-                tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
-                b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
-                b_next.data_ptr(), b, l, w_count, first, last, plan.threads,
-                plan.smem, torch.cuda.current_stream(u.device).cuda_stream)
+    rc = _lib(dt)(u.data_ptr(), p.data_ptr(),
+                  None if apr is None else apr.data_ptr(),
+                  tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
+                  b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
+                  b_next.data_ptr(), u.shape[1], l, w_count, first, last,
+                  plan.threads, plan.smem,
+                  torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(k, l, b)] += 1
+    if dt == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."))] += 1
+    if odd:
+        ext, a_next, b_next = (x[..., :b].contiguous()
+                               for x in (ext, a_next, b_next))
     return ext, a_next, b_next

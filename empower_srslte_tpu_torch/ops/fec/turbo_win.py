@@ -21,9 +21,17 @@ group is normalized); the alpha sweep emits
 ``llr = max_s(a_s + g(0) + b_ns0) - max_s(a_s + g(1) + b_ns1)``
 after its O training steps.
 
-Layout is time-major: ``lsa``, ``lp`` [K+3, B] float32 full-scale
-(payload plus the 3 termination rows), code blocks minor; the output is
-the full-scale a-posteriori ``llr`` [K, B].
+Layout is time-major: ``lsa``, ``lp`` [K+3, B] full-scale (payload plus
+the 3 termination rows), code blocks minor; the output is the full-scale
+a-posteriori ``llr`` [K, B]. Both inputs are float32, or both bfloat16,
+and the output comes back in their dtype. In bfloat16 every operation
+rounds to bfloat16, as the JAX kernel does when the v1 decoder feeds it
+bfloat16 (``TurboDecoder(dtype="auto")`` on its kernel path): rows are
+halved in bfloat16 before the padding, the padding's systematic value is
+``PAD_LLR`` rounded to bfloat16 (99,840, as ``jnp.full(..., 1e5, bf16)``
+gives) and the boundary metric is bfloat16(-1e30). The kernel
+(``win_kernel<OpsBf16x2>``) decodes two neighbouring code blocks per
+thread in bf16x2 registers.
 
 On a CUDA tensor ``map_decode_win`` launches ``csrc/turbo_win.cu``; on a
 CPU tensor it runs ``map_decode_win_plain``, the same recursion in torch
@@ -36,6 +44,7 @@ segments and shared-memory bytes.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -44,7 +53,7 @@ import torch
 
 from ...utils.device import device_table
 from .turbo_encoder import trellis
-from .turbo_nii import LaunchPlan
+from .turbo_nii import DTYPES, LaunchPlan, _pad_even
 
 NEG = -1e30
 #: steps per renormalization (the JAX kernel's GROUP)
@@ -54,8 +63,14 @@ PAD_LLR = 1e5
 #: overlap training length (turbodecoder_win.h win_overlap_len)
 DEFAULT_OVERLAP = 40
 
-#: kernel launches made by ``map_decode_win`` (read by chip_smoke.py)
+#: float32 kernel launches made by ``map_decode_win`` (read by
+#: chip_smoke.py)
 LAUNCHES = 0
+#: bfloat16 kernel launches made by ``map_decode_win``
+LAUNCHES_BF16 = 0
+#: the same launches per shape (K, window l, code blocks, dtype name);
+#: reset it with ``LAUNCHES_BY_SHAPE.clear()``
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 
 @functools.lru_cache(maxsize=1)
@@ -76,8 +91,9 @@ def _check(lsa, lp, k: int, l: int, o: int) -> int:
         if tuple(x.shape) != (k + 3, lsa.shape[1]):
             raise ValueError(f"{name}: shape {tuple(x.shape)}, "
                              f"want ({k + 3}, B)")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {x.dtype}, want float32")
+        if x.dtype != lsa.dtype or lsa.dtype not in DTYPES:
+            raise TypeError(f"{name}: dtype {x.dtype}, lsa {lsa.dtype}; "
+                            f"both must share one of {DTYPES}")
         if x.device != lsa.device:
             raise ValueError(f"{name} is on {x.device}, lsa on {lsa.device}")
         if not x.is_contiguous():
@@ -85,20 +101,26 @@ def _check(lsa, lp, k: int, l: int, o: int) -> int:
     return lsa.shape[1]
 
 
-def win_plan(l: int, o: int) -> LaunchPlan:
-    """Launch plan of ``csrc/turbo_win.cu`` for window ``l`` and overlap
-    ``o``: 32 threads per block, the window's rows in 8-row segments (the
-    renormalization group; the backward sweep checkpoints its carry
-    entering each one above the first, into a device-memory buffer of
-    ``[len(segments) - 1, 8, W*B]`` float32 that the wrapper allocates),
-    and a two-slot shared-memory ring of 8 staged rows x 4 values per
-    thread. Raises ``ValueError`` when the geometry does not fit."""
+def win_plan(l: int, o: int, dtype=torch.float32) -> LaunchPlan:
+    """Launch plan of ``csrc/turbo_win.cu`` for window ``l``, overlap
+    ``o`` and metric ``dtype``: 32 threads per block, the window's rows in
+    8-row segments (the renormalization group; the backward sweep
+    checkpoints its carry entering each one above the first, into a
+    device-memory buffer of ``[len(segments) - 1, 8, W*B]`` in ``dtype``
+    that the wrapper allocates), and a two-slot shared-memory ring of 8
+    staged rows x 4 values of 4 bytes per thread. A bfloat16 thread
+    decodes two code blocks (one bf16x2 value), so the same bytes cover
+    twice the code blocks. Raises ``ValueError`` when the geometry does
+    not fit."""
+    if dtype not in DTYPES:
+        raise TypeError(f"dtype {dtype}: the kernel takes {DTYPES}")
     if l % GROUP or o % GROUP or not GROUP <= o <= l:
         raise ValueError(f"window {l}, overlap {o}: need multiples of "
                          f"{GROUP} with {GROUP} <= O <= L")
     threads = 32
     segments = tuple((lo, lo + GROUP) for lo in range(0, l, GROUP))
-    return LaunchPlan(threads, segments, threads * 4 * 2 * GROUP * 4)
+    return LaunchPlan(threads, segments, threads * 4 * 2 * GROUP * 4,
+                      2 if dtype == torch.bfloat16 else 1)
 
 
 def _window_rows(x, pad: float, k: int, l: int, o: int):
@@ -119,7 +141,7 @@ def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     b = _check(lsa, lp, k, l, o)
     w = k // l
     n = w * b
-    dev = lsa.device
+    dev, dt = lsa.device, lsa.dtype
     ns0, ns1, gi0, gi1, ps0, ps1 = [
         device_table(("win_wiring", i), dev, lambda a=a: a)
         for i, a in enumerate(_wiring_np())]
@@ -132,12 +154,12 @@ def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
         return torch.stack([g00, g01, -g01, -g00])
 
     def edge(first: bool):
-        m = torch.zeros((8, w, b), dtype=torch.float32, device=dev)
+        m = torch.zeros((8, w, b), dtype=dt, device=dev)
         m[1:, 0 if first else w - 1] = NEG
         return m.reshape(8, n)
 
     beta = edge(False)
-    betas = torch.empty((l, 8, n), dtype=torch.float32, device=dev)
+    betas = torch.empty((l, 8, n), dtype=dt, device=dev)
     for i in range(l + o - 1, -1, -1):
         g = gammas(o + i)
         if i < l:
@@ -147,7 +169,7 @@ def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
             beta = beta - torch.amax(beta, 0)
 
     alpha = edge(True)
-    llr = torch.empty((l, n), dtype=torch.float32, device=dev)
+    llr = torch.empty((l, n), dtype=dt, device=dev)
     for i in range(l + o):
         g = gammas(i)
         br0 = alpha + g[gi0]
@@ -162,11 +184,13 @@ def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     return llr.view(l, w, b).transpose(0, 1).reshape(k, b)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
+@functools.lru_cache(maxsize=2)
+def _lib(dtype):
     from ...utils.cuda_build import load
 
-    fn = load("turbo_win").turbo_win_launch
+    lib = load("turbo_win")
+    fn = (lib.turbo_win_launch_bf16 if dtype == torch.bfloat16
+          else lib.turbo_win_launch)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -175,20 +199,31 @@ def _lib():
 
 def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     """One windowed constituent decode: lsa, lp [K+3, B] -> llr [K, B]
-    (see the module docstring)."""
-    global LAUNCHES
+    in the inputs' dtype (see the module docstring). In bfloat16 an odd
+    batch is padded with one code block of zeros for the launch and
+    dropped again."""
+    global LAUNCHES, LAUNCHES_BF16
     if not lsa.is_cuda:
         return map_decode_win_plain(lsa, lp, k=k, l=l, o=o)
     b = _check(lsa, lp, k, l, o)
-    plan = win_plan(l, o)
-    llr = torch.empty((k, b), dtype=torch.float32, device=lsa.device)
+    dt = lsa.dtype
+    plan = win_plan(l, o, dt)
+    odd = dt == torch.bfloat16 and b % 2
+    if odd:
+        lsa, lp = _pad_even(lsa), _pad_even(lp)
+    bp = lsa.shape[1]
+    llr = torch.empty((k, bp), dtype=dt, device=lsa.device)
     # the beta carry entering each segment above the first, per window
-    ckpt = torch.empty((len(plan.checkpoints), 8, k // l * b),
-                       dtype=torch.float32, device=lsa.device)
-    rc = _lib()(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
-                ckpt.data_ptr(), b, k, l, o, plan.threads, plan.smem,
-                torch.cuda.current_stream(lsa.device).cuda_stream)
+    ckpt = torch.empty((len(plan.checkpoints), 8, k // l * bp), dtype=dt,
+                       device=lsa.device)
+    rc = _lib(dt)(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
+                  ckpt.data_ptr(), bp, k, l, o, plan.threads, plan.smem,
+                  torch.cuda.current_stream(lsa.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_win kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return llr
+    if dt == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."))] += 1
+    return llr[:, :b].contiguous() if odd else llr

@@ -6,9 +6,12 @@ PDSCH receiver on the lane, the uplink's ``pusch_decode`` on it, and
 
 Integers must be equal: quantized LLRs, de-rate-matched LLRs and
 softbuffers. Decoded bits and CRC flags must be equal, and equal to what
-was sent. The port decodes the int8 lane's LLRs in float32, the JAX
-package in bfloat16 (a difference by design until bf16 metrics are
-ported), so only bits are compared after the turbo decoder.
+was sent. Both packages decode the int8 lane's LLRs in bfloat16 (their
+``dtype="auto"`` on the NII kernel path; the int8 values are exact in
+bfloat16), so against the JAX ``pallas2_interpret`` decode the turbo
+decoder's a-posteriori LLRs are equal too, bit for bit. The uplink test
+holds the port's windowed bfloat16 decode to JAX's float32 XLA decoder,
+so it compares bits only.
 """
 
 import numpy as np
@@ -25,12 +28,14 @@ from empower_srslte_tpu.models import ue_ul as jue_ul
 from empower_srslte_tpu.ops import modem as jmodem
 from empower_srslte_tpu.ops import scrambling as jscr
 from empower_srslte_tpu.ops.fec.rate_matching import RateMatchTurbo as JRm
+from empower_srslte_tpu.ops.fec.turbo_decoder import TurboDecoder as JTurbo
 from empower_srslte_tpu.utils.cell import Cell as JCell
 
 from empower_srslte_tpu_torch import convert
 from empower_srslte_tpu_torch.models import pdsch, pusch, ue_ul
 from empower_srslte_tpu_torch.ops import modem, scrambling
 from empower_srslte_tpu_torch.ops.fec.rate_matching import RateMatchTurbo
+from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
 
 
 @pytest.fixture(autouse=True)
@@ -97,9 +102,23 @@ def test_int8_rate_matching_and_harq_saturation(rng, k, f, e):
     assert f32[0].dtype == torch.float32
 
 
+def _spy_decode(monkeypatch, cls, seen: list):
+    """Record the (bits, LLRs) of every ``cls.decode`` call."""
+    real = cls.decode
+
+    def spy(self, *a, **kw):
+        out = real(self, *a, **kw)
+        seen.append((self, out[1]))
+        return out
+
+    monkeypatch.setattr(cls, "decode", spy)
+
+
 def test_pdsch_int8_lane_matches_jax(rng, monkeypatch):
     """The 10 MHz SISO point of the JAX package's int8 test (MCS 17, flat
-    h 0.9-0.2j, SNR 14 dB, genie channel) cut to a 15-PRB cell."""
+    h 0.9-0.2j, SNR 14 dB, genie channel) cut to a 15-PRB cell. Both
+    turbo decoders run in bfloat16 (JAX on its classic DL-SCH path), and
+    their a-posteriori LLRs are equal exactly."""
     jcell = JCell(nof_prb=15, id=1)
     mod, tbs = jra.mcs_to_tbs(17, 15)
     jcfg = jpdsch.PdschConfig(cell=jcell, sf_idx=1, cfi=1, mod=mod,
@@ -139,6 +158,8 @@ def test_pdsch_int8_lane_matches_jax(rng, monkeypatch):
         return real_decode(llr, plan_, **kw)
 
     monkeypatch.setattr(pdsch, "dlsch_decode", port_capture)
+    port_llr: list = []
+    _spy_decode(monkeypatch, TurboDecoder, port_llr)
     bits, ok, soft = pdsch.pdsch_decode(torch.as_tensor(y),
                                         torch.as_tensor(h), cfg, plan,
                                         noise_est=float(n0))
@@ -146,13 +167,24 @@ def test_pdsch_int8_lane_matches_jax(rng, monkeypatch):
 
     monkeypatch.setenv("TURBO_SUB", "8")
     monkeypatch.setenv("TURBO_LANES", "1")
-    run = jax.jit(lambda y, h: jpdsch.pdsch_decode(y, h, jcfg, jplan,
-                                                   noise_est=n0)[:2])
-    bits_j, ok_j = run(jnp.asarray(y), jnp.asarray(h))
+    # the classic path, whose one TurboDecoder.decode call per code block
+    # size the spy sees (the fused feed calls decode_tiles instead)
+    monkeypatch.setenv("SRSLTE_FUSED_RX", "0")
+    jax_llr: list = []
+    _spy_decode(monkeypatch, JTurbo, jax_llr)
+    # the decoder's LLRs leave the jitted function beside its results
+    run = jax.jit(lambda y, h: (*jpdsch.pdsch_decode(
+        y, h, jcfg, jplan, noise_est=n0)[:2], jax_llr[-1][1]))
+    bits_j, ok_j, llr_j = run(jnp.asarray(y), jnp.asarray(h))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_j))
     np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_j))
     assert ok.all() and (bits.numpy() == tb).all()
     assert all(s.dtype == torch.int8 for s in soft)
+    (dec, llr_p), = port_llr
+    assert dec.metric_dtype == torch.bfloat16
+    assert llr_p.dtype == torch.bfloat16 and llr_j.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        llr_p.float().numpy(), np.asarray(llr_j.astype(jnp.float32)))
 
 
 # --- uplink -----------------------------------------------------------------
@@ -178,8 +210,9 @@ def _ul_samples(rng, jcfg, jplan, tb):
 
 
 def test_pusch_decode_int8_matches_jax(rng):
-    """The JAX side decodes with its XLA windowed decoder, the port with
-    the windowed twin: the point is the lane ahead of the decoder."""
+    """The JAX side decodes with its XLA windowed decoder (float32), the
+    port with the windowed twin (bfloat16, its default there): the point
+    is the lane ahead of the decoder."""
     jcfg, cfg, tbs = _pusch_cfgs(True)
     assert cfg.llr_int8
     jplan = jcfg.plan(tbs, decoder_impl="xla")

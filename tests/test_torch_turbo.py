@@ -5,7 +5,11 @@ The JAX side runs the Pallas NII kernel in interpret mode with a tiny
 tile (TURBO_SUB=8, TURBO_LANES=1), as the reference's own tests do; the
 port side runs the kernel's plain twin on the CPU. Both execute the same
 float32 operations in the same order, so the tolerance is the float32
-rounding of a handful of adds (rtol = atol = 1e-5).
+rounding of a handful of adds (rtol = atol = 1e-5). The full decodes run
+at float32 (pinned on both sides) and at bfloat16, the precision both
+packages' ``dtype="auto"`` gives a windowed NII decode; in bfloat16 every
+op rounds to bfloat16 on both sides, and bits, LLRs and the early stop's
+iteration count are equal exactly.
 """
 
 import numpy as np
@@ -112,14 +116,16 @@ def _awgn_llr(rng, d, ebn0_db):
     return (4 / n0 * y).astype(np.float32)
 
 
-def _jax_nii_decode(llr, k, iterations):
+def _jax_nii_decode(llr, k, iterations, dtype="float32"):
     """The JAX NII path (TurboDecoder._decode_nii) with the early-stop
-    iteration count surfaced."""
+    iteration count surfaced: -> (bits [B, K], natural-order LLRs [B, K]
+    as float32, iterations)."""
     import jax
 
     dec = JaxTurbo(k=k, iterations=iterations, window=_pick_window(k),
-                   impl="pallas2_interpret", dtype="float32")
-    sys1, par1, sys2_tail, par2 = dec._split_streams(jnp.asarray(llr))
+                   impl="pallas2_interpret", dtype=dtype)
+    sys1, par1, sys2_tail, par2 = dec._split_streams(
+        jnp.asarray(llr).astype(dtype))
     tm = lambda x: jnp.moveaxis(x, -1, 0)
     pad8 = lambda x: jnp.pad(x, ((0, 8 - x.shape[0]), (0, 0)))
     tiles = lambda x: to_tiles(x, 1, 8)
@@ -138,23 +144,38 @@ def _jax_nii_decode(llr, k, iterations):
                         tiles(pad8(tm(sys2_tail))), tiles(pad8(p2[k:])))
     from empower_srslte_tpu.ops.fec.tables import qpp_deinterleaver
 
-    llr_nat = _rows_from_jax(llr_int)[qpp_deinterleaver(k)]
-    return (llr_nat.T < 0).astype(np.int8), int(n_it)
+    llr_nat = _rows_from_jax(llr_int.astype(jnp.float32))[
+        qpp_deinterleaver(k)]
+    return (llr_nat.T < 0).astype(np.int8), llr_nat.T, int(n_it)
 
 
-@pytest.mark.parametrize("k,ebn0_db", [(512, 1.2), (1024, 1.0)])
-def test_full_decode_matches_jax(rng, k, ebn0_db):
+@pytest.mark.parametrize("k,ebn0_db,dtype", [
+    pytest.param(512, 1.2, "float32", id="512-1.2"),
+    pytest.param(1024, 1.0, "float32", id="1024-1.0"),
+    pytest.param(512, 1.2, "bfloat16", id="512-1.2-bfloat16"),
+    pytest.param(1024, 1.0, "bfloat16", id="1024-1.0-bfloat16")])
+def test_full_decode_matches_jax(rng, k, ebn0_db, dtype):
+    """Near the waterfall the early stop iterates. In float32 the bits
+    equal JAX's and the sent ones; in bfloat16 (both packages' default
+    here) bits, LLRs and the iteration count equal JAX's exactly (its
+    bits need not all be the sent ones at this SNR)."""
     u = _crc_blocks(rng, k, 8)
     llr = _awgn_llr(rng, turbo_encode_np(u), ebn0_db)
-    bits_j, it_j = _jax_nii_decode(llr, k, iterations=6)
+    bits_j, llr_j, it_j = _jax_nii_decode(llr, k, iterations=6, dtype=dtype)
 
-    dec = TurboDecoder(k=k, iterations=6, window=_pick_window(k))
+    dec = TurboDecoder(k=k, iterations=6, window=_pick_window(k),
+                       dtype=dtype)
+    assert dec.metric_dtype == getattr(torch, dtype)
     its = []
-    bits, _ = dec.decode(torch.as_tensor(llr), crc=CRC24B, iters_out=its)
+    bits, out = dec.decode(torch.as_tensor(llr), crc=CRC24B, iters_out=its)
+    assert out.dtype == getattr(torch, dtype)
     assert its == [it_j]
     assert it_j > 1, "the operating point should exercise the early stop"
     np.testing.assert_array_equal(bits.numpy(), bits_j)
-    np.testing.assert_array_equal(bits.numpy(), u)
+    if dtype == "float32":
+        np.testing.assert_array_equal(bits.numpy(), u)
+    else:
+        np.testing.assert_array_equal(out.float().numpy(), llr_j)
 
 
 @pytest.mark.parametrize("k", [40, 56])

@@ -6,7 +6,10 @@ mode on the CPU (narrow lanes, so the interpreter stays cheap); the port
 side runs the kernel's plain twin. Both execute the same float32
 operations in the same order, so the tolerance is float32 rounding:
 rtol = atol = 1e-5 for one constituent decode, 1e-4 for LLRs after
-several iterations.
+several iterations. The float32 decodes are pinned to float32 on both
+sides; the bfloat16 case (both packages' ``dtype="auto"`` on this
+kernel path) rounds every op to bfloat16 on both sides, and its LLRs are
+equal exactly.
 """
 
 import numpy as np
@@ -88,30 +91,40 @@ def _awgn_llr(rng, d, ebn0_db):
     return (4 / n0 * y).astype(np.float32)
 
 
-def _jax_v1(llr, k, iterations, crc, impl="pallas_interpret", overlap=O):
+def _jax_v1(llr, k, iterations, crc, impl="pallas_interpret", overlap=O,
+            dtype="float32"):
     dec = JaxTurbo(k=k, iterations=iterations, window=_pick_window(k),
-                   overlap=overlap, impl=impl, dtype="float32")
+                   overlap=overlap, impl=impl, dtype=dtype)
     run = jax.jit(lambda x: dec.decode(x, crc=crc))
     bits, out = run(jnp.asarray(llr))
-    return np.asarray(bits), np.asarray(out)
+    return np.asarray(bits), np.asarray(out.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("early_stop", [False, True])
-def test_windowed_decoder_matches_jax_v1(rng, early_stop):
+@pytest.mark.parametrize("early_stop,dtype", [
+    pytest.param(False, "float32", id="False"),
+    pytest.param(True, "float32", id="True"),
+    pytest.param(True, "bfloat16", id="True-bfloat16")])
+def test_windowed_decoder_matches_jax_v1(rng, early_stop, dtype):
     """At 2 dB the early stop ends after 2 of 4 iterations; equal LLRs
-    show the JAX while-loop stopped at the same iteration."""
+    show the JAX while-loop stopped at the same iteration. In bfloat16
+    the LLRs are equal exactly."""
     k, batch = 192, 8
     u = _crc_blocks(rng, k, batch)
     llr = _awgn_llr(rng, turbo_encode_np(u), 2.0)
-    bits_j, llr_j = _jax_v1(llr, k, 4, JAX_CRC24B if early_stop else None)
+    bits_j, llr_j = _jax_v1(llr, k, 4, JAX_CRC24B if early_stop else None,
+                            dtype=dtype)
 
     dec = TurboDecoder(k=k, iterations=4, window=_pick_window(k),
-                       impl="windowed")
+                       impl="windowed", dtype=dtype)
     its = []
     bits, out = dec.decode(torch.as_tensor(llr),
                            crc=CRC24B if early_stop else None,
                            iters_out=its)
-    np.testing.assert_allclose(out.numpy(), llr_j, rtol=1e-4, atol=1e-4)
+    assert out.dtype == getattr(torch, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), llr_j, rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(out.float().numpy(), llr_j)
     np.testing.assert_array_equal(bits.numpy(), bits_j)
     np.testing.assert_array_equal(bits.numpy(), u)
     assert its == [2 if early_stop else 4]
@@ -124,7 +137,8 @@ def test_windowed_decoder_overlap_matches_jax_v1(rng):
     llr = _awgn_llr(rng, turbo_encode_np(_crc_blocks(rng, k, batch)), 0.0)
     _, llr_j = _jax_v1(llr, k, 2, None, overlap=24)
     dec = lambda o: TurboDecoder(k=k, iterations=2, window=_pick_window(k),
-                                 impl="windowed", overlap=o)
+                                 impl="windowed", overlap=o,
+                                 dtype="float32")
     _, out = dec(24).decode(torch.as_tensor(llr))
     np.testing.assert_allclose(out.numpy(), llr_j, rtol=1e-4, atol=1e-4)
     _, out40 = dec(O).decode(torch.as_tensor(llr))
@@ -141,7 +155,8 @@ def test_xla_windowed_scan_is_not_the_reference(rng):
     _, llr_kernel = _jax_v1(llr, k, 3, None)
     _, llr_xla = _jax_v1(llr, k, 3, None, impl="xla")
     _, out = TurboDecoder(k=k, iterations=3, window=_pick_window(k),
-                          impl="windowed").decode(torch.as_tensor(llr))
+                          impl="windowed", dtype="float32").decode(
+                              torch.as_tensor(llr))
     np.testing.assert_allclose(out.numpy(), llr_kernel, rtol=1e-4,
                                atol=1e-4)
     assert np.abs(llr_kernel - llr_xla).max() > 1e-2

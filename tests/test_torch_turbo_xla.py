@@ -82,6 +82,28 @@ def test_xla_decoder_matches_jax(k, window, iterations, rng):
     _close(out.numpy(), jout)
 
 
+@pytest.mark.parametrize("k,window", [(40, None), (192, None),
+                                      (192, _pick_window(192))])
+@pytest.mark.parametrize("iterations", [1, 3])
+def test_xla_decoder_bfloat16_matches_jax(k, window, iterations, rng):
+    """``impl="xla"`` with ``dtype="bfloat16"`` on both sides: every
+    sweep op rounds to bfloat16 in both packages, so bits and LLRs are
+    equal exactly (``"auto"`` keeps the XLA decoder in float32, as JAX)."""
+    llr = _llrs(rng, 16, k)
+    assert td.TurboDecoder(k=k, window=window,
+                           impl="xla").metric_dtype == torch.float32
+    bits, out = td.TurboDecoder(k=k, iterations=iterations, window=window,
+                                impl="xla", dtype="bfloat16").decode(
+                                    torch.as_tensor(llr))
+    jbits, jout = jtd.TurboDecoder(k=k, iterations=iterations, window=window,
+                                   impl="xla", dtype="bfloat16").decode(
+                                       jnp.asarray(llr))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+
+
 def test_windowed_decoder_without_window_is_the_full_sweep(rng):
     """JAX's ``run_map`` takes the full sweep whenever the window is None,
     whatever the impl; the port's windowed decoder runs one NII window
