@@ -55,6 +55,16 @@ shape it launched against the twin of that shape's dtype:
   MIB of a 6-PRB capture (Viterbi kernel at K 40) and finds the cell of
   the 20 MHz one (``app_cell_search``). Each phase holds both kernels to
   their twins at every shape it launched;
+* the multi-device layer (``empower_srslte_tpu_torch/parallel/``): the
+  trellis-sharded NII decode on in-process meshes of 2 and 4 shards on
+  one card, each shard its own ``turbo_nii`` float32 launch with its own
+  bounds, bit-identical to the one-device decode at K 6144 and on a TTI
+  of the main path, and the halo-exchange sweeps (``parallel_sp``); the
+  main path's batch split over a 4-shard mesh, equal to the unsharded
+  call, and the 6-PRB validation chain over a (2, 2) mesh
+  (``parallel_batch``); the multi-process dry run, 2 processes over gloo
+  on the one card (again over NCCL, one card per process, where two or
+  more are visible) (``multihost``);
 * the main path's and the uplink path's stimulus with the turbo decoders
   pinned to float32 and at "auto" (bfloat16), in turns
   (``precision_pair``);
@@ -63,7 +73,7 @@ shape it launched against the twin of that shape's dtype:
   curve within 0.1 dB of its float32 curve and every curve below srsLTE's
   (``bler_gate``).
 
-    python3 chip_smoke.py [--baseline FILE]
+    python3 chip_smoke.py [--baseline FILE] [--phases NAME,...]
 
 ``--baseline FILE`` names a Python file that defines ``PTXAS`` (its ptxas
 log per kernel name) and any of ``map_decode_nii``, ``map_decode_win``
@@ -72,6 +82,11 @@ and ``viterbi_regs``, with the signatures of the port's
 design of those kernels): each kernel check with a baseline then times it
 and the port's kernel in turns (baseline, port, port, baseline) and puts
 both on its phase line.
+
+``--phases`` runs the build and the named phases alone (any of
+``parallel_sp``, ``parallel_batch`` and ``multihost``: the phases that
+use a second card where one is visible), then the last line with
+``"phases"`` naming them, and no kernels line.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
 one JSON line per phase (also written to chiprun_out/chip_smoke/
@@ -411,8 +426,9 @@ def nii_work(k: int, l: int, b: int, dtype="float32"):
 
 
 def nii_shape_time(k: int, l: int, b: int, seed: int,
-                   dtype="float32") -> dict:
-    """The NII kernel timed at one launch shape, in ``dtype``: ``ms`` over
+                   dtype="float32", bounds=None) -> dict:
+    """The NII kernel timed at one launch shape and ``bounds``, in
+    ``dtype``: ``ms`` over
     10 launches made one by one (at a small shape this reads the
     wrapper's host time, and in bfloat16 at an odd batch its padding),
     ``ms_graphed`` by CUDA-graph replay (the launches back to back on the
@@ -424,7 +440,7 @@ def nii_shape_time(k: int, l: int, b: int, seed: int,
         map_decode_nii, map_decode_nii_plain)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    args, kw = nii_inputs(g, k, l, b, dtype=dtype)
+    args, kw = nii_inputs(g, k, l, b, bounds=bounds, dtype=dtype)
     return {"k": k, "window": l, "cbs": b, "dtype": dtype,
             "ms": cuda_ms(lambda: map_decode_nii(*args, **kw), reps=10),
             "ms_graphed": graph_ms(lambda: map_decode_nii(*args, **kw),
@@ -1757,7 +1773,9 @@ def open_counts():
 
 def read_counts(mods) -> tuple:
     """(launches by kernel, launches by shape per module) since
-    ``open_counts``; a turbo shape is (K, window, code blocks, dtype)."""
+    ``open_counts``; a turbo shape is (K, window, code blocks, dtype), the
+    NII kernel's followed by the (first, last) of its resolved
+    ``bounds``."""
     return ({name: getattr(mods[mod], attr) for name, mod, attr in COUNTERS},
             {name: dict(m.LAUNCHES_BY_SHAPE) for name, m in mods.items()})
 
@@ -1765,9 +1783,12 @@ def read_counts(mods) -> tuple:
 def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
     """Each kernel held to its twin, and timed, at every shape a phase
     launched it (``read_counts``), the turbo kernels in the dtype of the
-    launch: -> {"turbo_nii": {...}, "turbo_win": {...}, "viterbi37":
-    {...}} per shape, with its launches. The phase's checks require every
-    error to be 0 (``turbo_checks``, ``shape_checks``)."""
+    launch and the NII kernel at every ``bounds`` it was launched with
+    (the name of a shape launched off the default bounds (0, W-1) ends in
+    ``_bounds{first}_{last}``): -> {"turbo_nii": {...}, "turbo_win":
+    {...}, "viterbi37": {...}} per shape, with its launches. The phase's
+    checks require every error to be 0 (``turbo_checks``,
+    ``shape_checks``)."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_win import DEFAULT_OVERLAP
@@ -1775,11 +1796,16 @@ def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}}
     i = 0
-    for (k, l, b, dt), c in sorted(shapes.get("turbo_nii", {}).items()):
-        name = f"k{k}_l{l}_cbs{b}_{dt}"
+    for (k, l, b, dt, first, last), c in sorted(
+            shapes.get("turbo_nii", {}).items()):
+        bd = None if (first, last) == (0, k // l - 1) else (first, last)
+        name = f"k{k}_l{l}_cbs{b}_{dt}" + (
+            f"_bounds{first}_{last}" if bd else "")
         out["turbo_nii"][name] = {
-            **nii_shape_time(k, l, b, seed + i, dt), "launches": c,
-            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b, dtype=dt))[0]}
+            **nii_shape_time(k, l, b, seed + i, dt, bd), "launches": c,
+            "bounds": [first, last],
+            "max_abs_err": nii_twin(*nii_inputs(g, k, l, b, bounds=bd,
+                                                dtype=dt))[0]}
         key = "turbo_nii_bf16" if dt == "bfloat16" else "turbo_nii"
         PATH_TWIN[key][f"{phase}_{name}"] = \
             out["turbo_nii"][name]["max_abs_err"]
@@ -1802,6 +1828,16 @@ def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
             out["viterbi37"][name]["mismatched_bits"]
         i += 1
     return out
+
+
+def bounds_kind(bounds, windows: int) -> str:
+    """The NII launch's trellis slice: "whole" (0, W-1), a trellis-sharded
+    decode's "first" (0, -1), "interior" (-1, -1) or "last" (-1, W-1)
+    shard."""
+    first, last = bounds
+    if first == 0:
+        return "whole" if last == windows - 1 else "first"
+    return "interior" if last == -1 else "last"
 
 
 def turbo_checks(shapes: dict) -> dict:
@@ -2250,6 +2286,406 @@ def phase_app_cell_search():
     return line
 
 
+#: code blocks of the trellis-sharded decodes at K 6144 (JAX's
+#: dryrun_multichip part 2) and the shard counts of ``parallel_sp``
+SP_CBS, SP_SHARDS = 8, (2, 4)
+
+
+def sync_cards():
+    """Wait for every visible card (a mesh over several cards runs on all
+    of them)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Host-clock ms per call of ``fn`` up to a synchronize of every card,
+    mean of ``reps`` calls after one warm-up."""
+    fn()
+    sync_cards()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_cards()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def card_meshes():
+    """The meshes ``make_mesh`` builds over every visible card: its default
+    (carrier, sf) shape and all cards on sf, each once; none on one
+    card."""
+    import torch
+
+    from empower_srslte_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        return {}
+    out = {}
+    for mesh in (make_mesh(carriers=1), make_mesh()):
+        out.setdefault("cards_c{carrier}_sf{sf}".format(**mesh.shape), mesh)
+    return out
+
+
+def main_path_tti_code_blocks():
+    """One TTI of the main path as its turbo decoder receives it: a
+    subframe of ``tm4_stimulus`` through ``ue_dl_tm4_batch`` with a plan
+    whose decoders record their input (a subclass defined here, as
+    ``float32_plan``), -> (d_llr [20, 3, K+4] float32: 2 codewords x 10
+    code blocks of K 5760, K)."""
+    import dataclasses
+
+    import torch
+
+    from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
+    from empower_srslte_tpu_torch.models.sch import DlschPlan
+    from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
+    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
+
+    seen = []
+
+    class Recorded(TurboDecoder):
+        def decode(self, d_llr, *args, **kw):
+            seen.append(d_llr)
+            return super().decode(d_llr, *args, **kw)
+
+    class RecordedPlan(DlschPlan):
+        def decoder(self, k):
+            return Recorded(**dataclasses.asdict(super().decoder(k)))
+
+    st = tm4_stimulus(1, device="cuda")
+    plan = RecordedPlan(**{f.name: getattr(st.plan, f.name)
+                           for f in dataclasses.fields(st.plan)})
+    res = ue_dl_tm4_batch(st.samples, st.cfg, plan)
+    assert all(bool(o.all()) for o in res.crc_ok), "main-path TTI failed"
+    k = st.plan.segm.cb_sizes[0]
+    d_llr = torch.cat([d.reshape(-1, 3, k + 4) for d in seen])
+    return d_llr.to(torch.float32), k
+
+
+def phase_parallel_sp():
+    """The trellis-sharded NII decode (``parallel/turbo_sp.py
+    sp_turbo_decode_nii``) on an in-process mesh of n = 2 and 4 shards,
+    all on cuda:0, each shard one ``turbo_nii`` float32 launch per
+    half-iteration with its own bounds ((0, -1), (-1, -1), (-1, last)):
+    K 6144 x 8 code blocks at JAX's dry-run stimulus ((1 - 2d) * 8, 2
+    iterations) and at Eb/N0 1.2 dB (3 iterations), and one TTI of the
+    main path (2 codewords x 10 code blocks of K 5760, 3 iterations).
+    Bits and LLRs must equal the one-device NII decode at the same window
+    exactly, and the sent bits on the clean stimulus (every code block's
+    CRC24B on the TTI); every (shape, bounds) launched is held to the
+    twin at 0.0. Host-clock ms per decode are reported beside the
+    one-device decode's, not gated. Then ``sp_turbo_decode`` (the plain
+    sweeps with halos) on K 1024 x 4 code blocks at n 2. Where two cards
+    or more are visible, the three decodes run again on ``make_mesh``
+    over the cards (``card_meshes``), one shard per card, and must equal
+    the one-device decode as exactly; on one card the line says so."""
+    import numpy as np
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
+    from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
+    from empower_srslte_tpu_torch.parallel import (make_mesh,
+                                                   sp_turbo_decode,
+                                                   sp_turbo_decode_nii)
+    from empower_srslte_tpu_torch.parallel.turbo_sp import _pick_window
+    from empower_srslte_tpu_torch.utils.crc import CRC24B
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(71)
+    rng = np.random.default_rng(71)
+    u = torch.as_tensor(rng.integers(0, 2, (SP_CBS, 6144)), device=dev) \
+        .to(torch.int8)
+    clean = (1.0 - 2.0 * turbo_encode(u).to(torch.float32)) * 8.0
+    cb_u, noisy = awgn_code_blocks(g, 6144, SP_CBS, 1.2)
+    tti, k_tti = main_path_tti_code_blocks()
+    cases = {"k6144_clean": (clean, 6144, 2, u),
+             "k6144_noisy": (noisy, 6144, 3, None),
+             "main_path_tti": (tti, k_tti, 3, None)}
+    line, checks, shapes_all = {"phase": "parallel_sp"}, {}, []
+    checks["main_path_tti_20_cbs"] = tti.shape[0] == 20
+    total = 0
+    for name, (llr, k, its, sent) in cases.items():
+        for n in SP_SHARDS:
+            mesh = make_mesh(n, carriers=1, devices=[dev] * n)
+            l = _pick_window(k // n, 16)
+            one = TurboDecoder(k=k, iterations=its, window=l, impl="nii",
+                               dtype="float32")
+            ref_bits, ref_llr = one.decode(llr)
+            (bits, soft), launches, shapes = counted(
+                lambda: sp_turbo_decode_nii(llr, k, mesh, axis="sf",
+                                            iterations=its))
+            shapes_all.append(shapes)
+            total += launches["turbo_nii"]
+            tag = f"{name}_n{n}"
+            checks[f"{tag}_bits_equal_one_device"] = bool(
+                torch.equal(bits, ref_bits))
+            checks[f"{tag}_llrs_equal_one_device"] = bool(
+                torch.equal(soft, ref_llr))
+            if sent is not None:
+                checks[f"{tag}_bits_equal_sent"] = bool(torch.equal(bits,
+                                                                    sent))
+            if name == "main_path_tti":
+                checks[f"{tag}_every_cb_crc"] = bool(CRC24B.check(bits).all())
+            checks[f"{tag}_launches"] = launches["turbo_nii"] == 2 * its * n
+            line[tag] = {
+                "k": k, "cbs": llr.shape[0], "iterations": its, "window": l,
+                "windows_per_shard": k // n // l,
+                "launches_per_decode": launches["turbo_nii"],
+                "ms_sharded": host_ms(lambda: sp_turbo_decode_nii(
+                    llr, k, mesh, axis="sf", iterations=its)),
+                "ms_one_device": host_ms(lambda: one.decode(llr)),
+                "bit_errors_vs_sent": None if sent is None
+                else int((bits != sent).sum()),
+                "bit_errors_one_device_noisy": int((ref_bits != cb_u).sum())
+                if name == "k6144_noisy" else None}
+    multicard = {}
+    for mtag, mesh in card_meshes().items():
+        n = mesh.shape["sf"]
+        for name, (llr, k, its, sent) in cases.items():
+            one = TurboDecoder(k=k, iterations=its,
+                               window=_pick_window(k // n, 16), impl="nii",
+                               dtype="float32")
+            ref_bits, ref_llr = one.decode(llr)
+            (bits, soft), launches, shapes = counted(
+                lambda: sp_turbo_decode_nii(llr, k, mesh, axis="sf",
+                                            iterations=its))
+            shapes_all.append(shapes)
+            tag = f"{name}_{mtag}"
+            checks[f"{tag}_bits_equal_one_device"] = bool(
+                torch.equal(bits, ref_bits))
+            checks[f"{tag}_llrs_equal_one_device"] = bool(
+                torch.equal(soft, ref_llr))
+            checks[f"{tag}_launches"] = \
+                launches["turbo_nii"] == 2 * its * len(mesh.local())
+            multicard[tag] = {
+                "mesh": mesh.shape,
+                "devices": [str(d) for d in mesh.devices.flat],
+                "launches_per_decode": launches["turbo_nii"],
+                "ms_sharded": host_ms(lambda: sp_turbo_decode_nii(
+                    llr, k, mesh, axis="sf", iterations=its)),
+                "ms_one_device": host_ms(lambda: one.decode(llr))}
+    line["multicard"] = multicard or "not run: 1 card"
+    shapes = merge_shapes(*shapes_all)
+    twin = hold_shapes("parallel_sp", turbo_shapes(shapes), seed=72)
+    checks["every_bounds_variant_launched"] = {
+        "first", "interior", "last"} <= {
+        bounds_kind(v["bounds"], v["k"] // v["window"])
+        for v in twin["turbo_nii"].values()}
+    checks.update(turbo_checks(twin))
+
+    k = 1024
+    uh = u[:4, :k].contiguous()
+    llr_h = (1.0 - 2.0 * turbo_encode(uh).to(torch.float32)) * 8.0
+    mesh = make_mesh(2, carriers=1, devices=[dev] * 2)
+    t0 = time.perf_counter()
+    (bits_h, _), launches_h, _ = counted(
+        lambda: sp_turbo_decode(llr_h, k, mesh, axis="sf", iterations=2))
+    line["halo_k1024_n2"] = {"k": k, "cbs": 4, "iterations": 2,
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": launches_h}
+    checks["halo_bits_equal_sent"] = bool(torch.equal(bits_h, uh))
+    checks["halo_no_kernel"] = not any(launches_h.values())
+    emit({**line, "turbo_shapes": twin, "checks": checks})
+    check("parallel_sp", checks)
+    return {"turbo_nii": total}, twin
+
+
+def batch_on_mesh(st, mesh):
+    """``tm4_stimulus``'s batch split by ``shard_batch`` over ``mesh``'s
+    (carrier, sf) axes, each shard its own ``ue_dl_tm4_batch`` call
+    (``smap``): -> (the run, and a function of the unsharded result
+    giving, per field, whether every shard's equals its rows)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
+    from empower_srslte_tpu_torch.parallel import shard_batch
+    from empower_srslte_tpu_torch.parallel.mesh import smap
+
+    c, s = mesh.shape["carrier"], mesh.shape["sf"]
+    per = BATCH // (c * s)
+    x = st.samples.reshape(c, s, per, *st.samples.shape[1:])
+
+    def run():
+        return smap(lambda blk: ue_dl_tm4_batch(
+            blk.reshape(per, *blk.shape[3:]), st.cfg, st.plan),
+            shard_batch(mesh, x))
+
+    def same(out, ref):
+        eq = lambda a, b: bool(torch.equal(a.to(b.device), b))
+        res = {"tb_bits": True, "crc_ok": True, "cfi": True,
+               "dci_hits": True}
+        for (ci, si), r in out.items():
+            rows = slice((ci * s + si) * per, (ci * s + si + 1) * per)
+            for cw in range(2):
+                res["tb_bits"] &= eq(r.tb_bits[cw], ref.tb_bits[cw][rows])
+                res["crc_ok"] &= eq(r.crc_ok[cw], ref.crc_ok[cw][rows])
+            res["cfi"] &= eq(r.cfi, ref.cfi[rows])
+            res["dci_hits"] &= eq(r.dci_hits, ref.dci_hits[rows])
+        return res
+
+    return run, same
+
+
+def mini_on_mesh(mini, tbs: int, mesh, dev):
+    """``build_uedl_mini``'s step over ``mesh``'s (carrier, sf) axes, one
+    subframe a shard: -> (host ms, launches, shapes, the ok flags summed
+    over both axes, whether every shard's bits equal its TB)."""
+    import torch
+
+    from empower_srslte_tpu_torch.parallel import shard_batch
+    from empower_srslte_tpu_torch.parallel.comm import psum
+    from empower_srslte_tpu_torch.parallel.mesh import smap
+
+    tb = torch.randint(0, 2, (mesh.shape["carrier"], mesh.shape["sf"], tbs),
+                       device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(7)) \
+        .to(torch.int8)
+    t0 = time.perf_counter()
+    out, launches, shapes = counted(lambda: smap(mini, shard_batch(mesh, tb)))
+    sync_cards()
+    ms = (time.perf_counter() - t0) * 1e3
+    n_ok = psum(mesh, {co: ok.to(torch.int32).sum()
+                       for co, (_, ok) in out.items()}, ("carrier", "sf"))
+    bits = all(torch.equal(b[0, 0], tb[co].to(b.device))
+               for co, (b, _) in out.items())
+    return ms, launches, shapes, sorted({int(v) for v in n_ok.values()}), bits
+
+
+def phase_parallel_batch():
+    """The main path's 256-subframe batch (``tm4_stimulus`` ->
+    ``ue_dl_tm4_batch``) split by ``shard_batch`` over an in-process
+    ``make_mesh`` of 4 shards on cuda:0 (carrier 2 x sf 2, 64 subframes a
+    shard), each shard its own receiver call (``smap``): every TB, CRC
+    flag, CFI and DCI count must equal the unsharded call's. Then
+    ``build_uedl_mini`` (the 6-PRB no-genie chain of the multi-process
+    dry run) over a (2, 2) mesh, its ok flags summed over both axes: 4.
+    Where two cards or more are visible, both run again on ``make_mesh``
+    over the cards (``card_meshes``) with the same checks; on one card
+    the line says so. Kernels are held to their twins at every shape
+    launched."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
+    from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
+    from empower_srslte_tpu_torch.parallel import make_mesh
+    from empower_srslte_tpu_torch.parallel.validate import build_uedl_mini
+
+    dev = torch.device("cuda", 0)
+    st = tm4_stimulus(BATCH, device="cuda")
+    mesh = make_mesh(4, devices=[dev] * 4)
+    run_one = lambda: ue_dl_tm4_batch(st.samples, st.cfg, st.plan)
+    run_sharded, same_as = batch_on_mesh(st, mesh)
+    ref = run_one()
+    out, launches, shapes = counted(run_sharded)
+    same = same_as(out, ref)
+    ms_one, ms_sharded = host_ms(run_one), host_ms(run_sharded)
+    ms_sharded2, ms_one2 = host_ms(run_sharded), host_ms(run_one)
+
+    mini, tbs = build_uedl_mini(seed=7, device=dev)
+    mesh2 = make_mesh(4, carriers=2, devices=[dev] * 4)
+    ms_mini, mini_launches, mini_shapes, mini_ok, mini_bits = mini_on_mesh(
+        mini, tbs, mesh2, dev)
+    checks = {**{f"{k}_equal_unsharded": v for k, v in same.items()},
+              "every_crc_ok": bool(all(o.all() for o in ref.crc_ok)),
+              "bits_equal_sent": bool(torch.equal(ref.tb_bits[0], st.tb)
+                                      and torch.equal(ref.tb_bits[1], st.tb2)),
+              "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+              "viterbi_launched": launches["viterbi37"] > 0,
+              "mini_ok_sum": mini_ok == [4],
+              "mini_bits_equal_sent": mini_bits,
+              "mini_viterbi_launched": mini_launches["viterbi37"] > 0}
+    shapes_all = [shapes, mini_shapes]
+    multicard = {}
+    for mtag, cmesh in card_meshes().items():
+        run_cards, same_cards = batch_on_mesh(st, cmesh)
+        c_out, c_launches, c_shapes = counted(run_cards)
+        for k, v in same_cards(c_out, ref).items():
+            checks[f"{mtag}_{k}_equal_unsharded"] = v
+        ms_c, mc_launches, mc_shapes, mc_ok, mc_bits = mini_on_mesh(
+            mini, tbs, cmesh, dev)
+        checks[f"{mtag}_mini_ok_sum"] = mc_ok == [len(cmesh.local())]
+        checks[f"{mtag}_mini_bits_equal_sent"] = mc_bits
+        shapes_all += [c_shapes, mc_shapes]
+        multicard[mtag] = {
+            "mesh": cmesh.shape,
+            "devices": [str(d) for d in cmesh.devices.flat],
+            "ms_sharded": host_ms(run_cards), "launches": c_launches,
+            "mini": {"ms": ms_c, "ok_sum": mc_ok, "launches": mc_launches}}
+    twin = hold_shapes("parallel_batch", merge_shapes(*shapes_all), seed=73)
+    checks.update(turbo_checks(twin))
+    checks["viterbi_twin_exact_every_shape"] = all(
+        v["mismatched_bits"] == 0 for v in twin["viterbi37"].values())
+    emit({"phase": "parallel_batch", "batch": BATCH, "mesh": mesh.shape,
+          "subframes_per_shard": BATCH // len(mesh.local()),
+          "ms_unsharded": (ms_one + ms_one2) / 2,
+          "ms_sharded": (ms_sharded + ms_sharded2) / 2,
+          "turns_ms": [ms_one, ms_sharded, ms_sharded2, ms_one2],
+          "launches": launches, "mini": {
+              "mesh": mesh2.shape, "tbs": tbs, "ms": ms_mini,
+              "ok_sum": mini_ok, "launches": mini_launches},
+          "multicard": multicard or "not run: 1 card",
+          "shapes": twin, "checks": checks})
+    check("parallel_batch", checks)
+    return {k: launches[k] + mini_launches[k] for k in launches}, twin
+
+
+def run_multihost(backend: str) -> dict:
+    """``tools/multihost_dryrun.py`` with 2 processes on ``backend``,
+    part B at K 1024 and 6144: -> rank 0's JSON line (``None`` if absent),
+    the return code and whether it printed MULTIHOST_OK, with the wall
+    seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "empower_srslte_tpu_torch.tools."
+         "multihost_dryrun", "2", "--backend", backend], cwd=ROOT,
+        capture_output=True, text=True, timeout=360)
+    report = next((json.loads(ln) for ln in out.stdout.splitlines()
+                   if ln.startswith('{"rank"')), None)
+    (OUT_DIR / f"multihost_{backend}.log").write_text(out.stdout
+                                                      + out.stderr)
+    return {"rc": out.returncode, "ok": "MULTIHOST_OK" in out.stdout,
+            "seconds": time.perf_counter() - t0, "report": report}
+
+
+def phase_multihost():
+    """The port's multi-process dry run on the card: 2 OS processes, each
+    with 4 shards on cuda:0, over gloo (the exchanges staged through host
+    memory): the 6-PRB chain over (host, carrier, sf) with a cross-process
+    sum, and the trellis-sharded NII decode with axis "host" at K 1024 and
+    6144 x 8 code blocks. It must print MULTIHOST_OK. With two cards or
+    more it runs again over NCCL, one card per process; with one the line
+    says so and nothing stands in for it. The workers count their own
+    launches; each (shape, bounds) they report is held to the twin here."""
+    import torch
+
+    gloo = run_multihost("gloo")
+    cards = torch.cuda.device_count()
+    nccl = run_multihost("nccl") if cards >= 2 else "not run: 1 card"
+    by_bounds = {}
+    for run in (gloo, nccl):
+        if isinstance(run, dict) and run["report"]:
+            for part in run["report"]["part_b"]:
+                for *key, c in part["by_bounds"]:
+                    by_bounds[tuple(key)] = by_bounds.get(tuple(key), 0) + c
+    twin = hold_shapes("multihost", {"turbo_nii": by_bounds}, seed=74)
+    launches = sum(p["launches"] for run in (gloo, nccl)
+                   if isinstance(run, dict) and run["report"]
+                   for p in run["report"]["part_b"])
+    checks = {"gloo_multihost_ok": gloo["rc"] == 0 and gloo["ok"],
+              "gloo_report": gloo["report"] is not None,
+              "turbo_launched": launches > 0 and bool(twin["turbo_nii"]),
+              **turbo_checks(twin)}
+    if isinstance(nccl, dict):
+        checks["nccl_multihost_ok"] = nccl["rc"] == 0 and nccl["ok"]
+    emit({"phase": "multihost", "cards": cards, "gloo": gloo, "nccl": nccl,
+          "launches_in_workers": launches, "turbo_shapes": twin,
+          "checks": checks})
+    check("multihost", checks)
+    return {"turbo_nii": launches}, twin
+
+
 def float32_plan(plan):
     """``plan`` (a ``DlschPlan``) with its turbo decoders pinned to
     ``TurboDecoder.dtype = "float32"``, through a subclass defined here:
@@ -2400,6 +2836,18 @@ def main() -> int:
     (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
     phase_device()
     phase_build()
+    if "--phases" in sys.argv:
+        names = sys.argv[sys.argv.index("--phases") + 1].split(",")
+        alone = {"parallel_sp": phase_parallel_sp,
+                 "parallel_batch": phase_parallel_batch,
+                 "multihost": phase_multihost}
+        for name in names:
+            alone[name]()
+        emit({"ok": True, "phases": names,
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return 0
     turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
@@ -2434,6 +2882,9 @@ def main() -> int:
     apps = {"app_pdsch": app_pdsch,
             "app_stream": phase_app_stream(app_run),
             "app_cell_search": phase_app_cell_search()}
+    sp_launches, sp_shapes = phase_parallel_sp()
+    batch_launches, batch_shapes = phase_parallel_batch()
+    mh_launches, mh_shapes = phase_multihost()
     pair = phase_precision_pair()
     gate_launches, gate_shapes = phase_bler_gate()
     shaped = {**stack, **apps}
@@ -2443,6 +2894,8 @@ def main() -> int:
                "cold_boot": cold, "pbch_batch": pbch,
                "pmch_path": pmch_launches,
                **{k: v["launches"] for k, v in shaped.items()},
+               "parallel_sp": sp_launches, "parallel_batch": batch_launches,
+               "multihost": mh_launches,
                **{f"precision_pair_{path}_{prec}": v
                   for path, by in pair.items() for prec, v in by.items()},
                "bler_gate": gate_launches}
@@ -2451,6 +2904,8 @@ def main() -> int:
                    "ue_dl_frame": frame_shapes, "uplink_int8": ul8_shapes,
                    "uplink_msg3": msg3_shapes, "cold_boot": cold_shapes,
                    "pmch_path": pmch_shapes, "bler_gate": gate_shapes,
+                   "parallel_sp": sp_shapes, "parallel_batch": batch_shapes,
+                   "multihost": mh_shapes,
                    **{k: v["shapes"] for k, v in shaped.items()}}
 
     def per_path(name):
@@ -2464,6 +2919,11 @@ def main() -> int:
         shapes = {p: {n: v for n, v in sh.get(module, {}).items()
                       if v["dtype"] == dt}
                   for p, sh in path_shapes.items()}
+        by_bounds = {}
+        for v in (v for sh in shapes.values() for v in sh.values()
+                  if "bounds" in v):
+            kind = bounds_kind(v["bounds"], v["k"] // v["window"])
+            by_bounds[kind] = max(by_bounds.get(kind, 0.0), v["max_abs_err"])
         return {"name": name, "route": "cuda",
                 "source": f"empower_srslte_tpu_torch/csrc/{module}.cu",
                 "replaces": REPLACES[module], "dtype": dt,
@@ -2472,6 +2932,7 @@ def main() -> int:
                 "max_abs_err": max([entry["max_abs_err"],
                                     *PATH_TWIN[name].values()]),
                 "max_abs_err_by_path_geometry": PATH_TWIN[name],
+                **({"max_abs_err_by_bounds": by_bounds} if by_bounds else {}),
                 "by_path_shape": {p: v for p, v in shapes.items() if v},
                 "ptxas": ptxas_of(module, "OpsBf16x2" if dt == "bfloat16"
                                   else "OpsF32"),

@@ -160,19 +160,26 @@ def _map_decode(lsa, lp, n_tail: int, init_alpha, init_beta):
     return llrs[:lsa.shape[0] - n_tail] if n_tail else llrs
 
 
-def _prepare_windows(lsa, lp, k: int, overlap: int, window: int):
+def _prepare_windows(lsa, lp, k: int, overlap: int, window: int,
+                     halo=None):
     """The windowed sweeps' inputs, time-major with windows in lanes
     (lane = w * B + b): lsa_a, lp_a [O+L, W*B] (alpha: O training rows
     before each window), lsa_b, lp_b [L+O, W*B] (beta: O after).
-    Out-of-trellis rows hold systematic PAD_LLR and parity 0."""
+    lsa/lp are [T, B] with T = K + 3, or the K local rows of a trellis
+    slice (parallel/turbo_sp.py). Out-of-trellis rows hold systematic
+    PAD_LLR and parity 0, unless ``halo`` = (lead_lsa, lead_lp, trail_lsa,
+    trail_lp), each [O+3, B], gives the neighbours' real rows."""
     b = lsa.shape[1]
     if k % window or not 3 <= overlap <= window:
         raise ValueError(f"K {k}, window {window}, overlap {overlap}")
     w, l, o = k // window, window, overlap
-    pad_s = lsa.new_full((o + 3, b), PAD_LLR)
-    pad_p = lp.new_zeros((o + 3, b))
-    lsa_pd = torch.cat([pad_s, lsa, pad_s])                # shift +O+3
-    lp_pd = torch.cat([pad_p, lp, pad_p])
+    if halo is None:
+        pad_s = lsa.new_full((o + 3, b), PAD_LLR)
+        pad_p = lp.new_zeros((o + 3, b))
+        halo = (pad_s, pad_p, pad_s, pad_p)
+    lead_s, lead_p, trail_s, trail_p = halo
+    lsa_pd = torch.cat([lead_s, lsa, trail_s])             # shift +O+3
+    lp_pd = torch.cat([lead_p, lp, trail_p])
     base = np.arange(w)[:, None] * l
     idx_a = base + np.arange(-o, l)[None, :] + (o + 3)     # [W, O+L]
     idx_b = base + np.arange(0, l + o)[None, :] + (o + 3)  # [W, L+O]
@@ -188,7 +195,8 @@ def _prepare_windows(lsa, lp, k: int, overlap: int, window: int):
 
 
 def _windowed_map_decode(lsa, lp, k: int, overlap: int, window: int,
-                         init_alpha, init_beta):
+                         init_alpha, init_beta, halo=None,
+                         boundary=(True, True)):
     """Windowed max-log-MAP with overlap training (the JAX package's XLA
     windowed scan, turbo_decoder.py:147-296).
 
@@ -198,18 +206,25 @@ def _windowed_map_decode(lsa, lp, k: int, overlap: int, window: int,
     steps from uniform metrics. Window 0's alpha and the last window's
     beta start from init_alpha / init_beta [8], carried through their
     padded training rows by the PAD_LLR construction; the last window's
-    beta training covers the 3 real termination rows. The JAX version's
-    ``halo`` / ``boundary`` arguments (sequence-parallel decoding) are
-    not ported. Returns llr_out [K, B].
+    beta training covers the 3 real termination rows.
+
+    Sequence-parallel decoding (parallel/turbo_sp.py) passes a slice of K
+    rows with ``halo``, the neighbours' rows in place of the padding
+    (``_prepare_windows``); ``boundary`` = (first, last) False starts that
+    end's window from uniform metrics instead of init_alpha / init_beta,
+    as an interior slice does. Returns llr_out [K, B].
     """
     b = lsa.shape[1]
     w, l, o = k // window, window, overlap
     tb = _sweep_tables(lsa.device, lsa.dtype)
-    lsa_a, lp_a, lsa_b, lp_b = _prepare_windows(lsa, lp, k, o, l)
+    lsa_a, lp_a, lsa_b, lp_b = _prepare_windows(lsa, lp, k, o, l, halo)
     zeros = torch.zeros((8, w - 1, b), dtype=lsa.dtype, device=lsa.device)
-    edge = lambda m: m[:, None, None].expand(8, 1, b)
-    alpha0 = torch.cat([edge(init_alpha), zeros], 1).reshape(8, w * b)
-    beta0 = torch.cat([zeros, edge(init_beta)], 1).reshape(8, w * b)
+    edge = lambda m, exact: (m if exact else torch.zeros_like(m))[
+        :, None, None].expand(8, 1, b)
+    alpha0 = torch.cat([edge(init_alpha, boundary[0]), zeros], 1) \
+        .reshape(8, w * b)
+    beta0 = torch.cat([zeros, edge(init_beta, boundary[1])], 1) \
+        .reshape(8, w * b)
     betas = _beta_sweep(lsa_b, lp_b, beta0, tb)[:l]
     llrs = _alpha_sweep(lsa_a, lp_a, betas, alpha0, tb, skip=o)  # [L, W*B]
     return llrs.view(l, w, b).transpose(0, 1).reshape(k, b)

@@ -59,8 +59,11 @@ GROUP = 16
 LAUNCHES = 0
 #: bfloat16 kernel launches made by ``map_decode_nii``
 LAUNCHES_BF16 = 0
-#: the same launches per shape (K, window l, code blocks, dtype name:
-#: "float32" or "bfloat16"); reset it with ``LAUNCHES_BY_SHAPE.clear()``
+#: the same launches per shape and resolved ``bounds`` (K, window l, code
+#: blocks, dtype name: "float32" or "bfloat16", first, last): a whole
+#: trellis launches at (0, W-1), a trellis-sharded decode
+#: (parallel/turbo_sp.py) its edge shards at (0, -1) and (-1, last), its
+#: interior ones at (-1, -1); reset it with ``LAUNCHES_BY_SHAPE.clear()``
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 #: shared memory one block may use on sm_90 (227 KB)
@@ -265,20 +268,24 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
     ext = torch.empty_like(u)
     a_next = torch.empty_like(a_st)
     b_next = torch.empty_like(b_st)
-    rc = _lib(dt)(u.data_ptr(), p.data_ptr(),
-                  None if apr is None else apr.data_ptr(),
-                  tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
-                  b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
-                  b_next.data_ptr(), u.shape[1], l, w_count, first, last,
-                  plan.threads, plan.smem,
-                  torch.cuda.current_stream(u.device).cuda_stream)
+    # the launcher calls the runtime on the current device and stream 0 of
+    # a device is its legacy default stream: both must be u's card
+    with torch.cuda.device(u.device):
+        rc = _lib(dt)(u.data_ptr(), p.data_ptr(),
+                      None if apr is None else apr.data_ptr(),
+                      tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
+                      b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
+                      b_next.data_ptr(), u.shape[1], l, w_count, first, last,
+                      plan.threads, plan.smem,
+                      torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
     if dt == torch.bfloat16:
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."))] += 1
+    LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."), first,
+                       last)] += 1
     if odd:
         ext, a_next, b_next = (x[..., :b].contiguous()
                                for x in (ext, a_next, b_next))

@@ -216,9 +216,10 @@ def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     # the beta carry entering each segment above the first, per window
     ckpt = torch.empty((len(plan.checkpoints), 8, k // l * bp), dtype=dt,
                        device=lsa.device)
-    rc = _lib(dt)(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
-                  ckpt.data_ptr(), bp, k, l, o, plan.threads, plan.smem,
-                  torch.cuda.current_stream(lsa.device).cuda_stream)
+    with torch.cuda.device(lsa.device):      # the launcher's device
+        rc = _lib(dt)(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
+                      ckpt.data_ptr(), bp, k, l, o, plan.threads, plan.smem,
+                      torch.cuda.current_stream(lsa.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_win kernel launch failed: CUDA error {rc}")
     if dt == torch.bfloat16:

@@ -85,9 +85,10 @@ def viterbi_regs_cuda(llr: torch.Tensor, halo: int) -> torch.Tensor:
     regs = torch.empty((b, n_regs), dtype=torch.int32, device=llr.device)
     if b == 0:
         return regs
-    rc = _lib()(llr.data_ptr(), regs.data_ptr(), b, k, halo, n_regs,
-                plan.warps, plan.smem,
-                torch.cuda.current_stream(llr.device).cuda_stream)
+    with torch.cuda.device(llr.device):      # the launcher's device
+        rc = _lib()(llr.data_ptr(), regs.data_ptr(), b, k, halo, n_regs,
+                    plan.warps, plan.smem,
+                    torch.cuda.current_stream(llr.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"viterbi37 kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

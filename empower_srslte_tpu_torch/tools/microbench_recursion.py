@@ -89,9 +89,11 @@ def recursion_probe(x: torch.Tensor, steps: int) -> torch.Tensor:
         raise ValueError(f"{per_state} elements per state: not a multiple "
                          f"of {pack}")
     out = torch.empty_like(x)
-    rc = _launcher(symbol)(x.data_ptr(), out.data_ptr(), per_state // pack,
-                           steps, torch.cuda.current_stream(x.device)
-                           .cuda_stream)
+    with torch.cuda.device(x.device):        # the launcher's device
+        rc = _launcher(symbol)(x.data_ptr(), out.data_ptr(),
+                               per_state // pack, steps,
+                               torch.cuda.current_stream(x.device)
+                               .cuda_stream)
     if rc != 0:
         raise RuntimeError(f"recursion_probe kernel launch failed: CUDA "
                            f"error {rc}")

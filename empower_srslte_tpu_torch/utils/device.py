@@ -37,7 +37,10 @@ _TABLES: dict = {}
 def device_table(key, device: torch.device, build):
     """Host-built constant (numpy array from ``build()``) as a tensor on
     ``device``, cached per (key, device) so static index tables cross the
-    host-device boundary once."""
+    host-device boundary once. A bare ``"cuda"`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     k = (key, str(device))
     t = _TABLES.get(k)
     if t is None:
