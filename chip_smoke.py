@@ -42,9 +42,17 @@ shape it launched against the twin of that shape's dtype:
   attach with S1AP over a local socket on a 15 dB air, then a ping and a
   pong on the user plane (``stack_attach``); TM4's two codewords on a
   2-port cell (``stack_tm4``); a UE's cold boot from cell search to
-  attach (``stack_cold_boot``). Each phase times every ``enb.tti`` and
-  ``ue.tti`` and holds both kernels to their twins at every shape it
-  launched;
+  attach (``stack_cold_boot``); then the JAX stack tests' remaining
+  scenarios with their asserts as checks: two UEs on a 20 MHz cell, their
+  uplink summed (``stack_multi_ue``); SR/BSR, periodic CQI, DL and UL
+  HARQ, SRB1 over RLC AM and radio-link failure (``stack_mac_harq``);
+  paging, periodic TAU and the TAU on a TAC change (``stack_idle``); the
+  S1 handover and idle reselection between two eNBs on one channel, and
+  the cell-selection rejections (``stack_mobility``); subband CQI and
+  periodic RI (``stack_csi``); these run the scenarios of
+  ``tools/stack_scenarios.py``, which the CPU tests run too. Each phase
+  times every ``enb.tti`` and ``ue.tti`` and holds both kernels to their
+  twins at every shape it launched;
 * the README's example chain at 20 MHz through the example programs'
   own entry points (``empower_srslte_tpu_torch.apps``): ``pdsch_enodeb``
   writes 10 frames (MCS 16 on 98 PRB) and ``pdsch_ue`` syncs and decodes
@@ -84,8 +92,10 @@ and the port's kernel in turns (baseline, port, port, baseline) and puts
 both on its phase line.
 
 ``--phases`` runs the build and the named phases alone (any of
-``parallel_sp``, ``parallel_batch`` and ``multihost``: the phases that
-use a second card where one is visible), then the last line with
+``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
+use a second card where one is visible, and the stack scenario phases
+``stack_multi_ue``, ``stack_mac_harq``, ``stack_idle``,
+``stack_mobility`` and ``stack_csi``), then the last line with
 ``"phases"`` naming them, and no kernels line.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
@@ -1855,38 +1865,79 @@ def ms_stats(v) -> dict:
             "p95": float(np.percentile(v, 95)), "max": float(max(v))}
 
 
-def stack_run(phase: str, enb, ue, air, max_tti: int, step, seed: int):
-    """Drive an eNB/UE pair over ``air`` for up to ``max_tti`` TTIs with
-    every kernel's launch counts (and per-shape counts) at 0 and the
-    device's peak memory reset; ``step(tti)`` runs after each TTI and
-    returns True to stop. Each ``enb.tti`` / ``ue.tti`` is timed on the
-    host clock up to a synchronize (the air is host memory, so each TTI
-    ends in host reads anyway). Then each kernel is held to its twin, and
-    timed, at every shape the run launched. -> the phase line's fields."""
-    import torch
+#: every (kernel, shape name) the stack phases of this run launched so far
+#: (``StackPhase.close``'s ``new_shapes`` are those not in it)
+STACK_SHAPES: set = set()
+#: the two-UE phase's cell width: 20 MHz, the widest LTE carrier
+MULTI_UE_PRB = 100
 
-    mods = open_counts()
-    ms_enb, ms_ue = [], []
-    ul_iq, n = None, 0
-    for tti in range(max_tti):
-        t0 = time.perf_counter()
-        dl_iq = enb.tti(tti, air.ul(ul_iq, advance=ue.timing_advance)
-                        if ul_iq is not None else None)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ul_iq = ue.tti(tti, air.dl(dl_iq))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        ms_enb.append((t1 - t0) * 1e3)
-        ms_ue.append((t2 - t1) * 1e3)
-        n = tti + 1
-        if step(tti):
-            break
-    launches, shapes = read_counts(mods)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    return dict(ttis=n, ms_enb_tti=ms_stats(ms_enb), ms_ue_tti=ms_stats(ms_ue),
-                launches=launches, peak_mem_gb=peak,
-                shapes=hold_shapes(phase, shapes, seed))
+
+class StackPhase:
+    """One stack phase on the card: its scenarios' ``StackDrive``\\ s
+    (made with ``drive``, through a ``ScenarioRun`` on "cuda" of
+    ``tools/stack_scenarios.py``; every ``enb.tti`` / ``ue.tti`` timed on
+    the host clock up to a synchronize: the air is host memory, so each
+    TTI ends in host reads anyway), with every kernel's launch counts (and
+    per-shape counts) at 0 and the device's peak memory reset when the
+    phase opens, read when it closes: over all of its scenarios."""
+
+    def __init__(self, phase: str, seed: int):
+        import torch
+
+        from empower_srslte_tpu_torch.tools.stack_scenarios import \
+            ScenarioRun
+
+        self.phase, self.seed = phase, seed
+        self.run = ScenarioRun("cuda", sync=torch.cuda.synchronize)
+        self.scenarios: dict = {}
+        self.checks: dict = {}
+        self.mods = open_counts()
+
+    def drive(self, enbs, ues, **kw):
+        return self.run.drive(enbs, ues, **kw)
+
+    def scenario(self, fn, **kw) -> None:
+        """Run the scenario ``fn(self.run, **kw)`` (its checks: the JAX
+        test's asserts, and what else its line reports); its checks join
+        the phase's as ``{name}.{check}``."""
+        first = len(self.run.drives)
+        checks, info = fn(self.run, **kw)
+        self.scenarios[fn.__name__] = {
+            **drive_stats(self.run.drives[first:]), **info}
+        self.checks.update({f"{fn.__name__}.{k}": bool(v)
+                            for k, v in checks.items()})
+
+    def close(self) -> dict:
+        """The phase line's fields over the whole phase: TTIs, ms per
+        ``enb.tti`` / ``ue.tti``, launches, peak memory, each kernel held
+        to its twin and timed at every shape the phase launched
+        (``hold_shapes``), and the shapes no earlier stack phase of this
+        run launched."""
+        import torch
+
+        launches, shapes = read_counts(self.mods)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        held = hold_shapes(self.phase, shapes, self.seed)
+        names = {(k, n) for k, by in held.items() for n in by}
+        new = sorted(f"{k}:{n}" for k, n in names - STACK_SHAPES)
+        STACK_SHAPES.update(names)
+        stats = drive_stats(self.run.drives)
+        stats.pop("event_tti", None)
+        return dict(**stats, launches=launches, peak_mem_gb=peak,
+                    shapes=held, new_shapes=new)
+
+
+def drive_stats(drives) -> dict:
+    """TTIs run, ms per ``enb.tti`` and per ``ue.tti`` (median, p95, max;
+    None where none ran) and the TTI of each watched event, over
+    ``drives``."""
+    enb = [t for d in drives for ms in d.ms_enb for t in ms]
+    ue = [t for d in drives for ms in d.ms_ue for t in ms]
+    out = dict(ttis=sum(d.tti for d in drives),
+               ms_enb_tti=ms_stats(enb) if enb else None,
+               ms_ue_tti=ms_stats(ue) if ue else None)
+    events = {k: v for d in drives for k, v in d.event_tti.items()}
+    return {**out, "event_tti": events} if events else out
 
 
 def shape_checks(shapes: dict, launches: dict) -> dict:
@@ -1907,11 +1958,6 @@ def shape_checks(shapes: dict, launches: dict) -> dict:
 STACK_PING = b"\x45\x00" + bytes(18) + b"PING-FROM-UE-01"
 
 
-def stack_pong(ue, tag: bytes) -> bytes:
-    return (b"\x45\x00" + bytes(14)
-            + bytes(map(int, ue.rrc.nas.ue_ip.split("."))) + tag)
-
-
 def phase_stack_attach():
     """The entry point's path (``apps/lte_attach.py``) at the JAX stack
     tests' size, Cell(25 PRB, id 1): S1AP over a local socket, air at 15 dB
@@ -1924,8 +1970,10 @@ def phase_stack_attach():
     from empower_srslte_tpu_torch.s1ap.procedures import EnbS1ap, MmeS1ap
     from empower_srslte_tpu_torch.s1ap.transport import S1Client, S1Server
     from empower_srslte_tpu_torch.stack import Air, EnbStack, UeStack
+    from empower_srslte_tpu_torch.tools.stack_scenarios import pong
     from empower_srslte_tpu_torch.utils.cell import Cell
 
+    ph = StackPhase("stack_attach", seed=80)
     mme, nas = lte_attach.epc()
     mme_s1 = MmeS1ap(mme=mme)
     server = S1Server(mme_s1.handle)
@@ -1942,14 +1990,16 @@ def phase_stack_attach():
             if not attached and ue.rrc.nas.attached and ue.rrc.drbs:
                 attached.append(tti)
                 ue.send_ip(STACK_PING)
-                fwd = mme.spgw.downlink(stack_pong(ue, b"PONG-TO-THE-UE!"))
+                fwd = mme.spgw.downlink(pong(ue.rrc.nas.ue_ip,
+                                             b"PONG-TO-THE-UE!"))
                 enb.deliver_gtpu(fwd[1])
             return bool(enb.ul_gtpu and ue.rx_ip)
 
-        line = stack_run("stack_attach", enb, ue, air, 100, step, seed=80)
+        ph.drive([enb], [ue], air=air).run(100, step)
     finally:
         server.close()
         client.close()
+    line = ph.close()
     sgi = mme.spgw.uplink(enb.ul_gtpu[0]) if enb.ul_gtpu else b""
     checks = {"attached": ue.rrc.nas.attached,
               "drbs": ue.rrc.drbs == [1],
@@ -1974,8 +2024,10 @@ def phase_stack_tm4():
     down, and must ride one format-2 grant (two codewords)."""
     from empower_srslte_tpu_torch.apps import lte_attach
     from empower_srslte_tpu_torch.stack import Air, EnbStack, UeStack
+    from empower_srslte_tpu_torch.tools.stack_scenarios import pong
     from empower_srslte_tpu_torch.utils.cell import Cell
 
+    ph = StackPhase("stack_tm4", seed=90)
     mme, nas = lte_attach.epc()
     cell = Cell(nof_prb=25, id=1, nof_ports=2)
     enb = EnbStack(cell, mme, device="cuda")
@@ -1990,11 +2042,13 @@ def phase_stack_tm4():
         if attached and not pushed and tti == attached[0] + 12:
             pushed.append(tti)
             for tag, fill in zip(tags, (b"0", b"1")):
-                fwd = mme.spgw.downlink(stack_pong(ue, tag + fill * 140))
+                fwd = mme.spgw.downlink(pong(ue.rrc.nas.ue_ip,
+                                             tag + fill * 140))
                 enb.deliver_gtpu(fwd[1])
         return bool(pushed) and len(ue.rx_ip) >= 2
 
-    line = stack_run("stack_tm4", enb, ue, air, 140, step, seed=90)
+    ph.drive([enb], [ue], air=air).run(140, step)
+    line = ph.close()
     checks = {"attached": bool(attached),
               "tm4_tx": any(e.startswith("tm4_tx") for e in enb.events),
               "both_tagged_packets": {p[20:35] for p in ue.rx_ip}
@@ -2015,37 +2069,70 @@ def phase_stack_cold_boot():
     camps and attaches, within 260 TTIs."""
     from empower_srslte_tpu_torch.apps import lte_attach
     from empower_srslte_tpu_torch.stack import Air, EnbStack, UeStack
+    from empower_srslte_tpu_torch.tools.stack_scenarios import has
     from empower_srslte_tpu_torch.utils.cell import Cell
 
+    ph = StackPhase("stack_cold_boot", seed=100)
     mme, nas = lte_attach.epc()
     cell = Cell(nof_prb=25, id=77)
     enb = EnbStack(cell, mme, rsi=384, broadcast=True, device="cuda")
     ue = UeStack(Cell(nof_prb=25, id=0), nas, rsi=0, cold_start=True,
                  device="cuda")
-    air = Air(cell.sf_sample_len)
-    line = stack_run("stack_cold_boot", enb, ue, air, 260,
-                     lambda tti: ue.rrc.nas.attached and bool(ue.rrc.drbs),
-                     seed=100)
-    ev = ue.events
-    checks = {"cell_found_id77": any(e.startswith("cell_found_id77")
-                                     for e in ev),
-              "mib_prb25": any(e.startswith("mib_prb25") for e in ev),
-              "sib1_acquired": "sib1_acquired" in ev,
-              "sib2_acquired_rsi384": any(
-                  e.startswith("sib2_acquired_rsi384") for e in ev),
-              "camped": "camped" in ev,
+    ph.drive([enb], [ue], air=Air(cell.sf_sample_len)).run(
+        260, lambda tti: ue.rrc.nas.attached and bool(ue.rrc.drbs))
+    line = ph.close()
+    log = ue.events
+    checks = {"cell_found_id77": has(log, "cell_found_id77"),
+              "mib_prb25": has(log, "mib_prb25"),
+              "sib1_acquired": "sib1_acquired" in log,
+              "sib2_acquired_rsi384": has(log, "sib2_acquired_rsi384"),
+              "camped": "camped" in log,
               "cell_acquired": ue.cell.id == 77 and ue.cell.nof_prb == 25,
               "rsi_acquired": ue.rsi == 384,
               "attached": ue.rrc.nas.attached and bool(ue.rrc.drbs),
               "pbch_k40_launched": any(
                   v["k"] == 40 for v in line["shapes"]["viterbi37"].values()),
               **shape_checks(line["shapes"], line["launches"])}
-    acq = [e for e in ev if e.startswith(("cell_found", "mib_", "sib",
-                                          "camped"))]
+    acq = [e for e in log if e.startswith(("cell_found", "mib_", "sib",
+                                           "camped"))]
     emit({"phase": "stack_cold_boot", "nof_prb": 25, "cell_id": 77,
           "ttis_to_attach": line["ttis"] if checks["attached"] else None,
           "acquisition_events": acq, **line, "checks": checks})
     check("stack_cold_boot", checks)
+    return line
+
+
+#: the phases of the JAX stack tests' remaining over-the-air scenarios
+#: (``tools/stack_scenarios.py``'s ``PHASES``; each also runs alone with
+#: ``--phases``): the seed of the twins' inputs, the scenarios' arguments
+#: and the line's own fields. The two-UE phase runs at the full 20 MHz
+#: width, every other at the stack tests' 25 PRB.
+STACK_SCENARIO_PHASES = {
+    "stack_multi_ue": (110, {"nof_prb": MULTI_UE_PRB},
+                       {"nof_prb": MULTI_UE_PRB, "ues": 2}),
+    "stack_mac_harq": (120, {}, {"nof_prb": 25}),
+    "stack_idle": (130, {}, {"nof_prb": 25}),
+    "stack_mobility": (140, {}, {"nof_prb": 25}),
+    "stack_csi": (150, {}, {"nof_prb": 25}),
+}
+
+
+def phase_stack_scenarios(phase: str) -> dict:
+    """One phase of ``STACK_SCENARIO_PHASES``: its scenarios on the card
+    at their JAX tests' horizons, their checks and ``shape_checks``;
+    the line emitted and checked. -> the line's fields of
+    ``StackPhase.close``."""
+    from empower_srslte_tpu_torch.tools.stack_scenarios import PHASES
+
+    seed, kw, fields = STACK_SCENARIO_PHASES[phase]
+    ph = StackPhase(phase, seed)
+    for fn in PHASES[phase]:
+        ph.scenario(fn, **kw)
+    line = ph.close()
+    checks = {**ph.checks, **shape_checks(line["shapes"], line["launches"])}
+    emit({"phase": phase, **fields, **line, "scenarios": ph.scenarios,
+          "checks": checks})
+    check(phase, checks)
     return line
 
 
@@ -2840,7 +2927,9 @@ def main() -> int:
         names = sys.argv[sys.argv.index("--phases") + 1].split(",")
         alone = {"parallel_sp": phase_parallel_sp,
                  "parallel_batch": phase_parallel_batch,
-                 "multihost": phase_multihost}
+                 "multihost": phase_multihost,
+                 **{name: (lambda name=name: phase_stack_scenarios(name))
+                    for name in STACK_SCENARIO_PHASES}}
         for name in names:
             alone[name]()
         emit({"ok": True, "phases": names,
@@ -2877,7 +2966,9 @@ def main() -> int:
     phase_turbo_xla()
     stack = {"stack_attach": phase_stack_attach(),
              "stack_tm4": phase_stack_tm4(),
-             "stack_cold_boot": phase_stack_cold_boot()}
+             "stack_cold_boot": phase_stack_cold_boot(),
+             **{name: phase_stack_scenarios(name)
+                for name in STACK_SCENARIO_PHASES}}
     app_pdsch, app_run = phase_app_pdsch()
     apps = {"app_pdsch": app_pdsch,
             "app_stream": phase_app_stream(app_run),

@@ -113,24 +113,17 @@ def stack_ttis():
     ``STACK_TTIS`` more TTIs, one ping up and one pong down each."""
     from .apps.lte_attach import epc
     from .stack import Air, EnbStack, UeStack
+    from .tools.stack_drive import StackDrive
     from .utils.cell import Cell
 
     mme, nas = epc()
     cell = Cell(nof_prb=25, id=1)
     enb = EnbStack(cell, mme, device="cuda")
     ue = UeStack(cell, nas, device="cuda")
-    air = Air(cell.sf_sample_len)
-    st = {"tti": 0, "ul": None}
-
-    def tti():
-        t, ul = st["tti"], st["ul"]
-        dl = enb.tti(t, air.ul(ul) if ul is not None else None)
-        st["ul"], st["tti"] = ue.tti(t, air.dl(dl)), t + 1
-
-    while not (ue.rrc.nas.attached and ue.rrc.drbs):
-        if st["tti"] >= 100:
-            raise RuntimeError("the stack did not attach in 100 TTIs")
-        tti()
+    drive = StackDrive([enb], [ue], air=Air(cell.sf_sample_len))
+    drive.run(100, lambda tti: ue.rrc.nas.attached and bool(ue.rrc.drbs))
+    if not (ue.rrc.nas.attached and ue.rrc.drbs):
+        raise RuntimeError("the stack did not attach in 100 TTIs")
     pong = (b"\x45\x00" + bytes(14)
             + bytes(map(int, ue.rrc.nas.ue_ip.split("."))) + b"PONG")
 
@@ -138,7 +131,7 @@ def stack_ttis():
         for _ in range(STACK_TTIS):
             ue.send_ip(b"\x45\x00" + bytes(18) + b"PING")
             enb.deliver_gtpu(mme.spgw.downlink(pong)[1])
-            tti()
+            drive.step()
     return run
 
 

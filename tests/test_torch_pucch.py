@@ -216,28 +216,77 @@ def test_f2_users_share_a_prb_and_plain_decode(rng):
         np.testing.assert_array_equal(bits.numpy(), p)
 
 
-def test_payload_helpers_match_jax():
+def _wideband():
     for cqi in range(16):
         bits = uci.cqi_pack_wideband(cqi)
         np.testing.assert_array_equal(bits, juci.cqi_pack_wideband(cqi))
         assert uci.cqi_unpack_wideband(bits) == cqi
         assert uci.cqi_unpack_wideband(torch.as_tensor(bits)) == cqi
+
+
+def _ue_subband():
     for args in ((9, 1, 5, 3), (15, 3, 0, 2), (0, 0, 7, 4)):
         bits = uci.cqi_pack_ue_subband(*args)
         np.testing.assert_array_equal(bits, juci.cqi_pack_ue_subband(*args))
         assert uci.cqi_unpack_ue_subband(bits, args[3]) == args[:3] == \
             juci.cqi_unpack_ue_subband(bits, args[3])
+
+
+def _format2_subband():
     for cqi, label, two in ((11, 3, True), (7, 1, False), (0, 2, True)):
         bits = uci.cqi_pack_format2_subband(cqi, label, two)
         np.testing.assert_array_equal(
             bits, juci.cqi_pack_format2_subband(cqi, label, two))
         assert len(bits) == 4 + (2 if two else 1)
         assert uci.cqi_unpack_format2_subband(bits, two) == (cqi, label)
+
+
+def _ri():
     for ri, n in ((1, 1), (2, 1), (3, 2), (4, 2)):
         bits = uci.ri_pack(ri, n)
         np.testing.assert_array_equal(bits, juci.ri_pack(ri, n))
         assert uci.ri_unpack(bits, n) == ri == juci.ri_unpack(bits, n)
         assert uci.ri_unpack(torch.as_tensor(bits), n) == ri
+
+
+def _equal(name, *args, want):
+    """``name(*args)`` of both packages gives ``want``."""
+    def case():
+        assert getattr(uci, name)(*args) == getattr(juci, name)(*args) \
+            == want
+    return case
+
+
+def _hl_roundtrip(u, wb, sbs, n_prb):
+    bits = u.cqi_pack_hl_subband(wb, sbs, n_prb)
+    assert len(bits) == u.cqi_hl_subband_nof_bits(n_prb)
+    got = u.cqi_unpack_hl_subband(bits, n_prb)
+    return got[0], list(got[1])
+
+
+def _hl_saturation():
+    """The higher-layer subband report's 2-bit differential clamps to
+    offsets {-1..2}."""
+    assert _hl_roundtrip(uci, 10, [3, 15, 10], 12) == \
+        _hl_roundtrip(juci, 10, [3, 15, 10], 12) == (10, [8, 11, 10])
+
+
+#: the UCI payload helpers, each case held to the JAX package's (``tests/
+#: test_csi_feedback.py::TestCqiPayloads``' values among them)
+PAYLOAD_CASES = {
+    "wideband": _wideband, "ue_subband": _ue_subband,
+    "format2_subband": _format2_subband, "ri": _ri,
+    **{f"hl_subband_size_prb{n}": _equal("cqi_hl_subband_size", n, want=k)
+       for n, k in ((6, 6), (25, 4), (50, 6), (100, 8))},
+    **{f"nof_subbands_prb{n}": _equal("cqi_nof_subbands", n, want=k)
+       for n, k in ((25, 7), (100, 13))},
+    "hl_subband_saturation": _hl_saturation,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAYLOAD_CASES))
+def test_payload_helpers_match_jax(case):
+    PAYLOAD_CASES[case]()
 
 
 def test_cqi_report_over_format2_round_trip(rng):
