@@ -79,7 +79,15 @@ shape it launched against the twin of that shape's dtype:
 * the port's BLER sweep tool on the card, float32 against bfloat16 for
   both turbo decoders and both LLR lanes, which must keep each bfloat16
   curve within 0.1 dB of its float32 curve and every curve below srsLTE's
-  (``bler_gate``).
+  (``bler_gate``);
+* the port's end-to-end receiver BLER sweep (``tools/rx_bler_sweep.py``)
+  at 50 PRB for MCS 4, 12 and 22, float32 against "auto" (bfloat16) on
+  the same noise: the float32 curves must match the JAX package's on the
+  JAX tool's own inputs, and each "auto" curve lie within 0.1 dB of its
+  float32 curve across the waterfall (``rx_bler_gate``; NII kernel);
+* the port's weak-scaling sweep (``tools/scaling_sweep.py``): the sharded
+  20 MHz TM4 step at 1, 2 and 4 shards of one card, every CRC passing
+  (``scaling_sweep``; the plain XLA sweeps, no kernel).
 
     python3 chip_smoke.py [--baseline FILE] [--phases NAME,...]
 
@@ -95,7 +103,8 @@ both on its phase line.
 ``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
 use a second card where one is visible, and the stack scenario phases
 ``stack_multi_ue``, ``stack_mac_harq``, ``stack_idle``,
-``stack_mobility`` and ``stack_csi``), then the last line with
+``stack_mobility`` and ``stack_csi``, and the two tools' phases
+``rx_bler_gate`` and ``scaling_sweep``), then the last line with
 ``"phases"`` naming them, and no kernels line.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
@@ -2419,8 +2428,8 @@ def main_path_tti_code_blocks():
     """One TTI of the main path as its turbo decoder receives it: a
     subframe of ``tm4_stimulus`` through ``ue_dl_tm4_batch`` with a plan
     whose decoders record their input (a subclass defined here, as
-    ``float32_plan``), -> (d_llr [20, 3, K+4] float32: 2 codewords x 10
-    code blocks of K 5760, K)."""
+    ``tools/rx_bler_sweep.py float32_plan``), -> (d_llr [20, 3, K+4]
+    float32: 2 codewords x 10 code blocks of K 5760, K)."""
     import dataclasses
 
     import torch
@@ -2773,22 +2782,6 @@ def phase_multihost():
     return {"turbo_nii": launches}, twin
 
 
-def float32_plan(plan):
-    """``plan`` (a ``DlschPlan``) with its turbo decoders pinned to
-    ``TurboDecoder.dtype = "float32"``, through a subclass defined here:
-    the port's plans gain no field."""
-    import dataclasses
-
-    from empower_srslte_tpu_torch.models.sch import DlschPlan
-
-    class Float32Plan(DlschPlan):
-        def decoder(self, k):
-            return dataclasses.replace(super().decoder(k), dtype="float32")
-
-    return Float32Plan(**{f.name: getattr(plan, f.name)
-                          for f in dataclasses.fields(plan)})
-
-
 def phase_precision_pair():
     """``main_path``'s and ``uplink_path``'s stimulus through their
     receivers with the turbo decoders pinned to float32 and at the default
@@ -2804,6 +2797,7 @@ def phase_precision_pair():
     from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
     from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
     from empower_srslte_tpu_torch.models.ue_ul import ul_uci_stimulus
+    from empower_srslte_tpu_torch.tools.rx_bler_sweep import float32_plan
 
     dl = tm4_stimulus(BATCH, device="cuda")
     ul = ul_uci_stimulus(BATCH, UL_N0, device="cuda")
@@ -2890,6 +2884,82 @@ def phase_bler_gate():
     return launches, twin
 
 
+def phase_rx_bler_gate():
+    """The port's receiver BLER sweep tool (``tools/rx_bler_sweep.py``)
+    with its gate on the card: the whole downlink chain (compose, iFFT,
+    AWGN, FFT, chest off the CRS, noise estimate, equalize, decode) at 50
+    PRB for MCS 4, 12 and 22, every batch decoded at float32 and at
+    "auto" (bfloat16) on the same noise; first the JAX tool's own inputs
+    (64 subframes a point, seed 0), then each waterfall in 0.1 dB steps
+    at ``rx_bler_sweep.WATERFALL_N`` subframes a point. Fails unless
+    ``rx_bler_sweep.gate`` holds (the float32 curves within max(3 sigma,
+    2/64) of the JAX package's, each "auto" curve within 0.1 dB of its
+    float32 curve), both ``turbo_nii`` instances launched, and the kernel
+    equals its twin at every shape the sweep launched."""
+    import torch
+
+    from empower_srslte_tpu_torch.tools import rx_bler_sweep
+
+    t0 = time.perf_counter()
+    (parity, water), launches, shapes = counted(
+        lambda: rx_bler_sweep.gate_passes(device="cuda"))
+    seconds = time.perf_counter() - t0
+    verdict = rx_bler_sweep.gate(parity, water)
+    twin = hold_shapes("rx_bler_gate", turbo_shapes(shapes), seed=90)
+    checks = {**verdict["checks"], **turbo_checks(twin),
+              "both_nii_instances_launched": (
+                  launches["turbo_nii"] > 0
+                  and launches["turbo_nii_bf16"] > 0)}
+    emit({"phase": "rx_bler_gate", "seconds": seconds,
+          "hold_seconds": time.perf_counter() - t0 - seconds,
+          "parity": parity, "waterfall": water, "gate": verdict,
+          "launches": launches, "turbo_shapes": twin,
+          "device_name": torch.cuda.get_device_name(0), "checks": checks})
+    check("rx_bler_gate", checks)
+    return launches, twin
+
+
+def phase_scaling_sweep():
+    """The port's weak-scaling tool (``tools/scaling_sweep.py``) on the
+    card: the sharded 20 MHz TM4 step (MCS 18, 2 codewords, the ``"xla"``
+    plan, as the JAX tool pins it: the plain sweeps, no kernel) at n = 1,
+    2 and 4 over cuda:0 four times, one repetition; where two cards or
+    more are visible, again over the cards. Every CRC at every n must
+    pass (the tool raises otherwise), and at each n the mesh must have
+    had n shards on the devices given. ms per step are host-bound by
+    design: reported, not gated."""
+    import torch
+
+    from empower_srslte_tpu_torch.parallel.mesh import visible_devices
+    from empower_srslte_tpu_torch.tools import scaling_sweep
+
+    runs = {"virtual4": [torch.device("cuda", 0)] * 4}
+    if torch.cuda.device_count() >= 2:
+        runs["cards"] = visible_devices()
+    line, checks, total = {"phase": "scaling_sweep"}, {}, {}
+    for tag, devs in runs.items():
+        t0 = time.perf_counter()
+        res, launches, _ = counted(
+            lambda devs=devs: scaling_sweep.sweep(devs, reps=1))
+        rows = res["rows"]
+        sizes = [n for n in scaling_sweep.SIZES if n <= len(devs)]
+        checks[f"{tag}_every_n_ran"] = [r["devices"] for r in rows] == sizes
+        checks[f"{tag}_every_crc_ok"] = all(
+            all(all(v) for v in r["crc_ok"]) for r in rows)
+        checks[f"{tag}_n_shards"] = all(
+            r["shards"] == r["devices"] == len(r["device_list"])
+            and r["device_list"] == [str(d) for d in devs[:r["devices"]]]
+            for r in rows)
+        line[tag] = {**res, "launches": launches,
+                     "seconds": time.perf_counter() - t0}
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    if "cards" not in runs:
+        line["cards"] = "not run: 1 card"
+    emit({**line, "checks": checks})
+    check("scaling_sweep", checks)
+    return total
+
+
 def n_candidates() -> int:
     """Blind-search candidates of the main path (20 MHz, cfi 1, sf 1,
     RNTI 0x1234): the Viterbi batch is BATCH x this many words."""
@@ -2928,6 +2998,8 @@ def main() -> int:
         alone = {"parallel_sp": phase_parallel_sp,
                  "parallel_batch": phase_parallel_batch,
                  "multihost": phase_multihost,
+                 "rx_bler_gate": phase_rx_bler_gate,
+                 "scaling_sweep": phase_scaling_sweep,
                  **{name: (lambda name=name: phase_stack_scenarios(name))
                     for name in STACK_SCENARIO_PHASES}}
         for name in names:
@@ -2978,6 +3050,8 @@ def main() -> int:
     mh_launches, mh_shapes = phase_multihost()
     pair = phase_precision_pair()
     gate_launches, gate_shapes = phase_bler_gate()
+    rx_launches, rx_shapes = phase_rx_bler_gate()
+    scaling_launches = phase_scaling_sweep()
     shaped = {**stack, **apps}
     by_path = {"main_path": launches, "uplink_path": ul_launches, **tm2,
                "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
@@ -2989,12 +3063,14 @@ def main() -> int:
                "multihost": mh_launches,
                **{f"precision_pair_{path}_{prec}": v
                   for path, by in pair.items() for prec, v in by.items()},
-               "bler_gate": gate_launches}
+               "bler_gate": gate_launches, "rx_bler_gate": rx_launches,
+               "scaling_sweep": scaling_launches}
     path_shapes = {"main_path": main_shapes, "uplink_path": ul_shapes,
                    **tm2_shapes, "tm3_path": tm3_shapes,
                    "ue_dl_frame": frame_shapes, "uplink_int8": ul8_shapes,
                    "uplink_msg3": msg3_shapes, "cold_boot": cold_shapes,
                    "pmch_path": pmch_shapes, "bler_gate": gate_shapes,
+                   "rx_bler_gate": rx_shapes,
                    "parallel_sp": sp_shapes, "parallel_batch": batch_shapes,
                    "multihost": mh_shapes,
                    **{k: v["shapes"] for k, v in shaped.items()}}

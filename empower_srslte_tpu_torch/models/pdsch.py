@@ -124,10 +124,11 @@ class PdschConfig:
         """Codeword bits carried (per codeword)."""
         return self.nof_symbols * self.mod.bits_per_symbol
 
-    def plan(self, tbs: int, rv: int = 0,
-             max_iterations: int = 5) -> DlschPlan:
+    def plan(self, tbs: int, rv: int = 0, max_iterations: int = 5,
+             decoder_impl: str = "nii") -> DlschPlan:
         return DlschPlan(tbs=tbs, g=self.g, qm=self.mod.bits_per_symbol,
-                         rv=rv, max_iterations=max_iterations)
+                         rv=rv, max_iterations=max_iterations,
+                         decoder_impl=decoder_impl)
 
     def cinit(self, codeword: int = 0) -> int:
         return cinit_pdsch(self.rnti, codeword, 2 * self.sf_idx, self.cell.id)

@@ -87,6 +87,25 @@ def sweep(k: int = 1024, cbs: int = 8192, points=DEFAULT_POINTS,
             "curves": list(curves.values())}
 
 
+def within_shift(points, ref, test, n: int, shift_db: float = SHIFT_DB):
+    """The 0.1 dB rule on two BLER curves over the same grid ``points``
+    (dB), each point measured on ``n`` trials: at every x whose x -
+    ``shift_db`` is a grid point with a ``ref`` BLER p in (0.01, 0.99),
+    ``test``(x) must be <= p + 3 sqrt(p (1 - p) / n). -> [(x, test(x), p,
+    limit)] for every such x, in grid order."""
+    pts = [round(x, 1) for x in points]
+    at = {x: i for i, x in enumerate(pts)}
+    out = []
+    for x in pts:
+        j = at.get(round(x - shift_db, 1))
+        if j is None or not 0.01 < ref[j] < 0.99:
+            continue
+        p = ref[j]
+        out.append((x, test[at[x]], p,
+                    p + 3.0 * math.sqrt(p * (1.0 - p) / n)))
+    return out
+
+
 def gate(res: dict) -> dict:
     """The bfloat16 gate on a ``sweep`` result.
 
@@ -97,8 +116,7 @@ def gate(res: dict) -> dict:
     2. Every curve reads <= ``SRSLTE_BLER_1DB`` at 1.0 dB and <=
        ``MAX_BLER_12DB`` at 1.2 dB (where the grid has those points).
     -> {"ok": bool, "checks": {name: bool}, "comparisons": [...]}."""
-    pts = [round(x, 1) for x in res["points"]]
-    at = {round(x, 1): i for i, x in enumerate(pts)}
+    at = {round(x, 1): i for i, x in enumerate(res["points"])}
     by = {(c["impl"], c["dtype"], c["llr"]): c for c in res["curves"]}
     checks, comps = {}, []
     for impl in IMPLS:
@@ -106,15 +124,8 @@ def gate(res: dict) -> dict:
             f32, b16 = by[(impl, "float32", lane)], by[(impl, "bfloat16",
                                                          lane)]
             ok = True
-            for x in pts:
-                j = at.get(round(x - SHIFT_DB, 1))
-                if j is None:
-                    continue
-                p = f32["bler"][j]
-                if not 0.01 < p < 0.99:
-                    continue
-                limit = p + 3.0 * math.sqrt(p * (1.0 - p) / res["cbs"])
-                got = b16["bler"][at[x]]
+            for x, got, p, limit in within_shift(
+                    res["points"], f32["bler"], b16["bler"], res["cbs"]):
                 comps.append({"impl": impl, "llr": lane, "ebn0_db": x,
                               "bler_bf16": got, "bler_f32_minus_shift": p,
                               "limit": limit, "ok": got <= limit})

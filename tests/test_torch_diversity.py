@@ -30,7 +30,8 @@ from empower_srslte_tpu.models.regs import pdcch_nof_cces
 from empower_srslte_tpu.ops import equalizer as jeq
 from empower_srslte_tpu.utils.cell import Cell as JCell
 
-from empower_srslte_tpu_torch.convert import (dlsch_plan_from_fields,
+from empower_srslte_tpu_torch.convert import (decoder_impl_from_jax,
+                                              dlsch_plan_from_fields,
                                               pdsch_config_from_fields)
 from empower_srslte_tpu_torch.models import measurements, pcfich, pdcch
 from empower_srslte_tpu_torch.models import pdsch
@@ -162,6 +163,8 @@ PDSCH_CASES = {
     "tm2_4port": (4, "DIVERSITY", 4, 1, "pallas2_interpret"),
     "tm3_1cw": (2, "CDD", 2, 1, "xla"),
     "tm3_2cw": (2, "CDD", 2, 2, "xla"),
+    # the port's own ``PdschConfig.plan(decoder_impl=)``: JAX's XLA sweeps
+    "tm3_2cw_xla_plan": (2, "CDD", 2, 2, "xla"),
 }
 
 
@@ -173,9 +176,14 @@ def _pdsch_case(name):
                               mod=mod, mimo=jeq.MimoType[mimo],
                               nof_layers=nl, nof_codewords=ncw)
     jplan = jcfg.plan(tbs, decoder_impl=impl)
-    # the port always decodes with its NII twin
-    plan = dlsch_plan_from_fields({**vars(jplan), "decoder_impl": "auto"})
-    return jcfg, jplan, pdsch_config_from_fields(vars(jcfg)), plan
+    cfg = pdsch_config_from_fields(vars(jcfg))
+    if name.endswith("_xla_plan"):
+        plan = cfg.plan(tbs, decoder_impl=decoder_impl_from_jax(impl))
+        assert plan == dlsch_plan_from_fields(vars(jplan))
+    else:
+        # the port decodes with its NII twin
+        plan = dlsch_plan_from_fields({**vars(jplan), "decoder_impl": "auto"})
+    return jcfg, jplan, cfg, plan
 
 
 def _channel(rng, mimo, n_rx, n_tx, nof_re):
