@@ -91,15 +91,24 @@ shape it launched against the twin of that shape's dtype:
 
     python3 chip_smoke.py [--baseline FILE] [--phases NAME,...]
 
-``--baseline FILE`` names a Python file that defines ``PTXAS`` (its ptxas
-log per kernel name) and any of ``map_decode_nii``, ``map_decode_win``
-and ``viterbi_regs``, with the signatures of the port's
-``map_decode_nii``, ``map_decode_win`` and ``viterbi_regs_cuda`` (another
-design of those kernels): each kernel check with a baseline then times it
-and the port's kernel in turns (baseline, port, port, baseline) and puts
-both on its phase line.
+``--baseline PATH[,PATH...]`` names earlier designs to time beside the
+port's kernels. A PATH is a Python file that defines ``PTXAS`` (its
+ptxas log per kernel name) and any of ``map_decode_nii``,
+``map_decode_win`` and ``viterbi_regs``, with the signatures of the
+port's ``map_decode_nii``, ``map_decode_win`` and ``viterbi_regs_cuda``;
+a directory holding an earlier ``turbo_nii.cu`` and/or ``turbo_win.cu``
+with the one-warp designs' C interface (``source_baseline``), which the
+build compiles under names of their own; or ``split_aligned`` /
+``split_shifted``, the port's own bfloat16 split kernels forced at every
+shape (``forced_split_baseline``: where the plans' rule would take the
+one-thread kernel, and the two column stagings against each other).
+Each kernel check with a baseline then times it and the port's kernel in
+turns (baseline, port, port, baseline), the turbo kernels in both dtypes
+at the main or uplink shape, at one code block and over a sweep of
+batches (``BASELINE_SWEEP``), and puts both on its phase line.
 
-``--phases`` runs the build and the named phases alone (any of
+``--phases`` runs the build and the named phases alone (any of the
+turbo kernel checks ``kernel_turbo`` and ``kernel_turbo_win``, of
 ``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
 use a second card where one is visible, and the stack scenario phases
 ``stack_multi_ue``, ``stack_mac_harq``, ``stack_idle``,
@@ -178,8 +187,17 @@ REPLACES = {
 BLER_CBS = 32768
 #: ptxas report of each built kernel (phase_build), for the phase lines
 PTXAS: dict = {}
-#: the --baseline module, or None
-BASELINE = None
+#: the --baseline designs: (name, module or namespace) per PATH
+BASELINES: list = []
+#: the bfloat16 launches a baseline is timed at besides the main and
+#: uplink shapes: NII (K, l, code blocks), windowed (K, code blocks)
+BASELINE_SWEEP = {
+    "turbo_nii": [(144, 144, 2), (144, 144, 5), (144, 144, 64),
+                  *((5760, 240, b) for b in (2, 16, 64, 256, 640, 1280, 1536,
+                                             1792, 2048, 2560, 3584, 5119))],
+    "turbo_win": [(1024, 2), (1024, 5), (1024, 64),
+                  *((5824, b) for b in (2, 16, 64, 256, 512, 896, 1791, 2304,
+                                        2560, 2816, 3072))]}
 #: per kernel, the error against the twin at each geometry that a path
 #: phase gives the kernel (``hold_shapes``, ``vit_path_check``); the turbo
 #: kernels per metric dtype
@@ -220,6 +238,16 @@ def dt_name(dtype) -> str:
     key in their per-shape launch counts, and this script's dtype
     argument."""
     return str(dtype).removeprefix("torch.")
+
+
+def card_sms() -> int:
+    """SMs of the card the kernels run on (the bfloat16 plans' rule reads
+    them)."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_nii import sm_count
+
+    return sm_count(torch.device("cuda", torch.cuda.current_device()))
 
 
 def itemsize(dtype: str) -> int:
@@ -321,6 +349,60 @@ def paired_ms(new_fn, old_fn, reps: int, timer=cuda_ms) -> dict:
             "turns_ms": [o1, n1, n2, o2]}
 
 
+def baseline_pairs(attr: str, port, cases: dict) -> dict:
+    """Every baseline defining ``attr`` timed in turns with the port's
+    kernel ``port`` (baseline, port, port, baseline) on each case of
+    ``cases``: {name: (args, kwargs, the twin's output, timer)} -> {baseline:
+    {"ptxas": ..., case: {ms, baseline_ms, turns_ms,
+    baseline_max_abs_err}}}."""
+    kernel = {"map_decode_nii": "turbo_nii",
+              "map_decode_win": "turbo_win"}[attr]
+    out = {}
+    for name, fn, ptxas in baseline_fns(attr):
+        out[name] = {"ptxas": ptxas_summary(ptxas.get(kernel, ""))}
+        for case, (args, kw, ref, timer) in cases.items():
+            out[name][case] = {
+                **paired_ms(lambda: port(*args, **kw),
+                            lambda: fn(*args, **kw), reps=10, timer=timer),
+                "baseline_max_abs_err": max_abs_err(fn(*args, **kw), ref)}
+    return out
+
+
+def ptxas_registers(report: dict) -> int:
+    """The most registers an entry function of a ptxas report uses."""
+    return max((v["registers"] for v in report.values()), default=0)
+
+
+def kernel_design(module: str, dtype: str, plan) -> dict:
+    """The design a turbo launch ran ("one_thread": a thread per code
+    block, or code block pair in bf16x2; "split": a window of a code block
+    pair shared by an alpha-side and a beta-side thread, staging a lane's
+    pair from one aligned word or, "shifted", from two) with its threads
+    per code block and registers (the most over its instances), and in
+    bfloat16 both designs' (the NII split kernel's 8-row instances; its
+    16-row ones, for windows too long for 8-row checkpoints, apart)."""
+    stem = module.removeprefix("turbo_")
+    ops = "9OpsBf16x2" if dtype == "bfloat16" else "6OpsF32"
+    designs = {"one_thread": {
+        "threads_per_cb": 0.5 if dtype == "bfloat16" else 1.0,
+        "registers": ptxas_registers(
+            ptxas_of(module, f"{stem}_kernelI{ops}"))}}
+    if dtype == "bfloat16":
+        split = ptxas_of(module, f"{stem}_split_kernelI{ops}")
+        rows16 = {k: v for k, v in split.items() if "Li16E" in k}
+        designs["split"] = {"threads_per_cb": 1.0, "registers":
+                            ptxas_registers({k: v for k, v in split.items()
+                                             if k not in rows16})}
+        if rows16:
+            designs["split_16_row_segments"] = {
+                "threads_per_cb": 1.0, "registers": ptxas_registers(rows16)}
+    kind = "split" if plan.sides == 2 else "one_thread"
+    cols = ({"columns": "shifted" if plan.shifted else "aligned"}
+            if plan.sides == 2 else {})
+    return {"design": kind, **cols, **designs[kind],
+            **({"designs": designs} if dtype == "bfloat16" else {})}
+
+
 def max_abs_err(got, ref) -> float:
     if isinstance(got, tuple):
         return max(max_abs_err(x, y) for x, y in zip(got, ref))
@@ -405,12 +487,184 @@ def phase_device():
     return line
 
 
+def source_baseline(path: pathlib.Path, tag: str):
+    """An earlier design of the turbo kernels from its sources: ``path``
+    holds ``turbo_nii.cu`` and/or ``turbo_win.cu`` whose launchers take
+    one-warp blocks (32 threads, the shared bytes below) and, in bfloat16,
+    an even batch (two code blocks per thread; an odd one is padded by a
+    column and sliced back, as that design's wrappers did). They build
+    with the port's sources (``phase_build``) as ``turbo_nii_<tag>`` and
+    ``turbo_win_<tag>``. -> a namespace with ``SOURCES`` ({kernel: (library
+    name, source)}), ``PTXAS`` and ``map_decode_nii`` / ``map_decode_win``
+    for the sources present."""
+    import ctypes
+    import types
+
+    import torch
+
+    from empower_srslte_tpu_torch.utils import cuda_build
+
+    ns = types.SimpleNamespace(SOURCES={}, PTXAS={})
+    for kernel in ("turbo_nii", "turbo_win"):
+        if (path / f"{kernel}.cu").exists():
+            ns.SOURCES[kernel] = (f"{kernel}_{tag}",
+                                  (path / f"{kernel}.cu").resolve())
+
+    def launcher(kernel, dtype, nargs):
+        lib = cuda_build.load(*ns.SOURCES[kernel])
+        fn = getattr(lib, f"{kernel}_launch"
+                     + ("_bf16" if dtype == torch.bfloat16 else ""))
+        fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_int] * (
+            17 - nargs if kernel == "turbo_nii" else 10 - nargs) \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+
+    def even(x):
+        return torch.nn.functional.pad(x, (0, 1)) if x.shape[-1] % 2 else x
+
+    def stream(x):
+        return torch.cuda.current_stream(x.device).cuda_stream
+
+    def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l, apr=None,
+                       bounds=None):
+        k, b = u.shape
+        w = k // l
+        first, last = (0, w - 1) if bounds is None else bounds
+        if u.dtype == torch.bfloat16 and b % 2:
+            u, p, tail_u, tail_p, a_st, b_st = map(
+                even, (u, p, tail_u, tail_p, a_st, b_st))
+            apr = None if apr is None else even(apr)
+        nseg = -(-l // 16)
+        smem = 32 * (32 * (nseg - 1) + 4 * 2 * 16 * (2 if apr is None
+                                                      else 3))
+        ext, a_next, b_next = map(torch.empty_like, (u, a_st, b_st))
+        rc = launcher("turbo_nii", u.dtype, 10)(
+            u.data_ptr(), p.data_ptr(), None if apr is None else
+            apr.data_ptr(), tail_u.data_ptr(), tail_p.data_ptr(),
+            a_st.data_ptr(), b_st.data_ptr(), ext.data_ptr(),
+            a_next.data_ptr(), b_next.data_ptr(), u.shape[1], l, w, first,
+            last, 32, smem, stream(u))
+        assert rc == 0, f"baseline turbo_nii: CUDA error {rc}"
+        return tuple(x[..., :b] for x in (ext, a_next, b_next))
+
+    def map_decode_win(lsa, lp, *, k, l, o):
+        b = lsa.shape[1]
+        if lsa.dtype == torch.bfloat16 and b % 2:
+            lsa, lp = even(lsa), even(lp)
+        bp = lsa.shape[1]
+        llr = torch.empty((k, bp), dtype=lsa.dtype, device=lsa.device)
+        ckpt = torch.empty((l // 8 - 1, 8, k // l * bp), dtype=lsa.dtype,
+                           device=lsa.device)
+        rc = launcher("turbo_win", lsa.dtype, 4)(
+            lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(), ckpt.data_ptr(),
+            bp, k, l, o, 32, 32 * 4 * 2 * 8 * 4, stream(lsa))
+        assert rc == 0, f"baseline turbo_win: CUDA error {rc}"
+        return llr[:, :b]
+
+    if "turbo_nii" in ns.SOURCES:
+        ns.map_decode_nii = map_decode_nii
+    if "turbo_win" in ns.SOURCES:
+        ns.map_decode_win = map_decode_win
+    return ns
+
+
+def forced_split_baseline(shifted: bool):
+    """The port's bfloat16 split kernels launched at every shape, from the
+    port's libraries: on ShiftedCols at every batch when ``shifted``, else
+    on AlignedCols where the batch is even (float32 runs the port's
+    wrappers). -> a namespace with ``PTXAS``, ``map_decode_nii`` and
+    ``map_decode_win``."""
+    import types
+
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win
+
+    bf16 = torch.bfloat16
+
+    def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l, apr=None,
+                       bounds=None):
+        if u.dtype != bf16:
+            return turbo_nii.map_decode_nii(u, p, tail_u, tail_p, a_st, b_st,
+                                            l=l, apr=apr, bounds=bounds)
+        k, b = u.shape
+        w = k // l
+        first, last = (0, w - 1) if bounds is None else bounds
+        # an odd cbs gives the shifted split plan, None the aligned one
+        plan = turbo_nii.nii_plan(l, apr is not None, bf16,
+                                  1 if shifted or b % 2 else None, w)
+        ext, a_next, b_next = map(torch.empty_like, (u, a_st, b_st))
+        rc = turbo_nii._lib(bf16)(
+            u.data_ptr(), p.data_ptr(), None if apr is None else
+            apr.data_ptr(), tail_u.data_ptr(), tail_p.data_ptr(),
+            a_st.data_ptr(), b_st.data_ptr(), ext.data_ptr(),
+            a_next.data_ptr(), b_next.data_ptr(), b, l, w, first, last,
+            plan.threads, plan.segments[0][1], plan.shifted, plan.smem,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"forced split turbo_nii: CUDA error {rc}"
+        return ext, a_next, b_next
+
+    def map_decode_win(lsa, lp, *, k, l, o):
+        if lsa.dtype != bf16:
+            return turbo_win.map_decode_win(lsa, lp, k=k, l=l, o=o)
+        b = lsa.shape[1]
+        plan = turbo_win.win_plan(l, o, bf16, 1 if shifted or b % 2 else None,
+                                  k // l)
+        llr = torch.empty((k, b), dtype=bf16, device=lsa.device)
+        rc = turbo_win._lib(bf16)(
+            lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(), None, b, k, l, o,
+            plan.threads, plan.shifted, plan.smem,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"forced split turbo_win: CUDA error {rc}"
+        return llr
+
+    return types.SimpleNamespace(PTXAS={}, map_decode_nii=map_decode_nii,
+                                 map_decode_win=map_decode_win)
+
+
+def load_baselines(arg: str) -> list:
+    """The ``--baseline`` designs: (name, module) per comma-separated
+    PATH, a Python file, a directory of sources (``source_baseline``) or
+    ``split_aligned`` / ``split_shifted`` (``forced_split_baseline``)."""
+    import importlib.util
+
+    out = []
+    for i, part in enumerate(arg.split(",")):
+        path = pathlib.Path(part)
+        name = f"{path.stem}{i}"
+        if part in ("split_aligned", "split_shifted"):
+            out.append((name, forced_split_baseline(part == "split_shifted")))
+            continue
+        if path.is_dir():
+            out.append((name, source_baseline(path, f"base{i}")))
+            continue
+        spec = importlib.util.spec_from_file_location(f"baseline{i}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out.append((name, mod))
+    return out
+
+
+def baseline_fns(attr: str) -> list:
+    """(name, function, ptxas logs) of every baseline defining ``attr``."""
+    return [(name, getattr(mod, attr), mod.PTXAS) for name, mod in BASELINES
+            if hasattr(mod, attr)]
+
+
 def phase_build():
     from empower_srslte_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
+    # the --baseline designs' sources, built beside the port's
+    sources = dict(src for _, mod in BASELINES
+                   for src in getattr(mod, "SOURCES", {}).values())
     took = cuda_build.build(["turbo_nii", "viterbi37", "turbo_win",
-                             "recursion_probe", "ring_buffer"])
+                             "recursion_probe", "ring_buffer", *sources],
+                            sources)
+    for _, mod in BASELINES:
+        for kernel, (name, _) in getattr(mod, "SOURCES", {}).items():
+            mod.PTXAS[kernel] = cuda_build.BUILD_LOGS[name]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     for name, log in cuda_build.BUILD_LOGS.items():
         (OUT_DIR / f"build_{name}.log").write_text(log)
@@ -456,11 +710,14 @@ def nii_shape_time(k: int, l: int, b: int, seed: int,
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
-        map_decode_nii, map_decode_nii_plain)
+        map_decode_nii, map_decode_nii_plain, nii_plan)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     args, kw = nii_inputs(g, k, l, b, bounds=bounds, dtype=dtype)
+    plan = nii_plan(l, True, getattr(torch, dtype), b, k // l,
+                    sms=card_sms())
     return {"k": k, "window": l, "cbs": b, "dtype": dtype,
+            "design": "split" if plan.sides == 2 else "one_thread",
             "ms": cuda_ms(lambda: map_decode_nii(*args, **kw), reps=10),
             "ms_graphed": graph_ms(lambda: map_decode_nii(*args, **kw),
                                    reps=10),
@@ -530,12 +787,15 @@ def turbo_kernel_check():
     take: the main path's (5120 code blocks of K=5760, l=240, with apr), a
     ragged single window (K=56, l=K, no apr: the top segment is 8 rows), a
     trellis slice with no edge (bounds (-1, -1)) and, in bfloat16, an odd
-    batch (5119 code blocks, which the wrapper pads by one); then one full
-    decode of 64 code blocks per dtype where the hard bits and iteration
-    counts must be equal. The main shape is timed in turns (float32,
-    bfloat16, bfloat16, float32). The other paths' geometries are checked
-    in their phases (``hold_shapes``). -> (float32 entry, bfloat16
-    entry) of the kernels line."""
+    batch (5119 code blocks, launched as they are); then one full decode
+    of 64 code blocks per dtype where the hard bits and iteration counts
+    must be equal. The main shape is timed in turns (float32, bfloat16,
+    bfloat16, float32); with ``--baseline``, each baseline in turns with
+    the port at the main shape in both dtypes and at the stack's smallest
+    bfloat16 launch (one code block of K 144, one window), graphed and
+    launch by launch. The other paths' geometries are checked in their
+    phases (``hold_shapes``). -> (float32 entry, bfloat16 entry) of the
+    kernels line."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
@@ -566,16 +826,27 @@ def turbo_kernel_check():
                 map_decode_nii(*a, **kw)) for dt in main}
     times = dtype_turns(run["float32"], run["bfloat16"], reps=10)
 
-    base_line = {}
-    base_fn = getattr(BASELINE, "map_decode_nii", None)
-    if base_fn is not None:
-        args, kw, ref = main["float32"]
-        base_line = {
-            **paired_ms(run["float32"], lambda: base_fn(*args, **kw),
-                        reps=10),
-            "baseline_max_abs_err": max_abs_err(base_fn(*args, **kw), ref),
-            "baseline_ptxas": ptxas_summary(
-                BASELINE.PTXAS.get("turbo_nii", ""))}
+    cases = {dt: (*main[dt], cuda_ms) for dt in main}
+    if BASELINES:
+        # half and twice the main batch (copies): throughput or latency
+        args, kw, ref = main["bfloat16"]
+        for name, f in (("half", lambda x: x[..., :b // 2].contiguous()),
+                        ("x2", lambda x: x.repeat(*[1] * (x.dim() - 1), 2))):
+            cases[f"bfloat16_{name}"] = (
+                tuple(map(f, args)), {**kw, "apr": f(kw["apr"])},
+                tuple(map(f, ref)), cuda_ms)
+        args, kw = nii_inputs(g, 144, 144, 1, dtype="bfloat16")
+        ref = nii_twin(args, kw)[1]
+        cases.update(bfloat16_k144_cbs1=(args, kw, ref, graph_ms),
+                     bfloat16_k144_cbs1_ungraphed=(args, kw, ref, cuda_ms))
+        # where each design wins: the batch from one code block up, by
+        # CUDA-graph replay
+        for kk, ll, bb in BASELINE_SWEEP["turbo_nii"]:
+            args, kw = nii_inputs(g, kk, ll, bb, dtype="bfloat16")
+            cases[f"bfloat16_k{kk}_cbs{bb}"] = (
+                args, kw, nii_twin(args, kw)[1], graph_ms)
+    base_line = {"baselines": baseline_pairs("map_decode_nii",
+                                             map_decode_nii, cases)}
 
     u, llr = awgn_code_blocks(g, k, 64, 0.9)
     out, line = {}, {"phase": "kernel_turbo", "cbs": b, "k": k, "window": l,
@@ -585,19 +856,21 @@ def turbo_kernel_check():
         ms = times[dt]
         plain_ms = cuda_ms(lambda: map_decode_nii_plain(*args, **kw),
                            reps=1)
-        # what this design moves: u, p, apr read by both sweeps, ext
-        # written
+        # what both designs move: u, p, apr read by both sweeps (or
+        # sides), ext written
         moved = itemsize(dt) * (7 * k * b + 2 * 3 * b
                                 + 4 * (w + 1) * 8 * b)
         dec = TurboDecoder(k=k, iterations=8, window=l, dtype=dt)
-        plan = nii_plan(l, True, getattr(torch, dt))
+        plan = nii_plan(l, True, getattr(torch, dt), b, w, sms=card_sms())
+        ptxas = ptxas_of("turbo_nii", tag)
         entry = {"max_abs_err": max(errs[dt].values()), "ms": ms,
                  "plain_ms": plain_ms,
-                 **bound(*nii_work(k, l, b, dt), dt)}
+                 **bound(*nii_work(k, l, b, dt), dt),
+                 **kernel_design("turbo_nii", dt, plan)}
         line[dt] = {**entry, "max_abs_err_by_geometry": errs[dt],
                     "smem_dynamic": plan.smem,
                     "cbs_per_thread": plan.cbs_per_thread,
-                    "ptxas": ptxas_of("turbo_nii", tag),
+                    "ptxas": ptxas,
                     "moved_gb": moved / 1e9,
                     "moved_tb_s": moved / (ms * 1e-3) / 1e12,
                     "decode_cbs": 64,
@@ -676,7 +949,8 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    base_fn = getattr(BASELINE, "viterbi_regs", None)
+    base_fn, base_ptxas = next(((f, px) for _, f, px in
+                                baseline_fns("viterbi_regs")), (None, {}))
 
     mism, base_mism, per_k = {}, {}, {}
     ms = plain_ms = err = 0.0
@@ -724,7 +998,7 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     if base_fn is not None:
         line.update(baseline_mismatched_bits=base_mism,
                     baseline_ptxas=ptxas_summary(
-                        BASELINE.PTXAS.get("viterbi37", "")))
+                        base_ptxas.get("viterbi37", "")))
     emit(line)
     assert total == 0, f"Viterbi kernel decisions differ: {mism}"
     return dict(max_abs_err=err, mismatched_bits=total, ms=ms,
@@ -813,12 +1087,15 @@ def win_shape_time(k: int, l: int, b: int, seed: int,
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_win import (
-        DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain)
+        DEFAULT_OVERLAP, map_decode_win, map_decode_win_plain, win_plan)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     lsa, lp = win_inputs(g, k, b, dtype)
     kw = dict(k=k, l=l, o=DEFAULT_OVERLAP)
+    plan = win_plan(l, DEFAULT_OVERLAP, getattr(torch, dtype), b, k // l,
+                    sms=card_sms())
     return {"k": k, "window": l, "cbs": b, "dtype": dtype,
+            "design": "split" if plan.sides == 2 else "one_thread",
             "ms": cuda_ms(lambda: map_decode_win(lsa, lp, **kw), reps=10),
             "ms_graphed": graph_ms(lambda: map_decode_win(lsa, lp, **kw),
                                    reps=10),
@@ -834,8 +1111,12 @@ def turbo_win_kernel_check():
     window and, in bfloat16, at an odd batch (1791 code blocks); then one
     full windowed decode of 64 code blocks near threshold per dtype where
     hard bits and iteration counts must be equal. The uplink shape is
-    timed in turns (float32, bfloat16, bfloat16, float32). -> (float32
-    entry, bfloat16 entry) of the kernels line."""
+    timed in turns (float32, bfloat16, bfloat16, float32); with
+    ``--baseline``, each baseline in turns with the port at the uplink
+    shape in both dtypes, in bfloat16 at twice and four times its code
+    blocks (copies: what more warps buy), and at one code block of K 1024,
+    graphed and launch by launch. -> (float32 entry, bfloat16 entry) of
+    the kernels line."""
     import torch
 
     from empower_srslte_tpu_torch.models.sch import _pick_window
@@ -867,16 +1148,26 @@ def turbo_win_kernel_check():
            for dt in main}
     times = dtype_turns(run["float32"], run["bfloat16"], reps=10)
 
-    base_line = {}
-    base_fn = getattr(BASELINE, "map_decode_win", None)
-    if base_fn is not None:
-        lsa, lp, kw, ref = main["float32"]
-        base_line = {
-            **paired_ms(run["float32"], lambda: base_fn(lsa, lp, **kw),
-                        reps=10),
-            "baseline_max_abs_err": max_abs_err(base_fn(lsa, lp, **kw), ref),
-            "baseline_ptxas": ptxas_summary(
-                BASELINE.PTXAS.get("turbo_win", ""))}
+    cases = {dt: ((m[0], m[1]), m[2], m[3], cuda_ms)
+             for dt, m in main.items()}
+    if BASELINES:
+        lsa, lp, kw, ref = main["bfloat16"]
+        for n in (2, 4):
+            cases[f"bfloat16_x{n}"] = ((lsa.repeat(1, n), lp.repeat(1, n)),
+                                       kw, ref.repeat(1, n), cuda_ms)
+        kw1 = dict(k=1024, l=_pick_window(1024), o=o)
+        pair1 = win_inputs(g, 1024, 1, "bfloat16")
+        ref = win_twin(*pair1, kw1)[1]
+        cases.update(bfloat16_k1024_cbs1=(pair1, kw1, ref, graph_ms),
+                     bfloat16_k1024_cbs1_ungraphed=(pair1, kw1, ref,
+                                                    cuda_ms))
+        for kk, bb in BASELINE_SWEEP["turbo_win"]:
+            kwb = dict(k=kk, l=_pick_window(kk), o=o)
+            pair = win_inputs(g, kk, bb, "bfloat16")
+            cases[f"bfloat16_k{kk}_cbs{bb}"] = (
+                pair, kwb, win_twin(*pair, kwb)[1], graph_ms)
+    base_line = {"baselines": baseline_pairs("map_decode_win",
+                                             map_decode_win, cases)}
 
     u, llr = awgn_code_blocks(g, k, 64, 0.9)
     out, line = {}, {"phase": "kernel_turbo_win", "cbs": b, "k": k,
@@ -887,22 +1178,26 @@ def turbo_win_kernel_check():
         ms = times[dt]
         plain_ms = cuda_ms(lambda: map_decode_win_plain(lsa, lp, **kw),
                            reps=1)
-        # what this design moves: every window's rows twice and its 2O
-        # overlap rows once more (lsa, lp), llr written once, and the
-        # 8-value checkpoints of the segments above the first written and
-        # read
+        plan = win_plan(l, o, getattr(torch, dt), b, w, sms=card_sms())
+        # what the design moves: every window's rows twice and its 2O
+        # overlap rows once more (lsa, lp), llr written once and, with
+        # one thread per window, the 8-value checkpoints of the segments
+        # above the first written and read (the split kernel keeps them
+        # on chip)
         moved = itemsize(dt) * ((2 * (2 * k + 2 * o * w) + k) * b
-                                + 2 * 8 * (l // 8 - 1) * w * b)
+                                + (2 * 8 * (l // 8 - 1) * w * b
+                                   if plan.sides == 1 else 0))
         dec = TurboDecoder(k=k, iterations=8, window=l, impl="windowed",
                            dtype=dt)
-        plan = win_plan(l, o, getattr(torch, dt))
+        ptxas = ptxas_of("turbo_win", tag)
         entry = {"max_abs_err": max(errs[dt].values()), "ms": ms,
                  "plain_ms": plain_ms,
-                 **bound(*win_work(k, l, o, b, dt), dt)}
+                 **bound(*win_work(k, l, o, b, dt), dt),
+                 **kernel_design("turbo_win", dt, plan)}
         line[dt] = {**entry, "max_abs_err_by_geometry": errs[dt],
                     "smem_dynamic": plan.smem,
                     "cbs_per_thread": plan.cbs_per_thread,
-                    "ptxas": ptxas_of("turbo_win", tag),
+                    "ptxas": ptxas,
                     "moved_gb": moved / 1e9,
                     "moved_tb_s": moved / (ms * 1e-3) / 1e12,
                     "decode_cbs": 64,
@@ -2978,24 +3273,21 @@ def main() -> int:
     from empower_srslte_tpu_torch.models.pbch import PBCH_K
     from empower_srslte_tpu_torch.ops.fec.convcoder import TRAIN_LEN
 
-    global BASELINE
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if "--baseline" in sys.argv:
-        import importlib.util
-
-        path = sys.argv[sys.argv.index("--baseline") + 1]
-        spec = importlib.util.spec_from_file_location("baseline", path)
-        BASELINE = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(BASELINE)
+        BASELINES[:] = load_baselines(
+            sys.argv[sys.argv.index("--baseline") + 1])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "phases.jsonl").unlink(missing_ok=True)
     phase_device()
     phase_build()
     if "--phases" in sys.argv:
         names = sys.argv[sys.argv.index("--phases") + 1].split(",")
-        alone = {"parallel_sp": phase_parallel_sp,
+        alone = {"kernel_turbo": turbo_kernel_check,
+                 "kernel_turbo_win": turbo_win_kernel_check,
+                 "parallel_sp": phase_parallel_sp,
                  "parallel_batch": phase_parallel_batch,
                  "multihost": phase_multihost,
                  "rx_bler_gate": phase_rx_bler_gate,

@@ -62,20 +62,46 @@
 //
 // Built with --fmad=false: every product here is by 0.5 (exact).
 //
-// bfloat16 (win_kernel<OpsBf16x2>, launcher turbo_win_launch_bf16). The
-// JAX v1 decoder feeds its kernel bfloat16 whenever it takes the kernel
-// path with dtype "auto" (turbo_decoder.py:531-533), and the kernel then
-// rounds every operation to bfloat16. Here one thread decodes two
-// neighbouring code blocks packed in one bf16x2 register (code block 2j
-// in the low half; B even, the wrapper pads an odd batch), so a warp
-// covers 64 code blocks and a trellis row is still one 128-byte line. The
-// same template runs add/sub/mul.rn.bf16x2 and max/neg.bf16x2: rows are
-// halved at load (one rounding, exact), gammas ls + lp and ls - lp, branch
-// sums alpha + g then + beta, one rounding per operation, no FMA. The
-// padding reads PAD_LLR rounded to bfloat16 (99,840, what the JAX
-// decoder's jnp.full(..., 1e5, bf16) holds) and 0; the boundary metric is
-// bf16(-1e30), which no g moves. The checkpoints are 8 bf16x2 values per
-// thread, so the wrapper's buffer holds half the bytes per code block.
+// bfloat16 (launcher turbo_win_launch_bf16). The JAX v1 decoder feeds its
+// kernel bfloat16 whenever it takes the kernel path with dtype "auto"
+// (turbo_decoder.py:531-533), and the kernel then rounds every operation
+// to bfloat16. Both bfloat16 kernels hold two neighbouring code blocks in
+// one bf16x2 register (code block 2j in the low half) and run
+// add/sub/mul.rn.bf16x2 and max/neg.bf16x2: rows are halved at load (one
+// rounding, exact), gammas ls + lp and ls - lp, branch sums alpha + g then
+// + beta, one rounding per operation, no FMA. The padding reads PAD_LLR
+// rounded to bfloat16 (99,840, what the JAX decoder's jnp.full(..., 1e5,
+// bf16) holds) and 0; the boundary metric is bf16(-1e30), which no g
+// moves. The plan (ops/fec/turbo_win.py win_plan) picks the kernel by the
+// launch's shape:
+//
+// * Split kernel (win_split_kernel<OpsBf16x2, Cols>), up to one wave of
+//   split blocks (six per SM at the uplink's window; the plan counts the
+//   card's SMs; the crossover was timed between 5.5 and 7.1 a SM), which
+//   covers the 20 MHz uplink. What bounds the
+//   one-thread schedule there is the latency of the recursion: its 728
+//   warps are one partial wave, and twice the code blocks take only 1.28x
+//   the time. So each window of a code block pair gets two threads in two
+//   warps of one block: the alpha side trains over the O rows before the
+//   window and runs alpha up the lower half of its segments, the beta side
+//   trains over the O rows after it and runs beta down the upper half,
+//   each keeping the carry entering every segment (in shared memory: 28
+//   checkpoints at L 224, no device buffer); they meet at a named
+//   barrier, then each crosses into the other's half, recomputing the
+//   other recursion's segment from its checkpoint and emitting. A thread's
+//   chain is half the one-thread kernel's, at 119 registers and 12 warps
+//   per SM. Any batch: with an odd B, or arrays off a 4-byte boundary, a
+//   lane's pair may straddle two aligned words, so a row's 32 pairs are
+//   staged as the 33 words they span and each lane picks its pair with
+//   one byte permute (ShiftedCols, 124 registers, 1.3-1.5x the time of
+//   AlignedCols, which the plan takes wherever it can); the missing half
+//   of an odd batch's last pair is never stored.
+// * One-thread kernel (win_kernel<OpsBf16x2>): the float32 schedule above
+//   with a code block pair per thread and the checkpoints in the
+//   wrapper's buffer, for an even batch on 4-byte aligned arrays above
+//   that size, where the launch is throughput-bound and the split
+//   kernel's extra instructions (the beta side's branch sums for its
+//   emission) lose.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,6 +164,13 @@ struct OpsBf16x2 {
   }
   static __device__ __forceinline__ T lit(float x) {
     return __float2bfloat162_rn(x);
+  }
+  // the 4 bytes of a metric as a float (for 16-byte shared stores)
+  static __device__ __forceinline__ float pack(T a) {
+    return __uint_as_float(bits(a));
+  }
+  static __device__ __forceinline__ T unpack(float a) {
+    return of(__float_as_uint(a));
   }
 };
 
@@ -407,6 +440,348 @@ __global__ void __launch_bounds__(32) win_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// bfloat16: the split kernel (win_split_kernel<OpsBf16x2, Cols>)
+// ---------------------------------------------------------------------
+
+// code block pairs per block: one warp per side
+#define PPB 32
+
+// cp_async4 where p holds (a predicated copy, no branch)
+__device__ __forceinline__ void cp_async4_if(bool p, void* dst,
+                                             const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n"
+      " @q cp.async.ca.shared.global [%0], [%1], 4;\n}\n" ::"r"(s),
+      "l"(src), "r"((int)p)
+      : "memory");
+}
+// the block's two warps meet (a named barrier that each warp may reach
+// from its own code)
+__device__ __forceinline__ void sides_meet() {
+  asm volatile("barrier.sync 1, %0;\n" ::"n"(2 * PPB) : "memory");
+}
+
+// A lane's code block pair (2j, 2j+1) in the [rows, B] bfloat16 arrays,
+// staged in rows of RW 32-bit words. AlignedCols: B even and every
+// staged array 4-byte aligned, so the pair is one aligned word, staged at
+// word `lane`, read and stored as such. ShiftedCols: any B and
+// alignment; a row's 32 pairs lie in the 33 aligned words from the one
+// holding the block's first element: lane j stages word j (and lane 31
+// word 32 too), reads words j and j + 1 and picks its pair with one byte
+// permute, whose selector a unit fixes per row parity (odd B flips the
+// straddle on odd rows; sh0 bit q is array q's start), and stores its
+// halves one by one. The plan picks
+// the columns (ops/fec/turbo_nii.py split_plan) and the launcher refuses
+// AlignedCols on an odd B or arrays off a 4-byte boundary.
+struct AlignedCols {
+  static constexpr int RW = 32;
+  int lane, B;
+  bool live, hi;
+  size_t col;               // element 2j of row 0
+  __device__ __forceinline__ void stage(unsigned* dst,
+                                        const unsigned short* base,
+                                        size_t row, size_t) const {
+    if (live) cp_async4(dst + lane, base + row * B + col);
+  }
+  __device__ __forceinline__ void start(long long) {}
+  __device__ __forceinline__ unsigned pair(const unsigned* s, int,
+                                           int) const {
+    return s[lane];
+  }
+  __device__ __forceinline__ void store(unsigned short* base, size_t row,
+                                        unsigned v) const {
+    if (live) *reinterpret_cast<unsigned*>(base + row * B + col) = v;
+  }
+};
+struct ShiftedCols {
+  static constexpr int RW = 33;
+  int lane, B;
+  bool live, hi;
+  size_t col;
+  unsigned sh0;
+  // every lane stages, live or not (its word may hold the last live
+  // pair's high half). Words are read whole: the first may begin 2 bytes
+  // before the array or end 2 bytes past it (no word crosses a page), and
+  // a word past the array's last reads that last word again; the halves
+  // these add belong to no code block and are never stored. No branch on
+  // the array's end and no zero-fill copy: either cost latency-bound
+  // launches 1.6-1.8x, and two words a lane cost a wave (PERF.md)
+  __device__ __forceinline__ void stage(unsigned* dst,
+                                        const unsigned short* base,
+                                        size_t row, size_t n_el) const {
+    const uintptr_t w = (uintptr_t)(base + row * B + col) & ~(uintptr_t)3;
+    const uintptr_t last = (uintptr_t)(base + n_el - 1) & ~(uintptr_t)3;
+    cp_async4(dst + lane, (const void*)min(w, last));
+    cp_async4_if(lane == 31, dst + 32, (const void*)min(w + 4, last));
+  }
+  // the byte-permute selectors of a unit's rows from trellis row r0 on,
+  // by row parity and array
+  unsigned sel[2][3];
+  __device__ __forceinline__ void start(long long r0) {
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        sel[par][q] = 0x3210 + 0x2222 * (((((unsigned)r0 + par) &
+                                            (unsigned)B) ^ (sh0 >> q)) & 1);
+    }
+  }
+  // the pair of the unit's row i from array q
+  __device__ __forceinline__ unsigned pair(const unsigned* s, int i,
+                                           int q) const {
+    return __byte_perm(s[lane], s[lane + 1], sel[i & 1][q]);
+  }
+  __device__ __forceinline__ void store(unsigned short* base, size_t row,
+                                        unsigned v) const {
+    if (!live) return;
+    unsigned short* a = base + row * B + col;
+    a[0] = (unsigned short)v;
+    if (hi) a[1] = (unsigned short)(v >> 16);
+  }
+};
+__device__ __forceinline__ void set_shift(AlignedCols&, int, unsigned) {}
+__device__ __forceinline__ void set_shift(ShiftedCols& c, int,
+                                          unsigned sh0) {
+  c.sh0 = sh0;
+}
+
+// 8 metrics <-> two float4 of a [n][2][T] shared array (thread fastest)
+template <class Op>
+__device__ __forceinline__ void put8(float4* dst, int T,
+                                     const typename Op::T* v) {
+  dst[0] = make_float4(Op::pack(v[0]), Op::pack(v[1]), Op::pack(v[2]),
+                       Op::pack(v[3]));
+  dst[T] = make_float4(Op::pack(v[4]), Op::pack(v[5]), Op::pack(v[6]),
+                       Op::pack(v[7]));
+}
+template <class Op>
+__device__ __forceinline__ void get8(const float4* src, int T,
+                                     typename Op::T* v) {
+  const float4 a = src[0], c = src[T];
+  v[0] = Op::unpack(a.x); v[1] = Op::unpack(a.y);
+  v[2] = Op::unpack(a.z); v[3] = Op::unpack(a.w);
+  v[4] = Op::unpack(c.x); v[5] = Op::unpack(c.y);
+  v[6] = Op::unpack(c.z); v[7] = Op::unpack(c.w);
+}
+
+// gammas of staged row q (trellis row r): halved at load, padding rows
+// (outside [0, rows)) substituted by index
+template <class Op, class C>
+__device__ __forceinline__ void split_gammas(const unsigned* s, int q,
+                                             long long r, int rows,
+                                             const C& c,
+                                             typename Op::T* g00,
+                                             typename Op::T* g01) {
+  typename Op::T ls, lq;
+  if (r < 0 || r >= rows) {
+    ls = Op::lit(PAD_LLR);
+    lq = Op::lit(0.0f);
+  } else {
+    const unsigned* e = s + q * 2 * C::RW;
+    ls = Op::half(OpsBf16x2::of(c.pair(e, q, 0)));
+    lq = Op::half(OpsBf16x2::of(c.pair(e + C::RW, q, 1)));
+  }
+  *g00 = Op::add(ls, lq);
+  *g01 = Op::sub(ls, lq);
+}
+
+// llr of one row from its branch sums and the beta entering it (the
+// backward carry before the row's step): max(alpha + g + beta) over the
+// states, u = 0 minus u = 1
+template <class Op>
+__device__ __forceinline__ typename Op::T emit(const typename Op::T* br0,
+                                               const typename Op::T* br1,
+                                               const typename Op::T* beta) {
+  typename Op::T tot0 = Op::add(br0[0], beta[tr_ns(0, 0)]);
+  typename Op::T tot1 = Op::add(br1[0], beta[tr_ns(0, 1)]);
+#pragma unroll
+  for (int m = 1; m < 8; ++m) {
+    tot0 = Op::max(tot0, Op::add(br0[m], beta[tr_ns(m, 0)]));
+    tot1 = Op::max(tot1, Op::add(br1[m], beta[tr_ns(m, 1)]));
+  }
+  return Op::sub(tot0, tot1);
+}
+
+template <class Op>
+__device__ __forceinline__ void branches(const typename Op::T* alpha,
+                                         typename Op::T g00,
+                                         typename Op::T g01,
+                                         typename Op::T* br0,
+                                         typename Op::T* br1) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    br0[m] = Op::add(alpha[m], gsel<Op>(g00, g01, 0, tr_par(m, 0)));
+    br1[m] = Op::add(alpha[m], gsel<Op>(g00, g01, 1, tr_par(m, 1)));
+  }
+}
+
+// The split schedule: a block holds PPB code block pairs of one window in
+// two warps. The alpha side (warp 0) trains alpha over the O rows before
+// the window and runs it up the window's lower h segments; the beta side
+// (warp 1) trains beta over the O rows after the window and runs it down
+// the upper nseg - h segments; each keeps the carry entering every
+// segment (a checkpoint, in shared memory). They meet; then the alpha
+// side walks the upper segments upwards, recomputing each one's betas
+// from the beta side's checkpoint and emitting, while the beta side walks
+// the lower segments downwards, recomputing each one's alphas from the
+// alpha side's checkpoint and emitting. Every alpha and beta is the one
+// the JAX kernel's sweeps compute (the same adds from the same carries,
+// renormalization by row), so the result is bit-identical.
+template <class Op, class C>
+__global__ void __launch_bounds__(2 * PPB) win_split_kernel(
+    const unsigned short* __restrict__ lsa,
+    const unsigned short* __restrict__ lp, unsigned short* __restrict__ llr,
+    int B, int K, int L, int O) {
+  typedef typename Op::T V;
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x & 31, side = threadIdx.x >> 5;
+  const int jb = blockIdx.x * PPB;
+  const int w = blockIdx.y;
+  const int W = K / L, rows = K + 3;
+  C c;
+  c.lane = lane;
+  c.B = B;
+  c.live = 2 * (jb + lane) < B;
+  c.hi = 2 * (jb + lane) + 1 < B;
+  c.col = 2 * (size_t)(jb + lane);
+  set_shift(c, jb, (((uintptr_t)lsa >> 1) & 1) |
+                       ((((uintptr_t)lp >> 1) & 1) << 1));
+  const long long row0 = (long long)w * L;
+  const int nA = O / GROUP, nseg = L / GROUP;
+  const int h = nseg / 2;
+  const int nunit = nA + nseg;
+  const int n1 = nA + (side == 0 ? h : nseg - h);   // phase-1 units
+  const size_t nel = (size_t)rows * B;
+  const V zero = Op::lit(0.0f), neg = Op::lit(NEG);
+  float4* ck = smem + lane;                                // [nseg][2][PPB]
+  unsigned* ring = reinterpret_cast<unsigned*>(smem + (size_t)nseg * 2 * PPB)
+                   + (size_t)side * NSLOT * GROUP * 2 * C::RW;
+
+  // unit v's first trellis row: the alpha side's training tiles from
+  // wL - O upwards, then the window's segments 0 .. nseg-1; the beta
+  // side's training tiles from wL + L + O - 8 downwards, then the
+  // window's segments nseg-1 .. 0
+  auto tile_row = [&](int v) -> long long {
+    if (v < nA)
+      return side == 0 ? row0 - O + GROUP * v
+                       : row0 + L + O - GROUP * (v + 1);
+    return row0 + GROUP * (side == 0 ? v - nA : nseg - 1 - (v - nA));
+  };
+  auto slot = [&](int v) {
+    return ring + (size_t)(v % NSLOT) * GROUP * 2 * C::RW;
+  };
+  auto load = [&](int v) {
+    if (v < nunit) {
+      const long long t0 = tile_row(v);
+      unsigned* d = slot(v);
+      for (int q = 0; q < GROUP; ++q, d += 2 * C::RW) {
+        const long long r = t0 + q;
+        if (r >= 0 && r < rows) {
+          c.stage(d, lsa, (size_t)r, nel);
+          c.stage(d + C::RW, lp, (size_t)r, nel);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int v = 0; v < NSLOT - 1; ++v) load(v);
+
+  // alpha side: alpha (mk: the recomputed betas); beta side: beta (mk:
+  // the recomputed alphas)
+  V alpha[8], beta[8], mk[GROUP][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    alpha[m] = (w == 0 && m != 0) ? neg : zero;
+    beta[m] = (w == W - 1 && m != 0) ? neg : zero;
+  }
+
+  for (int v = 0; v < nunit; ++v) {
+    __syncwarp();             // every lane is done with the slot refilled
+    load(v + NSLOT - 1);
+    cp_async_wait_ring();
+    __syncwarp();             // every lane's words of this slot are in
+    if (v == n1) sides_meet();
+    const long long t0 = tile_row(v);
+    const unsigned* s = slot(v);
+    const bool phase2 = v >= n1;
+    c.start(t0);
+    // the window segment's checkpoint (units past the training tiles)
+    float4* ckj = ck + (size_t)(v < nA ? 0 : (t0 - row0) / GROUP) * 2 * PPB;
+    if (side == 0) {
+      if (v >= nA && !phase2) put8<Op>(ckj, PPB, alpha);
+      if (phase2) {
+        // the segment's betas from the beta side's checkpoint
+        get8<Op>(ckj, PPB, beta);
+#pragma unroll
+        for (int q = GROUP - 1; q >= 0; --q) {
+          V g00, g01;
+          split_gammas<Op>(s, q, t0 + q, rows, c, &g00, &g01);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) mk[q][m] = beta[m];
+          beta_step<Op>(beta, g00, g01);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < GROUP; ++q) {
+        V g00, g01, br0[8], br1[8];
+        split_gammas<Op>(s, q, t0 + q, rows, c, &g00, &g01);
+        branches<Op>(alpha, g00, g01, br0, br1);
+        if (phase2)
+          c.store(llr, (size_t)(t0 + q),
+                  OpsBf16x2::bits(emit<Op>(br0, br1, mk[q])));
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          alpha[m] = Op::max(br0[tr_ps(m, 0)], br1[tr_ps(m, 1)]);
+      }
+      norm8<Op>(alpha);                       // after the group's row 7
+    } else {
+      if (v >= nA && !phase2) put8<Op>(ckj, PPB, beta);
+      if (phase2) {
+        // the segment's alphas from the alpha side's checkpoint (no row
+        // of it renormalizes before its last)
+        get8<Op>(ckj, PPB, alpha);
+#pragma unroll
+        for (int q = 0; q < GROUP; ++q) {
+#pragma unroll
+          for (int m = 0; m < 8; ++m) mk[q][m] = alpha[m];
+          if (q + 1 < GROUP) {
+            V g00, g01, br0[8], br1[8];
+            split_gammas<Op>(s, q, t0 + q, rows, c, &g00, &g01);
+            branches<Op>(alpha, g00, g01, br0, br1);
+#pragma unroll
+            for (int m = 0; m < 8; ++m)
+              alpha[m] = Op::max(br0[tr_ps(m, 0)], br1[tr_ps(m, 1)]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = GROUP - 1; q >= 0; --q) {
+        V g00, g01;
+        split_gammas<Op>(s, q, t0 + q, rows, c, &g00, &g01);
+        if (phase2) {
+          V br0[8], br1[8];
+          branches<Op>(mk[q], g00, g01, br0, br1);
+          c.store(llr, (size_t)(t0 + q),
+                  OpsBf16x2::bits(emit<Op>(br0, br1, beta)));
+        }
+        beta_step<Op>(beta, g00, g01);
+      }
+      norm8<Op>(beta);                        // after the group's row 0
+    }
+  }
+  if (n1 == nunit) sides_meet();   // the beta side of a one-segment window
+}
+
+// shared bytes of a split block (must equal ops/fec/turbo_win.py
+// win_plan): 32 B per segment checkpoint and pair, and each side's ring
+// of NSLOT tiles of 8 rows x 2 staged rows of rw words
+static size_t win_split_smem_bytes(int l, int rw) {
+  return (size_t)(l / GROUP) * 2 * PPB * 16
+         + 2 * (size_t)NSLOT * GROUP * 2 * rw * 4;
+}
+
 // shared bytes of a block (must equal ops/fec/turbo_win.py win_plan): 4 B
 // per staged value in both types
 static size_t win_smem_bytes(int threads) {
@@ -437,12 +812,53 @@ extern "C" int turbo_win_launch(const void* lsa, const void* lp, void* llr,
                             smem_bytes, stream);
 }
 
-// bfloat16: B code blocks (even), two per thread
+// bfloat16: the plan's kernel and columns. threads 32: the one-thread
+// kernel (two code blocks per thread) with its checkpoint buffer;
+// threads 64: the split kernel (ckpt is not used) on AlignedCols, or on
+// ShiftedCols when `shifted`. The one-thread kernel and AlignedCols read
+// pairs as aligned words: the launcher refuses them on an odd B or
+// arrays off a 4-byte boundary. The plan's shared bytes follow the
+// columns' staged row.
 extern "C" int turbo_win_launch_bf16(const void* lsa, const void* lp,
                                      void* llr, void* ckpt, int B, int K,
-                                     int L, int O, int threads,
+                                     int L, int O, int threads, int shifted,
                                      int smem_bytes, void* stream) {
-  if (B % 2 != 0) return (int)cudaErrorInvalidValue;
-  return win_launch<OpsBf16x2>(lsa, lp, llr, ckpt, B / 2, K, L, O, threads,
-                               smem_bytes, stream);
+  const bool aligned_pairs = B % 2 == 0 &&
+      (((uintptr_t)lsa | (uintptr_t)lp | (uintptr_t)llr |
+        (uintptr_t)ckpt) & 3) == 0;
+  if (!shifted && !aligned_pairs) return (int)cudaErrorInvalidValue;
+  if (threads == 32) {
+    if (shifted) return (int)cudaErrorInvalidValue;
+    return win_launch<OpsBf16x2>(lsa, lp, llr, ckpt, B / 2, K, L, O, threads,
+                                 smem_bytes, stream);
+  }
+  typedef const unsigned short* In;
+  typedef unsigned short* Out;
+  if (threads != 2 * PPB || L % GROUP != 0 || O % GROUP != 0 || O > L ||
+      K % L != 0 || B < 1 ||
+      (size_t)smem_bytes != win_split_smem_bytes(
+          L, shifted ? ShiftedCols::RW : AlignedCols::RW))
+    return (int)cudaErrorInvalidValue;
+  const int pairs = (B + 1) / 2;
+  const dim3 grid((unsigned)((pairs + PPB - 1) / PPB), (unsigned)(K / L));
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  if (!shifted) {
+    e = cudaFuncSetAttribute(win_split_kernel<OpsBf16x2, AlignedCols>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    win_split_kernel<OpsBf16x2, AlignedCols><<<grid, threads, smem_bytes,
+                                               st>>>(
+        (In)lsa, (In)lp, (Out)llr, B, K, L, O);
+  } else {
+    e = cudaFuncSetAttribute(win_split_kernel<OpsBf16x2, ShiftedCols>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    win_split_kernel<OpsBf16x2, ShiftedCols><<<grid, threads, smem_bytes,
+                                               st>>>(
+        (In)lsa, (In)lp, (Out)llr, B, K, L, O);
+  }
+  return (int)cudaGetLastError();
 }

@@ -29,12 +29,18 @@ vectorized over windows and code blocks with the same operation order
 boundary metrics come back in the inputs' dtype. In bfloat16 every add,
 subtraction and halving rounds to bfloat16, as the JAX kernel does when
 its input is bfloat16 (``TurboDecoder(dtype="auto")`` on its kernel
-path): the twin's torch bfloat16 ops round per op, the kernel
-(``nii_kernel_bf16``) runs bf16x2 instructions on two neighbouring code
-blocks per thread. The kernel keeps no beta store in device memory: it
-checkpoints the backward carry once per 16-row segment and recomputes
-each segment's betas on chip; ``nii_plan`` gives its block size,
-segments and shared-memory bytes.
+path): the twin's torch bfloat16 ops round per op, the kernels run bf16x2
+instructions on two neighbouring code blocks per register. The kernels
+keep no beta store in device memory: one thread per window (float32, and
+a large even bfloat16 launch) checkpoints the backward carry once per
+16-row segment and recomputes each segment's betas on chip; the
+bfloat16 split kernel (``nii_split_kernel``, for smaller or odd
+launches) gives each window two threads: one runs alpha up the lower
+half while the other runs beta down the upper half, then each crosses
+into the other's half, recomputing the other recursion's segments from
+its checkpoints and emitting. Any batch launches without padding.
+``nii_plan`` picks the kernel and gives its block size, segments and
+shared-memory bytes.
 """
 
 from __future__ import annotations
@@ -70,53 +76,144 @@ LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 MAX_SMEM = 232_448
 #: metric dtypes the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
+#: the bfloat16 split kernels (here and in turbo_win.py): code block pairs
+#: per block (one warp per side) and slots of each side's input ring
+SPLIT_PAIRS, SPLIT_SLOTS = 32, 2
+#: 32-bit words per staged row of a split block: a lane's aligned pair,
+#: or (an odd batch, or arrays off a 4-byte boundary) the 33 words its
+#: 32 pairs may straddle
+SPLIT_ROW_WORDS = {"aligned": 32, "shifted": 33}
+#: the largest bfloat16 launch, in split blocks (windows x ceil(B / 64))
+#: per SM of the card, that takes the split kernel when the one-thread
+#: kernel could run it: one wave of split blocks at the main shape's
+#: window (shared memory holds five a SM). Above it the one-thread
+#: kernel's fewer instructions per code block win (timed in turns on an
+#: H100, PERF.md)
+NII_SPLIT_BLOCKS_PER_SM = 5
+#: SMs of an NVIDIA H100 SXM: the plans' card where none is given
+H100_SMS = 132
+#: rows per segment of the split kernel: half the renormalization group
+#: (64 registers of recomputed metrics; 16 rows took 255 and spilled),
+#: or the whole group where a long window's 8-row checkpoints do not fit
+SPLIT_SEGMENTS = (8, 16)
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
     """Geometry of one kernel launch: ``threads`` per block, each
-    decoding ``cbs_per_thread`` code blocks (1 in float32, 2 packed in
-    bf16x2), ``segments`` ([lo, hi) window rows, bottom up; the backward
-    sweep checkpoints its carry entering each one above the first), and
-    the block's dynamic shared-memory ``smem`` bytes."""
+    holding ``cbs_per_thread`` code blocks in a register (1 in float32, 2
+    packed in bf16x2), ``segments`` ([lo, hi) window rows, bottom up, the
+    unit of the checkpoints), the block's dynamic shared-memory ``smem``
+    bytes, and ``sides``: 1 when a thread runs a window's whole schedule,
+    2 in the split bfloat16 kernels, where one warp runs alpha up the
+    lower ``split`` segments and the other beta down the rest before
+    each crosses into the other's half, staging each lane's pair as one
+    aligned word or, ``shifted``, as the two words it may straddle."""
 
     threads: int
     segments: tuple
     smem: int
     cbs_per_thread: int = 1
+    sides: int = 1
+    split: int = 0
+    shifted: bool = False
 
     @property
     def checkpoints(self) -> tuple:
-        """Window rows whose entering backward carry is kept: the top row
-        of every segment but the first."""
-        return tuple(hi - 1 for _, hi in self.segments[1:])
+        """Window rows whose entering carry is kept. One thread per
+        window: the backward carry at the top row of every segment but
+        the first. Split: the alpha carry at the first row of each of the
+        ``split`` lower segments, then the beta carry at the top row of
+        each upper one."""
+        if self.sides == 1:
+            return tuple(hi - 1 for _, hi in self.segments[1:])
+        return (tuple(lo for lo, _ in self.segments[:self.split])
+                + tuple(hi - 1 for _, hi in self.segments[self.split:]))
+
+    @property
+    def threads_per_cb(self) -> float:
+        """Threads that work on one code block's window."""
+        return self.sides / self.cbs_per_thread
 
 
-def nii_plan(l: int, apr: bool, dtype=torch.float32) -> LaunchPlan:
+def split_plan(segments: tuple, rows: int, inputs: int,
+               shifted: bool) -> LaunchPlan:
+    """The bfloat16 split kernels' plan: two warps of ``SPLIT_PAIRS``
+    code block pairs, a 32-byte checkpoint per segment and pair, and the
+    two sides' rings of ``SPLIT_SLOTS`` slots of ``rows`` x ``inputs``
+    staged rows (``SPLIT_ROW_WORDS``); the alpha side starts on the lower
+    half of the segments."""
+    words = SPLIT_ROW_WORDS["shifted" if shifted else "aligned"]
+    smem = (len(segments) * 2 * SPLIT_PAIRS * 16
+            + 2 * SPLIT_SLOTS * rows * inputs * words * 4)
+    return LaunchPlan(2 * SPLIT_PAIRS, segments, smem, 2, 2,
+                      len(segments) // 2, shifted)
+
+
+def split_blocks(windows: int, cbs: int) -> int:
+    """Blocks of a bfloat16 split launch: windows x ceil(B / 64)."""
+    return windows * -(-cbs // (2 * SPLIT_PAIRS))
+
+
+@functools.lru_cache(maxsize=256)
+def nii_plan(l: int, apr: bool, dtype=torch.float32, cbs: int | None = None,
+             windows: int = 1, aligned: bool = True,
+             sms: int = H100_SMS) -> LaunchPlan:
     """Launch plan of ``csrc/turbo_nii.cu`` for window ``l`` (with or
-    without an a-priori input) and metric ``dtype``. Segments are the
-    16-row renormalization groups, the top one 8 rows when l % 16 == 8.
-    Shared memory per thread: one checkpoint (8 metrics) per segment above
-    the first and a two-slot ring of 16 staged rows of u, p (and apr); the
-    segment's betas stay in registers. A float32 thread decodes one code
-    block (32 B per checkpoint, 4 B per staged value); a bfloat16 thread
-    decodes two neighbouring ones packed in bf16x2, with the same bytes
-    per thread, so a 32-thread block covers 64 code blocks in the same
-    shared memory. Raises ``ValueError`` when the window does not fit."""
+    without an a-priori input), metric ``dtype`` and, in bfloat16, the
+    launch's ``cbs`` code blocks over ``windows`` windows, whose arrays
+    all start on 4-byte boundaries when ``aligned``, on a card of ``sms``
+    SMs. The one-thread kernel: one warp, a thread per code block
+    (float32) or code block pair (bf16x2); segments are the 16-row
+    renormalization groups, the top one 8 rows when l % 16 == 8; shared
+    memory per thread holds one checkpoint (8 metrics, 32 B) per segment
+    above the first and a two-slot ring of 16 staged rows of u, p (and
+    apr) at 4 B; the segment's betas stay in registers. bfloat16 takes it
+    for an even batch on aligned arrays above ``NII_SPLIT_BLOCKS_PER_SM``
+    split blocks a SM, and the split kernel (``split_plan``) otherwise:
+    two warps over 32 code block pairs, 8-row segments (16 where those do
+    not fit) with a checkpoint each, and each side's two-slot ring of one
+    segment's rows x 2 or 3 inputs (32 words a row, or 33 for an odd batch
+    or unaligned arrays). Raises ``ValueError`` when the window does not
+    fit."""
     if dtype not in DTYPES:
         raise TypeError(f"dtype {dtype}: the kernel takes {DTYPES}")
     if l % 8 or l < GROUP:
         raise ValueError(f"window {l}: the kernel needs a multiple of 8 "
                          f">= {GROUP}")
-    threads = 32
     segments = tuple((lo, min(lo + GROUP, l)) for lo in range(0, l, GROUP))
-    per_thread = 32 * (len(segments) - 1) + 4 * 2 * GROUP * (3 if apr else 2)
-    smem = threads * per_thread
-    if smem > MAX_SMEM:
-        raise ValueError(f"window {l}: {smem} B of shared memory per block "
-                         f"exceeds {MAX_SMEM}")
-    return LaunchPlan(threads, segments, smem,
-                      2 if dtype == torch.bfloat16 else 1)
+    nin = 3 if apr else 2
+    shifted = cbs is not None and (cbs % 2 == 1 or not aligned)
+    if dtype == torch.bfloat16 and (
+            cbs is None or shifted
+            or split_blocks(windows, cbs) <= NII_SPLIT_BLOCKS_PER_SM * sms):
+        for rows in SPLIT_SEGMENTS:
+            plan = split_plan(tuple((lo, min(lo + rows, l))
+                                    for lo in range(0, l, rows)),
+                              rows, nin, shifted)
+            if plan.smem <= MAX_SMEM:
+                break
+    else:
+        threads = 32
+        plan = LaunchPlan(threads, segments, threads * (
+            32 * (len(segments) - 1) + 4 * 2 * GROUP * nin),
+            2 if dtype == torch.bfloat16 else 1)
+    if plan.smem > MAX_SMEM:
+        raise ValueError(f"window {l}: {plan.smem} B of shared memory per "
+                         f"block exceeds {MAX_SMEM}")
+    return plan
+
+
+def aligned4(*xs) -> bool:
+    """Every tensor's data starts on a 4-byte boundary (a bfloat16 pair
+    is then one aligned word)."""
+    return all(x is None or x.data_ptr() % 4 == 0 for x in xs)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=1)
@@ -228,16 +325,11 @@ def _lib(dtype):
     lib = load("turbo_nii")
     fn = (lib.turbo_nii_launch_bf16 if dtype == torch.bfloat16
           else lib.turbo_nii_launch)
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    # bfloat16 also passes the plan's segment rows and columns
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * (
+        9 if dtype == torch.bfloat16 else 7) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _pad_even(x):
-    """[..., B] -> [..., B + 1] with a zero column when B is odd (the
-    bfloat16 kernel packs two code blocks per thread)."""
-    return torch.nn.functional.pad(x, (0, 1)) if x.shape[-1] % 2 else x
 
 
 def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
@@ -249,8 +341,7 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
     first / last trellis step (default (0, W-1); (-1, -1) marks a trellis
     slice with no edge, every boundary metric coming from a_st / b_st).
     Returns (ext [K, B], a_next, b_next) in the slot convention above,
-    ready to pass back on the next call. In bfloat16 an odd batch is
-    padded with one code block of zeros for the launch and dropped again.
+    ready to pass back on the next call. Any batch launches as it is.
     """
     global LAUNCHES, LAUNCHES_BF16
     if not u.is_cuda:
@@ -259,15 +350,12 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
     k, b, w_count = _check(u, p, tail_u, tail_p, a_st, b_st, l, apr)
     first, last = (0, w_count - 1) if bounds is None else bounds
     dt = u.dtype
-    plan = nii_plan(l, apr is not None, dt)
-    odd = dt == torch.bfloat16 and b % 2
-    if odd:
-        u, p, tail_u, tail_p, a_st, b_st = map(
-            _pad_even, (u, p, tail_u, tail_p, a_st, b_st))
-        apr = None if apr is None else _pad_even(apr)
     ext = torch.empty_like(u)
     a_next = torch.empty_like(a_st)
     b_next = torch.empty_like(b_st)
+    plan = nii_plan(l, apr is not None, dt, b, w_count,
+                    aligned4(u, p, apr, tail_u, tail_p, a_st, b_st, ext,
+                             a_next, b_next), sm_count(u.device))
     # the launcher calls the runtime on the current device and stream 0 of
     # a device is its legacy default stream: both must be u's card
     with torch.cuda.device(u.device):
@@ -275,8 +363,11 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
                       None if apr is None else apr.data_ptr(),
                       tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
                       b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
-                      b_next.data_ptr(), u.shape[1], l, w_count, first, last,
-                      plan.threads, plan.smem,
+                      b_next.data_ptr(), b, l, w_count, first, last,
+                      plan.threads,
+                      *((plan.segments[0][1], plan.shifted)
+                        if dt == torch.bfloat16 else ()),
+                      plan.smem,
                       torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
@@ -286,7 +377,4 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
         LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."), first,
                        last)] += 1
-    if odd:
-        ext, a_next, b_next = (x[..., :b].contiguous()
-                               for x in (ext, a_next, b_next))
     return ext, a_next, b_next

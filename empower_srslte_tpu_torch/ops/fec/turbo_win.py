@@ -29,17 +29,20 @@ rounds to bfloat16, as the JAX kernel does when the v1 decoder feeds it
 bfloat16 (``TurboDecoder(dtype="auto")`` on its kernel path): rows are
 halved in bfloat16 before the padding, the padding's systematic value is
 ``PAD_LLR`` rounded to bfloat16 (99,840, as ``jnp.full(..., 1e5, bf16)``
-gives) and the boundary metric is bfloat16(-1e30). The kernel
-(``win_kernel<OpsBf16x2>``) decodes two neighbouring code blocks per
-thread in bf16x2 registers.
+gives) and the boundary metric is bfloat16(-1e30). The bfloat16 kernels
+hold two neighbouring code blocks per bf16x2 register; up to the 20 MHz
+uplink's size and for odd batches the split kernel (``win_split_kernel``)
+gives each window two threads, the alpha side and the beta side (see
+``win_plan``). Any batch launches without padding.
 
 On a CUDA tensor ``map_decode_win`` launches ``csrc/turbo_win.cu``; on a
 CPU tensor it runs ``map_decode_win_plain``, the same recursion in torch
-vectorized over (window, code block). The kernel keeps no beta store: it
-checkpoints the beta carry once per 8-row segment (32 B per segment and
-window, in a device-memory buffer the wrapper allocates) and recomputes
-each segment's betas in registers; ``win_plan`` gives its block size,
-segments and shared-memory bytes.
+vectorized over (window, code block). The kernels keep no beta store:
+they checkpoint a carry once per 8-row segment (32 B per segment and
+window; in float32 in a device-memory buffer the wrapper allocates, in
+bfloat16 in shared memory) and recompute each segment's metrics in
+registers; ``win_plan`` gives the block size, segments and shared-memory
+bytes.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ import torch
 
 from ...utils.device import device_table
 from .turbo_encoder import trellis
-from .turbo_nii import DTYPES, LaunchPlan, _pad_even
+from .turbo_nii import (DTYPES, H100_SMS, LaunchPlan, aligned4, sm_count,
+                        split_blocks, split_plan)
 
 NEG = -1e30
 #: steps per renormalization (the JAX kernel's GROUP)
@@ -68,6 +72,13 @@ DEFAULT_OVERLAP = 40
 LAUNCHES = 0
 #: bfloat16 kernel launches made by ``map_decode_win``
 LAUNCHES_BF16 = 0
+#: the largest bfloat16 launch, in split blocks (windows x ceil(B / 64))
+#: per SM of the card, that takes the split kernel when the one-thread
+#: kernel could run it: one wave of split blocks at the uplink's window
+#: (shared memory holds six a SM), past which the split kernel's shorter
+#: chains stop paying for its extra instructions (timed in turns on an
+#: H100, PERF.md)
+WIN_SPLIT_BLOCKS_PER_SM = 6
 #: the same launches per shape (K, window l, code blocks, dtype name);
 #: reset it with ``LAUNCHES_BY_SHAPE.clear()``
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
@@ -101,24 +112,40 @@ def _check(lsa, lp, k: int, l: int, o: int) -> int:
     return lsa.shape[1]
 
 
-def win_plan(l: int, o: int, dtype=torch.float32) -> LaunchPlan:
+@functools.lru_cache(maxsize=256)
+def win_plan(l: int, o: int, dtype=torch.float32, cbs: int | None = None,
+             windows: int = 1, aligned: bool = True,
+             sms: int = H100_SMS) -> LaunchPlan:
     """Launch plan of ``csrc/turbo_win.cu`` for window ``l``, overlap
-    ``o`` and metric ``dtype``: 32 threads per block, the window's rows in
-    8-row segments (the renormalization group; the backward sweep
-    checkpoints its carry entering each one above the first, into a
-    device-memory buffer of ``[len(segments) - 1, 8, W*B]`` in ``dtype``
-    that the wrapper allocates), and a two-slot shared-memory ring of 8
-    staged rows x 4 values of 4 bytes per thread. A bfloat16 thread
-    decodes two code blocks (one bf16x2 value), so the same bytes cover
-    twice the code blocks. Raises ``ValueError`` when the geometry does
-    not fit."""
+    ``o``, metric ``dtype`` and, in bfloat16, the launch's ``cbs`` code
+    blocks over ``windows`` windows, whose arrays all start on 4-byte
+    boundaries when ``aligned``, on a card of ``sms`` SMs; the window's
+    rows in 8-row segments (the renormalization group). The one-thread
+    kernel: one warp, a thread per code block (float32) or code block pair
+    (bf16x2), which checkpoints its beta carry entering each segment above
+    the first into a device-memory buffer of ``[len(segments) - 1, 8,
+    W*B]`` that the wrapper allocates, and a two-slot shared-memory ring
+    of 8 staged rows x 4 values of 4 bytes per thread. bfloat16 takes it
+    for an even batch on aligned arrays above ``WIN_SPLIT_BLOCKS_PER_SM``
+    split blocks a SM, and the split kernel (``split_plan``) otherwise:
+    two warps over 32 code block pairs, the alpha side training over the O
+    rows before the window, the beta side over the O rows after it, a
+    checkpoint per segment in shared memory, and each side's two-slot ring
+    of 8 rows x 2 inputs (32 words a row, or 33 for an odd batch or
+    unaligned arrays). Raises ``ValueError`` when the geometry does not
+    fit."""
     if dtype not in DTYPES:
         raise TypeError(f"dtype {dtype}: the kernel takes {DTYPES}")
     if l % GROUP or o % GROUP or not GROUP <= o <= l:
         raise ValueError(f"window {l}, overlap {o}: need multiples of "
                          f"{GROUP} with {GROUP} <= O <= L")
-    threads = 32
     segments = tuple((lo, lo + GROUP) for lo in range(0, l, GROUP))
+    shifted = cbs is not None and (cbs % 2 == 1 or not aligned)
+    if dtype == torch.bfloat16 and (
+            cbs is None or shifted
+            or split_blocks(windows, cbs) <= WIN_SPLIT_BLOCKS_PER_SM * sms):
+        return split_plan(segments, GROUP, 2, shifted)
+    threads = 32
     return LaunchPlan(threads, segments, threads * 4 * 2 * GROUP * 4,
                       2 if dtype == torch.bfloat16 else 1)
 
@@ -191,34 +218,34 @@ def _lib(dtype):
     lib = load("turbo_win")
     fn = (lib.turbo_win_launch_bf16 if dtype == torch.bfloat16
           else lib.turbo_win_launch)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    # bfloat16 also passes the plan's columns
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+        7 if dtype == torch.bfloat16 else 6) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     """One windowed constituent decode: lsa, lp [K+3, B] -> llr [K, B]
-    in the inputs' dtype (see the module docstring). In bfloat16 an odd
-    batch is padded with one code block of zeros for the launch and
-    dropped again."""
+    in the inputs' dtype (see the module docstring)."""
     global LAUNCHES, LAUNCHES_BF16
     if not lsa.is_cuda:
         return map_decode_win_plain(lsa, lp, k=k, l=l, o=o)
     b = _check(lsa, lp, k, l, o)
     dt = lsa.dtype
-    plan = win_plan(l, o, dt)
-    odd = dt == torch.bfloat16 and b % 2
-    if odd:
-        lsa, lp = _pad_even(lsa), _pad_even(lp)
-    bp = lsa.shape[1]
-    llr = torch.empty((k, bp), dtype=dt, device=lsa.device)
-    # the beta carry entering each segment above the first, per window
-    ckpt = torch.empty((len(plan.checkpoints), 8, k // l * bp), dtype=dt,
-                       device=lsa.device)
+    llr = torch.empty((k, b), dtype=dt, device=lsa.device)
+    plan = win_plan(l, o, dt, b, k // l, aligned4(lsa, lp, llr),
+                    sm_count(lsa.device))
+    # float32: the beta carry entering each segment above the first, per
+    # window (the split kernel keeps its checkpoints on chip)
+    ckpt = (torch.empty((len(plan.checkpoints), 8, k // l * b), dtype=dt,
+                        device=lsa.device) if plan.sides == 1 else None)
     with torch.cuda.device(lsa.device):      # the launcher's device
         rc = _lib(dt)(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
-                      ckpt.data_ptr(), bp, k, l, o, plan.threads, plan.smem,
+                      None if ckpt is None else ckpt.data_ptr(), b, k, l, o,
+                      plan.threads,
+                      *((plan.shifted,) if dt == torch.bfloat16 else ()),
+                      plan.smem,
                       torch.cuda.current_stream(lsa.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_win kernel launch failed: CUDA error {rc}")
@@ -227,4 +254,4 @@ def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     else:
         LAUNCHES += 1
     LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."))] += 1
-    return llr[:, :b].contiguous() if odd else llr
+    return llr

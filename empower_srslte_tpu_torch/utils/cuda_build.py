@@ -53,7 +53,9 @@ def cxx() -> str:
     return found
 
 
-def _source(name: str) -> pathlib.Path:
+def _source(name: str, sources=None) -> pathlib.Path:
+    if sources and name in sources:
+        return pathlib.Path(sources[name])
     cu = CSRC / f"{name}.cu"
     return cu if cu.exists() else CSRC / f"{name}.cpp"
 
@@ -62,30 +64,33 @@ def _flags(src: pathlib.Path) -> tuple:
     return NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
 
 
-def library_path(name: str) -> pathlib.Path:
-    """Where the library of ``csrc/<name>.cu`` or ``.cpp`` is built: named
-    after a hash of its source and flags."""
-    src = _source(name)
+def library_path(name: str, sources=None) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` or ``.cpp`` (or of
+    ``sources[name]``) is built: named after a hash of its source and
+    flags."""
+    src = _source(name, sources)
     tag = hashlib.sha1(src.read_bytes()
                        + " ".join(_flags(src)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(names) -> dict[str, float]:
+def build(names, sources=None) -> dict[str, float]:
     """Compile the named sources that are not built yet, all compiler
-    processes started together. Returns the seconds each build took."""
+    processes started together. ``sources`` maps a name to a source
+    outside ``csrc/`` (another design of a kernel, built under a name of
+    its own). Returns the seconds each build took."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, sources)
         if out.exists():
             log = out.with_suffix(".log")
             BUILD_LOGS[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        src = _source(name)
+        src = _source(name, sources)
         # find every compiler before starting any, so that none is left
         # running when one is missing
         todo[name] = ([nvcc() if src.suffix == ".cu" else cxx(),
@@ -102,8 +107,8 @@ def build(names) -> dict[str, float]:
         took[name] = time.perf_counter() - t0
         BUILD_LOGS[name] = log
         if proc.returncode != 0:
-            failed.append(f"{proc.args[0]} failed for csrc/"
-                          f"{_source(name).name}:\n{log}")
+            failed.append(f"{proc.args[0]} failed for "
+                          f"{_source(name, sources)}:\n{log}")
         else:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
@@ -112,12 +117,14 @@ def build(names) -> dict[str, float]:
     return took
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` or ``.cpp`` (built on first
-    use)."""
+def load(name: str, source=None) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` or ``.cpp``, or for
+    ``source`` when given (built on first use)."""
+    sources = None if source is None else {name: source}
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            build([name], sources)
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name,
+                                                             sources)))
         return lib

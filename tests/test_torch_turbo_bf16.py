@@ -32,7 +32,7 @@ from empower_srslte_tpu_torch.models.sch import (
 from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win
 from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
 from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
-    _pad_even, map_decode_nii, map_decode_nii_plain, nii_plan)
+    map_decode_nii, map_decode_nii_plain, nii_plan)
 from empower_srslte_tpu_torch.ops.fec.turbo_win import (
     map_decode_win, map_decode_win_plain, win_plan)
 
@@ -131,25 +131,26 @@ def test_auto_resolves_as_jax_on_its_accelerator():
 
 def test_bf16_wrappers_on_cpu(rng):
     """On CPU tensors the wrappers run the bfloat16 twins (no launch
-    counted), refuse mixed dtypes, and give the bfloat16 plans two code
-    blocks per thread in the float32 plans' bytes. The launch pads an odd
-    batch with a zero column: the twin shows that the padding leaves the
-    real code blocks unchanged."""
+    counted), refuse mixed dtypes, and give the bfloat16 plans the split
+    kernels' geometry: two warps over 32 code block pairs, one thread per
+    code block, a checkpoint per segment on chip, the alpha side starting
+    on the lower half. An odd batch goes through as it is, with no
+    padding: each code block's outputs equal its own decode alone."""
     k, l, b = 128, 64, 5
     x = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32)
                                    * 3).to(BF16)
     args = (x(k, b), x(k, b), x(3, b), x(3, b), x(3, 8, b), x(3, 8, b))
-    before = (turbo_nii.LAUNCHES, turbo_nii.LAUNCHES_BF16)
-    got = map_decode_nii(*args, l=l, apr=x(k, b))
-    assert (turbo_nii.LAUNCHES, turbo_nii.LAUNCHES_BF16) == before
-    assert all(g.dtype == BF16 for g in got)
     apr = x(k, b)
-    ref = map_decode_nii_plain(*args, l=l, apr=apr)
-    padded = map_decode_nii_plain(*map(_pad_even, args), l=l,
-                                  apr=_pad_even(apr))
-    for r, p in zip(ref, padded):
-        assert p.shape[-1] == b + 1
-        assert torch.equal(r, p[..., :b])
+    before = (turbo_nii.LAUNCHES, turbo_nii.LAUNCHES_BF16)
+    got = map_decode_nii(*args, l=l, apr=apr)
+    assert (turbo_nii.LAUNCHES, turbo_nii.LAUNCHES_BF16) == before
+    assert all(g.dtype == BF16 and g.shape[-1] == b for g in got)
+    for j in (0, b - 1):
+        one = map_decode_nii_plain(*(a[..., j:j + 1].contiguous()
+                                     for a in args), l=l,
+                                   apr=apr[:, j:j + 1].contiguous())
+        for r, o in zip(got, one):
+            assert torch.equal(r[..., j:j + 1], o)
     with pytest.raises(TypeError):
         map_decode_nii(args[0].float(), *args[1:], l=l)
 
@@ -157,17 +158,28 @@ def test_bf16_wrappers_on_cpu(rng):
     before = (turbo_win.LAUNCHES, turbo_win.LAUNCHES_BF16)
     out = map_decode_win(lsa, lp, k=k, l=l, o=24)
     assert (turbo_win.LAUNCHES, turbo_win.LAUNCHES_BF16) == before
-    assert out.dtype == BF16
-    assert torch.equal(out, map_decode_win_plain(
-        _pad_even(lsa), _pad_even(lp), k=k, l=l, o=24)[:, :b])
+    assert out.dtype == BF16 and out.shape == (k, b)
+    assert torch.equal(out[:, b - 1:], map_decode_win_plain(
+        lsa[:, b - 1:].contiguous(), lp[:, b - 1:].contiguous(), k=k, l=l,
+        o=24))
     with pytest.raises(TypeError):
         map_decode_win(lsa.float(), lp, k=k, l=l, o=24)
 
-    for plan32, plan16 in ((nii_plan(240, True), nii_plan(240, True, BF16)),
-                           (win_plan(224, 40), win_plan(224, 40, BF16))):
-        assert plan16.cbs_per_thread == 2 and plan32.cbs_per_thread == 1
-        assert (plan16.threads, plan16.segments, plan16.smem) == \
-            (plan32.threads, plan32.segments, plan32.smem)
+    for plan32, plan16, nseg in (
+            (nii_plan(240, True), nii_plan(240, True, BF16), 30),
+            (win_plan(224, 40), win_plan(224, 40, BF16), 28)):
+        assert (plan32.threads, plan32.cbs_per_thread, plan32.sides) == \
+            (32, 1, 1)
+        assert (plan16.threads, plan16.cbs_per_thread, plan16.sides) == \
+            (64, 2, 2)
+        assert plan16.threads_per_cb == plan32.threads_per_cb == 1.0
+        assert [hi - lo for lo, hi in plan16.segments] == [8] * nseg
+        assert plan16.split == nseg // 2
+        assert len(plan16.checkpoints) == nseg
+    assert nii_plan(240, True).smem == 26_624          # unchanged
+    assert nii_plan(240, True, BF16).smem == 30 * 1024 + 2 * 2 * 8 * 3 * 32 * 4
+    assert win_plan(224, 40, BF16, 5).smem == \
+        28 * 1024 + 2 * 2 * 8 * 2 * 33 * 4              # an odd batch
 
 
 class _F32Plan(DlschPlan):
