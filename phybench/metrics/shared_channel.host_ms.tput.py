@@ -1,0 +1,12 @@
+"""shared_channel.host_ms.tput: host self time (each range's span less its child ranges) of the PDSCH/PUSCH equalizer, despreading and soft demapper, in ms per call.
+
+Layer: shared channel. Moves mbps. Ranges: pdsch.eq_demod, pusch.eq_demod.
+"""
+
+RANGES = ('pdsch.eq_demod', 'pusch.eq_demod')
+
+
+def read(trace, ctx):
+    if not trace.has_ranges(RANGES):
+        return None
+    return trace.host_s(RANGES) / trace.calls * 1e3
