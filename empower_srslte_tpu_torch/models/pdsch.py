@@ -17,7 +17,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.equalizer import (MimoType, effective_channel_cdd,
                              effective_channel_mux, eq_mux_2x2, eq_sfbc,
@@ -26,6 +25,7 @@ from ..ops.equalizer import (MimoType, effective_channel_cdd,
                              precode_sfbc, precode_sfbc_fstd)
 from ..ops.modem import Mod, demod_soft, modulate, quantize_llr_int8
 from ..ops.scrambling import descramble_llrs, scramble_bits
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import device_table
 from ..utils.sequence import cinit_pdsch
@@ -193,7 +193,7 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
     second plan is given. Diversity needs the RE pairs (quads with 4 ports)
     of ``cfg.nof_symbols``; CDD's D(i) cycles by extraction index.
     """
-    with record_function("pdsch.eq_demod"):
+    with trace.span("pdsch.eq_demod"):
         y = pdsch_extract(grid, cfg)                      # [..., A, M]
         m = cfg.nof_symbols
         if cfg.mimo is MimoType.SINGLE:

@@ -22,11 +22,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.chest import time_interp_apply
 from ..ops.modem import Mod, demod_soft, modulate
 from ..ops.scrambling import descramble_llrs, scramble_bits
+from ..runtime import trace
 from ..utils.cell import CP, Cell
 from ..utils.device import device_table, resolve_device
 from ..utils.sequence import cinit_pmch, prs_sequence
@@ -177,7 +177,7 @@ def pmch_chest(grid: torch.Tensor, cfg: PmchConfig) -> torch.Tensor:
     """LS + interpolation over MBSFN RS -> h [..., nsymb, nre]: linear in
     frequency within each RS symbol, then linear in time across the three
     RS symbols (profiler range ``pmch.chest``)."""
-    with record_function("pmch.chest"):
+    with trace.span("pmch.chest"):
         dev = grid.device
         idx_rows, syms, vals = mbsfn_rs(cfg.area_id, cfg.cell.nof_prb,
                                         cfg.sf_idx)
@@ -206,7 +206,7 @@ def pmch_decode(grid: torch.Tensor, cfg: PmchConfig, plan: DlschPlan,
     not given) and ``pmch.eq_demod``, then ``dlsch.*``."""
     if h is None:
         h = pmch_chest(grid, cfg)
-    with record_function("pmch.eq_demod"):
+    with trace.span("pmch.eq_demod"):
         idx = cfg.re_index_tensor(grid.device)
         y = grid.reshape(*grid.shape[:-2], -1)[..., idx]
         hh = h.reshape(*h.shape[:-2], -1)[..., idx]
@@ -279,7 +279,7 @@ def pmch_receive(samples: torch.Tensor, st: PmchBatch,
     softbuffers)."""
     from ..ops.ofdm import ofdm_rx_sf_mbsfn
 
-    with record_function("pmch.ofdm_rx"):
+    with trace.span("pmch.ofdm_rx"):
         grid = ofdm_rx_sf_mbsfn(samples, st.cell, MBMS_CFI)
     return pmch_decode(grid, st.cfg, st.plan, noise_est=st.n0,
                        iters_out=iters_out)

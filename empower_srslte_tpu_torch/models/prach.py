@@ -29,8 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import device_table, resolve_device
 
@@ -272,7 +272,7 @@ def prach_detect(samples: torch.Tensor, cell: Cell, rsi: int, zcz: int = 1,
     is not ported, so the later arguments are keyword-only. Profiler range
     ``prach.detect``.
     """
-    with record_function("prach.detect"):
+    with trace.span("prach.detect"):
         nzc = _nzc(fmt)
         seq_len = prach_seq_len(cell, fmt)
         dev = samples.device

@@ -30,8 +30,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import device_table, resolve_device
 from ..utils.sequence import gold_sequence
@@ -196,7 +196,7 @@ def pucch_f1_decode(grid: torch.Tensor, cfg: PucchConfig):
     channel-compensated symbol and energy the sum of |h|^2 over the
     data symbols of both slots (the presence statistic). Profiler range
     ``pucch.f1_decode``."""
-    with record_function("pucch.f1_decode"):
+    with trace.span("pucch.f1_decode"):
         z = _despread(grid, cfg)                           # [..., 2, nsym]
         w = device_table(("pucch_f1_w", cfg), grid.device,
                          lambda: _f1_weights(cfg))
@@ -282,7 +282,7 @@ def pucch_f2_decode(grid: torch.Tensor, cfg: PucchConfig, nof_bits: int,
     statistic), in the JAX package's tuple order. The payload is the ML
     RM(20, nof_bits) decision over the 20 LLRs. Profiler range
     ``pucch.f2_decode``."""
-    with record_function("pucch.f2_decode"):
+    with trace.span("pucch.f2_decode"):
         llrs, d_ack, energy = pucch_f2_soft(grid, cfg, nof_ack)
         out = [rm_decode(llrs, 20, nof_bits)]
         if nof_ack:

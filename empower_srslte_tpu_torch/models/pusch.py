@@ -23,12 +23,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.dft_precoding import dft_deprecode, dft_precode, valid_prb
 from ..ops.fec.cbsegm import cbsegm
 from ..ops.modem import Mod, demod_soft, modulate, quantize_llr_int8
 from ..ops.scrambling import descramble_llrs, scramble_bits
+from ..runtime import trace
 from ..utils.cell import CP, Cell
 from ..utils.device import device_table
 from ..utils.sequence import cinit_pdsch, gold_sequence
@@ -207,14 +207,14 @@ def _pusch_llrs(grid: torch.Tensor, cfg: PuschConfig, noise_est,
     nre] -> LLRs [..., G]."""
     cell = cfg.cell
     st0, st1 = cfg.slot_starts()
-    with record_function("pusch.chest"):
+    with trace.span("pusch.chest"):
         h = chest_ul_pusch(grid, cell, cfg.prb_start, cfg.n_prb,
                            cfg.cyclic_shift,
                            prb_start_slot1=cfg.prb_start_slot1,
                            sf_idx=cfg.sf_idx, delta_ss=cfg.delta_ss,
                            group_hopping=cfg.group_hopping,
                            sequence_hopping=cfg.sequence_hopping)
-    with record_function("pusch.eq_demod"):
+    with trace.span("pusch.eq_demod"):
         if st0 == st1:
             alloc = grid[..., 12 * st0:12 * st0 + cfg.m_sc]
         else:
@@ -495,7 +495,7 @@ def pusch_decode_uci(grid: torch.Tensor, cfg: PuschConfig, plan: UciPlan,
     llr = _pusch_llrs(grid, cfg, noise_est)
     out = {"ri": None, "ack": (), "cqi_bits": None, "cqi_ok": None,
            "tb": None, "crc_ok": None, "softbuffers": None}
-    with record_function("pusch.uci_demux"):
+    with trace.span("pusch.uci_demux"):
         if plan.q_ack:
             out["ack"] = tuple(_decode_ri_ack_field(llr, plan, "ack",
                                                     len(plan.uci.ack)))

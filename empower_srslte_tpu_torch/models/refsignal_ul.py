@@ -20,8 +20,8 @@ import pathlib
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..runtime import trace
 from ..utils.cell import CP, Cell
 from ..utils.device import device_table
 from ..utils.sequence import gold_sequence
@@ -217,5 +217,5 @@ def srs_chest(grid: torch.Tensor, cell: Cell, n_prb_srs: int,
         cell, n_prb_srs, prb_start, comb, cyclic_shift)[0])
     seq_c = device_table(key + ("conj",), grid.device, lambda: np.conj(
         _srs_tables(cell, n_prb_srs, prb_start, comb, cyclic_shift)[1]))
-    with record_function("srs.chest"):
+    with trace.span("srs.chest"):
         return grid.reshape(*grid.shape[:-2], -1)[..., idx] * seq_c

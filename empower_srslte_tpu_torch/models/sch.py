@@ -20,12 +20,12 @@ import functools
 from dataclasses import dataclass
 
 import torch
-from torch.profiler import record_function
 
 from ..ops.fec.cbsegm import CbSegm, cbsegm
 from ..ops.fec.rate_matching import RateMatchTurbo
 from ..ops.fec.turbo_decoder import TurboDecoder
 from ..ops.fec.turbo_encoder import turbo_encode
+from ..runtime import trace
 from ..utils.crc import CRC24A, CRC24B
 
 
@@ -161,7 +161,7 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
     segm = plan.segm
     stop_crc = (CRC24B if segm.c > 1 else CRC24A) if plan.early_stop else None
 
-    with record_function("dlsch.derm"):
+    with trace.span("dlsch.derm"):
         prior = filler_prior(llrs, plan)
         groups: dict = {}
         for idx, (k, e, f, off) in enumerate(plan.cb_plans):
@@ -178,7 +178,7 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
                                          filler=prior)
             derm.setdefault(k, []).append((f, members, d_llr, ns))
 
-    with record_function("dlsch.turbo_decode"):
+    with trace.span("dlsch.turbo_decode"):
         decoded = {}
         for k, items in derm.items():
             d_all = (torch.cat([d for _f, _m, d, _n in items], dim=-3)
@@ -186,7 +186,7 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
             decoded[k], _ = plan.decoder(k).decode(d_all, crc=stop_crc,
                                                    iters_out=iters_out)
 
-    with record_function("dlsch.crc_reassembly"):
+    with trace.span("dlsch.crc_reassembly"):
         new_soft = [None] * segm.c
         cb_bits = [None] * segm.c
         cb_ok = []

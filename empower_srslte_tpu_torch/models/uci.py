@@ -21,10 +21,10 @@ import pathlib
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.fec.convcoder import conv_encode, viterbi_decode
 from ..ops.fec.rm_conv import _selection, rm_conv_rx
+from ..runtime import trace
 from ..utils.crc import CRC8
 from ..utils.device import device_table
 
@@ -323,7 +323,7 @@ def decode_cqi_pusch(llrs: torch.Tensor, o: int, n_out_bits: int):
     Long: conv de-rate-matching, Viterbi, CRC8. Runs in the profiler
     range ``uci.cqi_decode``.
     """
-    with record_function("uci.cqi_decode"):
+    with trace.span("uci.cqi_decode"):
         lead = llrs.shape[:-1]
         if o <= 11:
             nfull, rem = divmod(n_out_bits, 32)

@@ -23,12 +23,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.chest import chest_dl, noise_est_pilots
 from ..ops.equalizer import MimoType
 from ..ops.modem import Mod
 from ..ops.ofdm import ofdm_rx_sf
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import as_samples
 from . import dci as dci_mod
@@ -277,38 +277,42 @@ def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
     CRC16 with the RNTI mask -> 2x2 MMSE PDSCH decode of both codewords
     (one DL-SCH decode, both codewords stacked).
 
-    Each stage runs in a ``torch.profiler.record_function`` range named
-    ``ue_dl.<stage>`` (``pdsch.*`` and ``dlsch.*`` inside the PDSCH
-    decode), which ``profile_main_path`` reads from one trace.
+    The whole call runs in the range ``ue_dl.tm4_batch`` (its self time
+    is the receiver's glue), each stage in a range named ``ue_dl.<stage>``
+    (``pdsch.eq_demod`` and ``dlsch.*`` inside the PDSCH decode, and
+    ``turbo.stop_read`` around each early-stop read), all through
+    ``runtime.trace``: ``profile_main_path`` and the benchmark read them
+    from one ``torch.profiler`` trace.
     """
-    cell, sf_idx, cfi = cfg.cell, cfg.sf_idx, cfg.cfi
-    with record_function("ue_dl.ofdm_rx"):
-        grid = ofdm_rx_sf(samples, cell)                   # [B, rx, S, K]
-    with record_function("ue_dl.chest_noise"):
-        h = torch.stack(
-            [torch.stack([chest_dl(grid[:, r], cell, sf_idx, port=p)
-                          for p in range(2)], dim=1)
-             for r in range(2)], dim=1)                # [B, rx, port, S, K]
-        n0 = torch.clamp(noise_est_pilots(grid[:, 0], cell, sf_idx),
-                         min=1e-7)
-    grid0, h0 = grid[:, 0], h[:, 0]                        # rx 0 for control
-    with record_function("ue_dl.pcfich"):
-        cfi_hat, _ = pcfich_decode(grid0, h0, cell, sf_idx,
-                                   noise_est=n0[..., None])
-    with record_function("ue_dl.pdcch_llr"):
-        llr = pdcch_extract_llr(grid0, h0, cell, cfi, sf_idx,
-                                noise_est=n0[..., None])
-    with record_function("ue_dl.pdcch_blind_search"):
-        cands = ue_search_candidates(cfg.rnti, sf_idx,
-                                     pdcch_nof_cces(cell, cfi))
-        n_det = torch.zeros(samples.shape[0], dtype=torch.int64,
-                            device=samples.device)
-        for size in sorted({dci_mod.format1_size(cell.nof_prb),
-                            dci_mod.format0_1a_size(cell.nof_prb)}):
-            bits = pdcch_blind_bits(llr, cands, size)      # [B, n_cand, k]
-            n_det = n_det + dci_crc_ok(bits, size, cfg.rnti).sum(-1)
-    iters: list = []
-    (b1, b2), (ok1, ok2), _ = pdsch_decode(
-        grid, h, cfg, plan, noise_est=n0[:, None], plan2=plan,
-        iters_out=iters)
-    return Tm4BatchResult(cfi_hat, n_det, (b1, b2), (ok1, ok2), iters)
+    with trace.root("ue_dl.tm4_batch", samples.device):
+        cell, sf_idx, cfi = cfg.cell, cfg.sf_idx, cfg.cfi
+        with trace.span("ue_dl.ofdm_rx"):
+            grid = ofdm_rx_sf(samples, cell)               # [B, rx, S, K]
+        with trace.span("ue_dl.chest_noise"):
+            h = torch.stack(
+                [torch.stack([chest_dl(grid[:, r], cell, sf_idx, port=p)
+                              for p in range(2)], dim=1)
+                 for r in range(2)], dim=1)            # [B, rx, port, S, K]
+            n0 = torch.clamp(noise_est_pilots(grid[:, 0], cell, sf_idx),
+                             min=1e-7)
+        grid0, h0 = grid[:, 0], h[:, 0]                    # rx 0 for control
+        with trace.span("ue_dl.pcfich"):
+            cfi_hat, _ = pcfich_decode(grid0, h0, cell, sf_idx,
+                                       noise_est=n0[..., None])
+        with trace.span("ue_dl.pdcch_llr"):
+            llr = pdcch_extract_llr(grid0, h0, cell, cfi, sf_idx,
+                                    noise_est=n0[..., None])
+        with trace.span("ue_dl.pdcch_blind_search"):
+            cands = ue_search_candidates(cfg.rnti, sf_idx,
+                                         pdcch_nof_cces(cell, cfi))
+            n_det = torch.zeros(samples.shape[0], dtype=torch.int64,
+                                device=samples.device)
+            for size in sorted({dci_mod.format1_size(cell.nof_prb),
+                                dci_mod.format0_1a_size(cell.nof_prb)}):
+                bits = pdcch_blind_bits(llr, cands, size)  # [B, n_cand, k]
+                n_det = n_det + dci_crc_ok(bits, size, cfg.rnti).sum(-1)
+        iters: list = []
+        (b1, b2), (ok1, ok2), _ = pdsch_decode(
+            grid, h, cfg, plan, noise_est=n0[:, None], plan2=plan,
+            iters_out=iters)
+        return Tm4BatchResult(cfi_hat, n_det, (b1, b2), (ok1, ok2), iters)

@@ -20,10 +20,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops.ofdm import freq_shift_half_subcarrier, ofdm_rx_sf, ofdm_tx_sf
 from ..ops.sync import cfo_correct
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import resolve_device
 from .pucch import F2_FORMATS, pucch_f1_encode, pucch_f2_encode
@@ -90,7 +90,7 @@ def enb_ul_receive_grid(samples: torch.Tensor, cell: Cell) -> torch.Tensor:
     """eNB side: undo the half-subcarrier shift and FFT to the UL grid
     [..., nsymb, nre] (srslte_enb_ul_fft analog; profiler range
     ``enb_ul.fft``)."""
-    with record_function("enb_ul.fft"):
+    with trace.span("enb_ul.fft"):
         shifted = freq_shift_half_subcarrier(samples, cell, direction=-1)
         return ofdm_rx_sf(shifted, cell)
 

@@ -50,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...runtime import trace
 from ...utils.device import device_table
 from .tables import qpp_deinterleaver, qpp_interleaver
 from .turbo_encoder import trellis
@@ -61,6 +62,15 @@ NEG_INF = -1e30
 #: (JAX turbo_decoder.py:147-156): a strong "bit 0" prior keeps the
 #: terminated metric {state 0: 0, others: -inf} invariant through them.
 PAD_LLR = 1e5
+
+
+def _all_pass(any_fails: torch.Tensor) -> bool:
+    """The early-stop read: the device's one-element "some code block
+    fails" flag on the host. Its range ``turbo.stop_read`` holds the
+    device-to-host read alone (the host waits there for the card to
+    drain its queue); the flag is computed before it."""
+    with trace.span("turbo.stop_read"):
+        return not bool(any_fails)
 
 
 def _perm(name: str, k: int, device):
@@ -343,7 +353,7 @@ class TurboDecoder:
             if p_int is not None:
                 bits = (llr_int < 0).to(torch.float32)
                 snd = torch.remainder(torch.mm(p_int, bits), 2.0)
-                if not bool(torch.any(snd != 0.0)):
+                if _all_pass(torch.any(snd != 0.0)):
                     break
             ext2 = ext2i[pinv]
         return llr_int, n_it
@@ -387,7 +397,7 @@ class TurboDecoder:
             if h is not None:
                 bits = (llr < 0).to(torch.float32)
                 snd = torch.remainder(torch.mm(h, bits), 2.0)
-                if not bool(torch.any(snd != 0.0)):
+                if _all_pass(torch.any(snd != 0.0)):
                     break
         return llr, n_it
 

@@ -18,13 +18,15 @@ both stacks, each TTI carrying one IP packet up and one down:
 1. times the receiver with CUDA events (mean of 3 calls after a
    warm-up);
 2. traces one more call with ``torch.profiler`` and reads, for each of
-   the receiver's ``record_function`` ranges (``ue_dl.*``, ``pdsch.*``,
-   ``enb_ul.*``, ``pusch.*``, ``uci.*``, ``dlsch.*``, ``pucch.*``,
-   ``srs.*``, ``prach.*``, ``pmch.*``), its host time and
-   the device time of the kernels launched in it (and the device time
-   launched outside every range); plus device time by kernel name, the
-   kernel count and the device's idle share of the traced call's wall
-   time.
+   the receiver's ranges (``runtime.trace`` spans: ``ue_dl.*``,
+   ``pdsch.*``, ``enb_ul.*``, ``pusch.*``, ``uci.*``, ``dlsch.*``,
+   ``pucch.*``, ``srs.*``, ``prach.*``, ``pmch.*``, the early-stop
+   reads ``turbo.stop_read`` and the first-use events ``runtime.*``),
+   its host time and the device time of the kernels launched in it,
+   each kernel given to the innermost range open at its launch (and the
+   device time launched outside every range); plus device time by
+   kernel name, the kernel count and the device's idle share of the
+   traced call's wall time.
 
 Prints one JSON object and writes it to
 chiprun_out/profile_<path>.json. Needs a CUDA card.
@@ -44,7 +46,7 @@ BATCH = 256
 #: TTIs per call of ``--path stack``
 STACK_TTIS = 10
 RANGE_PREFIXES = ("ue_dl.", "pdsch.", "enb_ul.", "pusch.", "uci.", "dlsch.",
-                  "pucch.", "srs.", "prach.", "pmch.")
+                  "pucch.", "srs.", "prach.", "pmch.", "turbo.", "runtime.")
 
 
 def call_ms(run, reps: int = 3) -> float:
@@ -71,15 +73,21 @@ def trace(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return read_trace(prof.events(), wall_ms)
+
+
+def read_trace(events, wall_ms: float) -> dict:
+    """The per-range host and device times, kernel count, idle share and
+    top kernels of a traced call's profiler ``events``."""
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    events = prof.events()
     ranges = [e for e in events
               if e.device_type == cpu and e.name.startswith(RANGE_PREFIXES)]
     kernels = [e for e in events
                if e.device_type == cuda and not e.is_user_annotation]
-    # a kernel belongs to the range its launch call (CUDA runtime API,
-    # same correlation id) was made in; the profiler's own op linking
-    # misses kernels launched outside an aten op (the ctypes kernels)
+    # a kernel belongs to the innermost range its launch call (CUDA
+    # runtime API, same correlation id) was made in; the profiler's own
+    # op linking misses kernels launched outside an aten op (the ctypes
+    # kernels)
     launch_us = {e.id: e.time_range.start for e in events
                  if e.device_type == cpu and e.name.startswith("cu")}
     stages = {r.name: {"host_ms": 0.0, "device_ms": 0.0} for r in ranges}
@@ -88,8 +96,9 @@ def trace(run) -> dict:
     outside_ms = 0.0
     for k in kernels:
         t = launch_us.get(k.id)
-        owner = next((r for r in ranges if t is not None
-                      and r.time_range.start <= t <= r.time_range.end), None)
+        owner = max((r for r in ranges if t is not None
+                     and r.time_range.start <= t <= r.time_range.end),
+                    key=lambda r: r.time_range.start, default=None)
         if owner is None:
             outside_ms += k.device_time / 1e3
         else:

@@ -1,34 +1,150 @@
 """Tracing/profiling and intermediate-signal dumps.
 
-Capability parity with the reference's observability hooks: per-stage
-timing (the tests' Mbps printers, turbodecoder_test.c:264-281),
-``torch.profiler`` traces for kernel-level inspection, and
+Capability parity with the reference's observability hooks: program
+ranges and first-use counters for ``torch.profiler`` traces, and
 srslte_ue_dl_save_signal-style dumps of every intermediate buffer for
 offline analysis (ue_dl.c:958).
+
+Tracing is on while ``torch.profiler`` records, or between ``enable()``
+and ``disable()``. Then ``span(name)`` opens a ``record_function`` range
+(``layer.stage``, on the trace's timeline with the kernels launched in
+it), and the counter registry counts first-use events by kind:
+
+* ``table_build``: a ``utils.device.device_table`` miss (range
+  ``runtime.table_build``);
+* ``kernel_load``: a ``utils.cuda_build.load`` miss (range
+  ``runtime.kernel_load``);
+* ``alloc_segment``: the caching allocator's new device segments over a
+  ``root`` range;
+* ``cufft_plan``: the cuFFT plan cache's growth over a ``root`` range;
+* ``gc_gen2``: a full garbage collection (every collection while tracing
+  runs in a ``runtime.gc`` range).
+
+Tracing off, ``span`` and ``root`` check one flag and return a shared
+empty context manager, and nothing is counted.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import pathlib
-import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+
+_enabled = False
+_OFF = contextlib.nullcontext()
+_COUNTS: collections.Counter = collections.Counter()
 
 
-@contextlib.contextmanager
-def stage_timer(name: str, log=None, sync=None):
-    """Time a pipeline stage; ``sync`` is called before stopping the clock
-    (pass ``torch.cuda.synchronize``, or a read of the stage's output, to
-    wait for the card's queued work)."""
-    t0 = time.perf_counter()
-    yield
-    if sync is not None:
-        sync()
-    dt = time.perf_counter() - t0
-    msg = f"{name}: {dt*1e3:.2f} ms"
-    (log.info if log else print)(msg)
+def enable() -> None:
+    """Trace without the profiler: spans and counters on."""
+    global _enabled
+    _enabled = True
+
+
+def disable() -> None:
+    global _enabled
+    _enabled = False
+
+
+def tracing() -> bool:
+    """True while ``torch.profiler`` records or after ``enable()``."""
+    return _enabled or _profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while tracing, else a
+    shared empty context manager (the test is ``tracing()`` inlined: this
+    runs at every stage of every call)."""
+    if _enabled or _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
+
+
+def count(kind: str, n: int = 1) -> None:
+    """Count ``n`` events of ``kind`` while tracing."""
+    if tracing():
+        _COUNTS[kind] += n
+
+
+def counts() -> dict:
+    """A snapshot of the counters: {kind: events}."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    _COUNTS.clear()
+
+
+def _device_counters(device: torch.device) -> tuple:
+    """(device segments allocated so far, cuFFT plans cached) on a CUDA
+    ``device``."""
+    stats = torch.cuda.memory_stats(device)
+    plans = torch.backends.cuda.cufft_plan_cache[device.index].size
+    return stats.get("segment.all.allocated", 0), plans
+
+
+class _Root:
+    """A span around a whole receiver call that also counts the call's
+    new allocator segments and cuFFT plans. The two counters are read
+    before the range opens and after it closes, so that reading them
+    enters no range's host time."""
+
+    __slots__ = ("name", "device", "rec", "before")
+
+    def __init__(self, name: str, device: torch.device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        self.before = _device_counters(self.device)
+        self.rec = _profiler.record_function(self.name)
+        self.rec.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.__exit__(*exc)
+        after = _device_counters(self.device)
+        for kind, b, a in zip(("alloc_segment", "cufft_plan"), self.before,
+                              after):
+            if a > b:
+                _COUNTS[kind] += a - b
+
+
+def root(name: str, device):
+    """``span(name)`` for a receiver's whole call on ``device``; on a
+    CUDA device it also counts ``alloc_segment`` and ``cufft_plan``."""
+    if not tracing():
+        return _OFF
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _profiler.record_function(name)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _Root(name, device)
+
+
+_gc_open: list = []
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: a ``runtime.gc`` range over each collection
+    that starts while tracing, and a ``gc_gen2`` count for a full one."""
+    if phase == "start":
+        if tracing():
+            rec = _profiler.record_function("runtime.gc")
+            rec.__enter__()
+            _gc_open.append(rec)
+            if info.get("generation") == 2:
+                _COUNTS["gc_gen2"] += 1
+    elif _gc_open:
+        _gc_open.pop().__exit__(None, None, None)
+
+
+gc.callbacks.append(_on_gc)
 
 
 @contextlib.contextmanager

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import threading
 
+from ..runtime import trace
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
@@ -119,12 +121,16 @@ def build(names, sources=None) -> dict[str, float]:
 
 def load(name: str, source=None) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` or ``.cpp``, or for
-    ``source`` when given (built on first use)."""
+    ``source`` when given (built on first use). A miss (the build, or the
+    cached library's load) runs in the range ``runtime.kernel_load`` and
+    counts one ``kernel_load``."""
     sources = None if source is None else {name: source}
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name], sources)
-            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name,
-                                                             sources)))
+            with trace.span("runtime.kernel_load"):
+                build([name], sources)
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name,
+                                                                 sources)))
+            trace.count("kernel_load")
         return lib

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime import trace
+
 
 def resolve_device(device=None) -> torch.device:
     """None -> the current CUDA device (raises without one); else as given."""
@@ -37,12 +39,16 @@ _TABLES: dict = {}
 def device_table(key, device: torch.device, build):
     """Host-built constant (numpy array from ``build()``) as a tensor on
     ``device``, cached per (key, device) so static index tables cross the
-    host-device boundary once. A bare ``"cuda"`` is the current card."""
+    host-device boundary once. A bare ``"cuda"`` is the current card. A
+    miss (the build and its copy to the card) runs in the range
+    ``runtime.table_build`` and counts one ``table_build``."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     k = (key, str(device))
     t = _TABLES.get(k)
     if t is None:
-        t = _TABLES[k] = torch.tensor(build(), device=device)
+        with trace.span("runtime.table_build"):
+            t = _TABLES[k] = torch.tensor(build(), device=device)
+        trace.count("table_build")
     return t

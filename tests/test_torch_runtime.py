@@ -7,8 +7,8 @@ parser, and the native ring buffer (``tests/test_native_stream.py``) on
 the port's own ``g++`` build of ``csrc/ring_buffer.cpp``. Outputs must be
 equal: files byte for byte, samples and timestamps exactly, parsed
 configs field for field, console metrics text for text. Also the port's
-``trace``: ``stage_timer``, a ``SignalDump`` round trip and a
-``torch.profiler`` trace written on the CPU.
+``trace``: a ``SignalDump`` round trip and a ``torch.profiler`` trace
+written on the CPU.
 
 The ring buffer is held to the data it carries, not to the JAX package's
 library: that one builds with ``make`` inside ``native/``, which
@@ -20,7 +20,6 @@ import importlib
 import io
 import json
 import pathlib
-import re
 import subprocess
 import sys
 import time
@@ -584,26 +583,6 @@ class TestLibconf:
 
 
 class TestTrace:
-    def test_stage_timer(self, capsys):
-        from empower_srslte_tpu_torch.runtime.trace import stage_timer
-
-        synced = []
-        with stage_timer("fft", sync=lambda: synced.append(1)):
-            torch.fft.fft(torch.ones(64, dtype=torch.complex64))
-        assert synced == [1]
-        assert re.fullmatch(r"fft: \d+\.\d\d ms\n", capsys.readouterr().out)
-
-        class Log:
-            lines = []
-
-            def info(self, msg):
-                self.lines.append(msg)
-
-        log = Log()
-        with stage_timer("decode", log=log):
-            pass
-        assert len(log.lines) == 1 and log.lines[0].startswith("decode: ")
-
     def test_signal_dump_round_trip(self, tmp_path, rng):
         jtrace, trace = pair("runtime.trace")
         grid = iq(rng, 2 * 72).reshape(2, 72)
