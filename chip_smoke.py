@@ -12,6 +12,9 @@ shape it launched against the twin of that shape's dtype:
 * the 20 MHz eNB PUSCH receiver with UCI (windowed turbo kernel, Viterbi
   kernel for the CQI), at a high and at a mid SNR;
 * the recursion-rate probe tool (its own kernel);
+* the CRS channel and noise estimate kernel against its twin at every
+  shape the receive paths give it, and its launches a path call
+  (``chest_dl``);
 * the PDSCH in TM2 on 4 ports (SFBC-FSTD) on the float32 and the int8
   LLR lanes and in TM3 (CDD, 2 codewords), genie channel (NII kernel);
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
@@ -108,7 +111,8 @@ at the main or uplink shape, at one code block and over a sweep of
 batches (``BASELINE_SWEEP``), and puts both on its phase line.
 
 ``--phases`` runs the build and the named phases alone (any of the
-turbo kernel checks ``kernel_turbo`` and ``kernel_turbo_win``, of
+chest kernel's ``chest_dl``, the turbo kernel checks ``kernel_turbo``
+and ``kernel_turbo_win``, of
 ``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
 use a second card where one is visible, and the stack scenario phases
 ``stack_multi_ue``, ``stack_mac_harq``, ``stack_idle``,
@@ -209,7 +213,8 @@ COUNTERS = (("turbo_nii", "turbo_nii", "LAUNCHES"),
             ("turbo_nii_bf16", "turbo_nii", "LAUNCHES_BF16"),
             ("turbo_win", "turbo_win", "LAUNCHES"),
             ("turbo_win_bf16", "turbo_win", "LAUNCHES_BF16"),
-            ("viterbi37", "viterbi37", "LAUNCHES"))
+            ("viterbi37", "viterbi37", "LAUNCHES"),
+            ("chest_dl", "chest", "LAUNCHES"))
 
 
 def emit(obj):
@@ -659,9 +664,8 @@ def phase_build():
     # the --baseline designs' sources, built beside the port's
     sources = dict(src for _, mod in BASELINES
                    for src in getattr(mod, "SOURCES", {}).values())
-    took = cuda_build.build(["turbo_nii", "viterbi37", "turbo_win",
-                             "recursion_probe", "ring_buffer", *sources],
-                            sources)
+    took = cuda_build.build([*cuda_build.KERNELS, "recursion_probe",
+                             "ring_buffer", *sources], sources)
     for _, mod in BASELINES:
         for kernel, (name, _) in getattr(mod, "SOURCES", {}).items():
             mod.PTXAS[kernel] = cuda_build.BUILD_LOGS[name]
@@ -779,6 +783,159 @@ def decode_vs_twin(dec, llr, u, twin) -> dict:
     return {"decode_iterations": it_k,
             "decode_bit_errors": int((bits_k != u).sum()),
             "hard_bits_equal": True}
+
+
+#: the CRS chest kernel against its plain twin on the CPU, which computes
+#: the same float32 operations in the same order but for the sums of the
+#: noise: the largest |dh| over max |h|, and the largest relative
+#: difference of the noise. A few units in the last place of float32
+#: (1.2e-7), where a wrong pilot, row or weight is off by order 1
+CHEST_TOL = 2e-6
+#: against the same twin run on the card. PyTorch's CUDA kernel for a
+#: tensor divided by a Python scalar multiplies by the scalar's
+#: reciprocal, so there the twin's interpolation weights j/6 round
+#: differently (``div_mismatch`` counts them); at the upper band edge's
+#: extrapolation, w = j/6 - (M - 2) with j up to 6M, the weight then
+#: differs by up to ulp(200) = 1.5e-5, times |h[M-1] - h[M-2]| <= 2 max|h|
+CHEST_TOL_CARD = 3e-5
+
+
+def chest_bytes(cell, sf_idx: int, ports, n: int) -> int:
+    """Compulsory bytes of one ``chest_dl`` launch over ``n`` grids: each
+    port's pilot REs read once, its estimate [S, K] complex64 and its
+    noise written once."""
+    from empower_srslte_tpu_torch.ops.chest import _interp_plan
+
+    pilots = sum(_interp_plan(cell, sf_idx, p)["re_idx"].size for p in ports)
+    return n * (8 * pilots
+                + len(ports) * (8 * cell.nsymb_sf * cell.nof_re + 4))
+
+
+def chest_shape(g, cell, sf_idx: int, ports, lead, **taps) -> dict:
+    """The kernel against its twin on random grids [*lead, S, K], timed
+    (CUDA graph: the device time of a launch) beside its bound and the
+    twin (one stacked plain estimate per port and the noise, CUDA
+    events: the launches' host cost included)."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops import chest
+
+    shape = (*lead, cell.nsymb_sf, cell.nof_re)
+    grid = torch.complex(torch.randn(shape, generator=g, device="cuda"),
+                         torch.randn(shape, generator=g, device="cuda"))
+
+    def twin():
+        return (torch.stack([chest._chest_dl_plain(
+                    grid, cell, sf_idx, p, taps.get("smooth", True),
+                    taps.get("gauss_std")) for p in ports], dim=-3),
+                torch.stack([chest._noise_est_plain(grid, cell, sf_idx, p)
+                             for p in ports], dim=-1))
+
+    def kernel():
+        return chest.chest_dl_ports(grid, cell, sf_idx, ports, **taps)
+
+    def errs(h, noise, h_ref, n_ref):
+        return (float((h - h_ref).abs().max() / h_ref.abs().max()),
+                float(((noise - n_ref).abs() / n_ref).max()))
+
+    h, noise = kernel()
+    h_ref, n_ref = twin()
+    n_only = chest.noise_est_pilots(grid, cell, sf_idx, port=ports[0])
+    h_err, n_err = errs(h, noise, h_ref, n_ref)
+    ms, twin_ms = graph_ms(kernel, reps=20), cuda_ms(twin, reps=3)
+    grid = grid.cpu()
+    h_cpu, n_cpu = errs(h.cpu(), noise.cpu(), *twin())
+    n = grid.numel() // (cell.nsymb_sf * cell.nof_re)
+    return {"grids": n, "ports": list(ports), "nof_prb": cell.nof_prb,
+            "cp": cell.cp.value, "sf_idx": sf_idx,
+            "taps": len(chest.fir_taps(taps.get("smooth", True),
+                                       taps.get("gauss_std"))),
+            "h_err_cpu_twin": h_cpu, "noise_rel_err_cpu_twin": n_cpu,
+            "h_err": h_err, "noise_rel_err": n_err,
+            "noise_only_rel_err": float(
+                ((n_only - n_ref[..., 0]).abs() / n_ref[..., 0]).max()),
+            "ms": ms,
+            **bound(chest_bytes(cell, sf_idx, ports, n), 0),
+            "twin_ms": twin_ms}
+
+
+def phase_chest_dl():
+    """The CRS channel and noise estimate kernel (``csrc/chest_dl.cu``)
+    against its plain twin at every shape the receive paths give it:
+    ``ue_dl_tm4_batch`` at 256 and 1 subframes (2 rx, 2 ports, 100 PRB),
+    ``ue_dl_decode``'s one rx (the 4-port TM2 frame's cell), the MIB's 6
+    PRB, and each FIR, the extended CP and ports 2-3 besides; then the
+    kernel launches a path call makes on those paths' own stimuli."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import enb_dl
+    from empower_srslte_tpu_torch.models.ue_dl import (ue_dl_decode,
+                                                       ue_dl_tm4_batch,
+                                                       ue_mib_acquire)
+    from empower_srslte_tpu_torch.ops import chest
+    from empower_srslte_tpu_torch.ops.equalizer import MimoType
+    from empower_srslte_tpu_torch.utils.cell import CP, Cell
+
+    st256 = enb_dl.tm4_stimulus(BATCH, device="cuda")
+    st1 = enb_dl.tm4_stimulus(1, device="cuda")
+    fr = enb_dl.tm2_frame_stimulus(device="cuda")
+    tm4, sf = st1.cfg.cell, st1.cfg.sf_idx
+    g = torch.Generator(device="cuda").manual_seed(61)
+    shapes = {
+        "tm4_b256": chest_shape(g, tm4, sf, (0, 1), (BATCH, 2)),
+        "tm4_b1": chest_shape(g, tm4, sf, (0, 1), (1, 2)),
+        "ue_dl_decode_1rx": chest_shape(g, fr.cell, 1,
+                                        range(fr.cell.nof_ports), (1,)),
+        "mib_6prb": chest_shape(g, Cell(nof_prb=6, id=1, nof_ports=1), 0,
+                                (0,), (1,)),
+        "tm4_b256_gauss": chest_shape(g, tm4, sf, (0, 1), (BATCH, 2),
+                                      gauss_std=0.5),
+        "tm4_b1_unsmoothed": chest_shape(g, tm4, sf, (0, 1), (1, 2),
+                                         smooth=False),
+        "ext_cp_25prb_4port": chest_shape(
+            g, Cell(nof_prb=25, id=3, nof_ports=4, cp=CP.EXT), 5,
+            (0, 1, 2, 3), (4, 2)),
+    }
+
+    def per_call(run):
+        run()                                              # warm-up
+        torch.cuda.synchronize()
+        before = chest.LAUNCHES
+        run()
+        torch.cuda.synchronize()
+        return chest.LAUNCHES - before
+
+    paths = {
+        "tm4_b256": lambda: ue_dl_tm4_batch(st256.samples, st256.cfg,
+                                            st256.plan),
+        "tm4_b1": lambda: ue_dl_tm4_batch(st1.samples, st1.cfg, st1.plan),
+        "ue_dl_decode": lambda: ue_dl_decode(
+            fr.samples[1], fr.cell, 1, fr.rnti, mimo=MimoType.DIVERSITY),
+        "mib": lambda: ue_mib_acquire(st1.samples[0, 0], tm4, tm4.id),
+    }
+    launches = {name: per_call(run) for name, run in paths.items()}
+    path_ms = {name: cuda_ms(paths[name], reps=3)
+               for name in ("tm4_b256", "tm4_b1")}
+    j = torch.arange(6 * 200, dtype=torch.float32)
+    div_mismatch = int(((j.cuda() / 6.0).cpu() != j / 6.0).sum())
+    checks = {
+        "h_within_tol": all(v["h_err_cpu_twin"] <= CHEST_TOL
+                            and v["h_err"] <= CHEST_TOL_CARD
+                            for v in shapes.values()),
+        "noise_within_tol": all(
+            max(v["noise_rel_err_cpu_twin"], v["noise_rel_err"],
+                v["noise_only_rel_err"]) <= CHEST_TOL
+            for v in shapes.values()),
+        "one_launch_a_path_call": all(v == 1 for v in launches.values()),
+    }
+    out = {"phase": "chest_dl", "tol": CHEST_TOL,
+           "tol_card_twin": CHEST_TOL_CARD, "div_mismatch": div_mismatch,
+           "shapes": shapes,
+           "launches_per_call": launches, "path_ms": path_ms,
+           "ptxas": PTXAS.get("chest_dl"), "checks": checks}
+    emit(out)
+    check("chest_dl", checks)
+    return out
 
 
 def turbo_kernel_check():
@@ -2071,17 +2228,19 @@ def open_counts():
     -> the modules, by name."""
     import torch
 
+    from empower_srslte_tpu_torch.ops import chest
     from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
         viterbi37
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
-            "viterbi37": viterbi37}
+            "viterbi37": viterbi37, "chest": chest}
     for _name, mod, attr in COUNTERS:
         setattr(mods[mod], attr, 0)
     for m in mods.values():
-        m.LAUNCHES_BY_SHAPE.clear()
+        if hasattr(m, "LAUNCHES_BY_SHAPE"):
+            m.LAUNCHES_BY_SHAPE.clear()
     return mods
 
 
@@ -2091,7 +2250,8 @@ def read_counts(mods) -> tuple:
     NII kernel's followed by the (first, last) of its resolved
     ``bounds``."""
     return ({name: getattr(mods[mod], attr) for name, mod, attr in COUNTERS},
-            {name: dict(m.LAUNCHES_BY_SHAPE) for name, m in mods.items()})
+            {name: dict(m.LAUNCHES_BY_SHAPE) for name, m in mods.items()
+             if hasattr(m, "LAUNCHES_BY_SHAPE")})
 
 
 def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
@@ -3285,7 +3445,8 @@ def main() -> int:
     phase_build()
     if "--phases" in sys.argv:
         names = sys.argv[sys.argv.index("--phases") + 1].split(",")
-        alone = {"kernel_turbo": turbo_kernel_check,
+        alone = {"chest_dl": phase_chest_dl,
+                 "kernel_turbo": turbo_kernel_check,
                  "kernel_turbo_win": turbo_win_kernel_check,
                  "parallel_sp": phase_parallel_sp,
                  "parallel_batch": phase_parallel_batch,
@@ -3301,6 +3462,7 @@ def main() -> int:
                          "kind": torch.cuda.get_device_name(0),
                          "count": torch.cuda.device_count()}})
         return 0
+    chest_out = phase_chest_dl()
     turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
@@ -3421,6 +3583,13 @@ def main() -> int:
                     pair["uplink_path"]["float32"]["turbo_win"]),
         turbo_entry("turbo_win_bf16", "turbo_win", win16,
                     ul_launches["turbo_win_bf16"]),
+        {"name": "chest_dl", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/chest_dl.cu",
+         "replaces": None, "launches": launches["chest_dl"],
+         "launches_by_path": per_path("chest_dl"),
+         **{k: chest_out[k] for k in ("shapes", "launches_per_call",
+                                      "ptxas")},
+         "library_ms": None},
         {"name": "recursion_probe", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",
          "replaces": "tools/microbench_vpu.py:55",

@@ -24,6 +24,13 @@ counterpart for Hopper (sm_90a) under ``csrc/``, built on first use:
                               (wrapper, twin and tool:
                               tools/microbench_recursion.py)
 
+and one kernel that replaces no Pallas kernel but a loop of tiny
+PyTorch ops on the receive paths:
+
+  csrc/chest_dl.cu         the CRS channel and pilot noise estimate of
+                           every (subframe, rx, port) in one launch
+                           (wrapper and plain twins: ops/chest.py)
+
 Entry points that create tensors run on the CUDA card unless given
 ``device="cpu"``; on a CPU tensor a kernel wrapper runs its plain twin.
 """

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.chest import chest_dl, noise_est_pilots
+from ..ops.chest import chest_dl, chest_dl_ports
 from ..ops.equalizer import (condition_number_db, pmi_select_1layer,
                              pmi_select_2layer)
 from ..ops.ofdm import ofdm_rx_sf
@@ -73,9 +73,9 @@ def subband_snrs(samples, cell: Cell, sf_idx: int,
     n_sub = cqi_nof_subbands(cell.nof_prb)
     k_sc = 12 * cqi_hl_subband_size(cell.nof_prb)
     grid = ofdm_rx_sf(samples[None], cell)                  # [1, S, K]
-    h = chest_dl(grid, cell, sf_idx, port=0)[0]
-    noise = torch.clamp(noise_est_pilots(grid, cell, sf_idx)[0],
-                        min=noise_floor)
+    h, noise = chest_dl_ports(grid, cell, sf_idx, (0,))
+    h = h[0, 0]
+    noise = torch.clamp(noise[0, 0], min=noise_floor)
     p = h.abs() ** 2                                        # [nsymb, nre]
     p = torch.nn.functional.pad(p, (0, (-p.shape[-1]) % k_sc))
     sb = torch.mean(p.reshape(p.shape[0], -1, k_sc), dim=(0, 2))

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.chest import chest_dl, noise_est_pilots
+from ..ops.chest import chest_dl_ports
 from ..ops.equalizer import MimoType
 from ..ops.modem import Mod
 from ..ops.ofdm import ofdm_rx_sf
@@ -60,10 +60,9 @@ class UeDlResult:
 
 def estimate_channel(grid, cell: Cell, sf_idx: int):
     """Per-port channel estimates: grid [..., nsymb, nre] ->
-    h [..., P, nsymb, nre] and the pilot noise estimate [...]."""
-    h = torch.stack([chest_dl(grid, cell, sf_idx, port=p)
-                     for p in range(cell.nof_ports)], dim=-3)
-    return h, noise_est_pilots(grid, cell, sf_idx)
+    h [..., P, nsymb, nre] and the port-0 pilot noise estimate [...]."""
+    h, noise = chest_dl_ports(grid, cell, sf_idx, range(cell.nof_ports))
+    return h, noise[..., 0]
 
 
 def ue_dl_decode(samples, cell: Cell, sf_idx: int, rnti: int,
@@ -271,7 +270,8 @@ def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
     """The no-genie 2x2 TM4 receiver over a batch of subframes.
 
     samples [B, rx=2, sf_len] complex64 -> OFDM FFT -> CRS channel
-    estimate per (rx, port) -> pilot noise estimate on rx 0 -> PCFICH on
+    estimate per (rx, port) and pilot noise estimate on rx 0 (one
+    ``chest_dl_ports``: one kernel launch on the card) -> PCFICH on
     rx 0 (SFBC) -> PDCCH LLRs of the whole region (SFBC) -> blind search
     of every candidate for both monitored DCI sizes (formats 1A and 1),
     CRC16 with the RNTI mask -> 2x2 MMSE PDSCH decode of both codewords
@@ -289,12 +289,9 @@ def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
         with trace.span("ue_dl.ofdm_rx"):
             grid = ofdm_rx_sf(samples, cell)               # [B, rx, S, K]
         with trace.span("ue_dl.chest_noise"):
-            h = torch.stack(
-                [torch.stack([chest_dl(grid[:, r], cell, sf_idx, port=p)
-                              for p in range(2)], dim=1)
-                 for r in range(2)], dim=1)            # [B, rx, port, S, K]
-            n0 = torch.clamp(noise_est_pilots(grid[:, 0], cell, sf_idx),
-                             min=1e-7)
+            h, noise = chest_dl_ports(grid, cell, sf_idx, (0, 1))
+            # h [B, rx, port, S, K]; the rx-0, port-0 noise
+            n0 = torch.clamp(noise[:, 0, 0], min=1e-7)
         grid0, h0 = grid[:, 0], h[:, 0]                    # rx 0 for control
         with trace.span("ue_dl.pcfich"):
             cfi_hat, _ = pcfich_decode(grid0, h0, cell, sf_idx,

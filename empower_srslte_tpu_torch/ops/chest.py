@@ -8,21 +8,36 @@ measurements: pilot, PSS and empty-subcarrier noise, RSRP, RSSI, RSRQ and
 the pilot CFO (chest_dl.c:268-361, 583-603, 741-840). Pilot extraction
 and interpolation follow static per-(cell, sf_idx, port) plans;
 everything is batched over subframes and rx antennas.
+
+On the card the channel and pilot noise estimates of every requested
+port are one launch of ``csrc/chest_dl.cu`` (``chest_dl_ports``, which
+``chest_dl`` and ``noise_est_pilots`` go through); on the CPU they are
+the plain twins ``_chest_dl_plain`` and ``_noise_est_plain``, which the
+kernel repeats operation for operation.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ..models.refsignal import crs_pilots
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import device_table
 
 #: 3-tap frequency smoothing filter (chest_dl.c default smooth filter).
 SMOOTH_3TAP = np.array([0.3333, 0.3334, 0.3333], np.float32)
+#: kernel launches made by ``chest_dl_cuda`` (read by chip_smoke.py)
+LAUNCHES = 0
+#: the kernel's limits: FIR taps, pilot rows per port (csrc/chest_dl.cu)
+MAX_TAPS, MAX_ROWS = 5, 4
+#: blocks a launch aims for: a block per (grid, port), split over
+#: symbols while there are fewer (about two per SM of an H100)
+TARGET_BLOCKS = 264
 
 
 @functools.lru_cache(maxsize=512)
@@ -135,15 +150,9 @@ def auto_gauss_std(noise_est: float) -> float:
     return float(noise_est) * 200.0
 
 
-def chest_dl(grid, cell: Cell, sf_idx: int, port: int = 0,
-             smooth: bool = True, gauss_std: float | None = None):
-    """Estimate h for one TX port: grid [..., nsymb, nre] -> same shape.
-
-    LS at pilots, 3-tap freq smoothing (or the SNR-adaptive Gaussian of
-    ``gauss_std``, chest_dl.c:616 smooth_filter_auto, see
-    ``auto_gauss_std``), then freq + time linear interpolation. Batched
-    over all leading dims.
-    """
+def _chest_dl_plain(grid, cell: Cell, sf_idx: int, port: int,
+                    smooth: bool, gauss_std: float | None):
+    """``chest_dl`` in plain PyTorch (the kernel's twin)."""
     plan = _interp_plan(cell, sf_idx, port)
     h_p = _ls_pilots(grid, plan, (cell, sf_idx, port))    # [..., P, M]
     if gauss_std is not None:
@@ -156,10 +165,8 @@ def chest_dl(grid, cell: Cell, sf_idx: int, port: int = 0,
     return time_interp_apply(plan["tw"], h_f)
 
 
-def noise_est_pilots(grid, cell: Cell, sf_idx: int, port: int = 0):
-    """Noise power from pilot residuals after 3-tap smoothing
-    (chest_dl.c:268-329 estimate_noise_pilots): E|h_ls - smooth(h_ls)|^2,
-    unbiased by 3/2. Returns [...] per batch element."""
+def _noise_est_plain(grid, cell: Cell, sf_idx: int, port: int):
+    """``noise_est_pilots`` in plain PyTorch (the kernel's twin)."""
     plan = _interp_plan(cell, sf_idx, port)
     h_p = _ls_pilots(grid, plan, (cell, sf_idx, port))
     padded = torch.cat([h_p[..., :1], h_p, h_p[..., -1:]], dim=-1)
@@ -168,6 +175,149 @@ def noise_est_pilots(grid, cell: Cell, sf_idx: int, port: int = 0):
           + float(SMOOTH_3TAP[2]) * padded[..., 2:])
     resid = h_p - sm
     return torch.mean(resid.abs() ** 2, dim=(-1, -2)) * 1.5
+
+
+def fir_taps(smooth: bool = True,
+             gauss_std: float | None = None) -> np.ndarray:
+    """The estimate's FIR along the pilot axis: the SNR-adaptive Gaussian
+    of ``gauss_std``, else the 3-tap default, or [1] without smoothing."""
+    if gauss_std is not None:
+        return gauss_taps(gauss_std)
+    return SMOOTH_3TAP if smooth else np.ones(1, np.float32)
+
+
+@functools.lru_cache(maxsize=512)
+def kernel_tables(cell: Cell, sf_idx: int, ports: tuple):
+    """The tables ``csrc/chest_dl.cu`` reads for ``ports``, from each
+    port's ``_interp_plan``: conj_vals [P, MAX_ROWS, M] complex64 (a
+    port's rows past its own are 0); meta [P, 1 + 2 MAX_ROWS + 2 S]
+    int32: its pilot rows, each row's symbol and comb offset (-1 past its
+    rows), then per symbol the first and the second pilot row of its time
+    weights (-1: none); tw [P, S, 2] float32, those two weights. The
+    weights are ``tw``'s nonzeros in column order, as
+    ``time_interp_apply`` sums them."""
+    m, nsymb = 2 * cell.nof_prb, cell.nsymb_sf
+    cv = np.zeros((len(ports), MAX_ROWS, m), np.complex64)
+    meta = np.full((len(ports), 1 + 2 * MAX_ROWS + 2 * nsymb), -1, np.int32)
+    tw = np.zeros((len(ports), nsymb, 2), np.float32)
+    for i, port in enumerate(ports):
+        plan = _interp_plan(cell, sf_idx, port)
+        rows = len(plan["syms"])
+        cv[i, :rows] = plan["conj_vals"]
+        meta[i, 0] = rows
+        meta[i, 1:1 + rows] = plan["syms"]
+        meta[i, 1 + MAX_ROWS:1 + MAX_ROWS + rows] = plan["comb_offsets"]
+        for s, srow in enumerate(plan["tw"]):
+            cols = np.nonzero(srow)[0]
+            assert len(cols) <= 2, "time weights span more than two rows"
+            for j, col in enumerate(cols):
+                meta[i, 1 + 2 * MAX_ROWS + j * nsymb + s] = col
+                tw[i, s, j] = srow[col]
+    return cv, meta, tw
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    from ..utils.cuda_build import load
+
+    fn = load("chest_dl").chest_dl_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chest_dl_cuda(grid, cell: Cell, sf_idx: int, ports: tuple, taps,
+                  with_h: bool = True):
+    """One launch of ``csrc/chest_dl.cu``: grid [..., S, K] contiguous
+    complex64 on the card -> (h [..., P, S, K] complex64, or None without
+    ``with_h``; noise [..., P] float32), P = len(ports), with the FIR
+    ``taps`` (1 to MAX_TAPS)."""
+    global LAUNCHES
+    if grid.dtype != torch.complex64 or not grid.is_contiguous():
+        raise ValueError("grid must be contiguous complex64")
+    if not grid.is_cuda:
+        raise ValueError("chest_dl_cuda takes a CUDA tensor")
+    nsymb, nre = cell.nsymb_sf, cell.nof_re
+    if grid.dim() < 2 or tuple(grid.shape[-2:]) != (nsymb, nre):
+        raise ValueError(f"grid shape {tuple(grid.shape)}, want "
+                         f"[..., {nsymb}, {nre}]")
+    taps = np.asarray(taps, np.float32)
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ValueError(f"{len(taps)} FIR taps, the kernel takes 1 to "
+                         f"{MAX_TAPS}")
+    ports = tuple(int(p) for p in ports)
+    lead, npt = grid.shape[:-2], len(ports)
+    n = grid.numel() // (nsymb * nre)
+    dev = grid.device
+    h = (torch.empty((*lead, npt, nsymb, nre), dtype=torch.complex64,
+                     device=dev) if with_h else None)
+    noise = torch.empty((*lead, npt), dtype=torch.float32, device=dev)
+    if n == 0:
+        return h, noise
+    key = (cell, sf_idx, ports)
+    tabs = [device_table((name,) + key, dev,
+                         lambda i=i: kernel_tables(*key)[i])
+            for i, name in enumerate(("chest_k_cv", "chest_k_meta",
+                                      "chest_k_tw"))]
+    host_taps = (ctypes.c_float * (MAX_TAPS + 3))(
+        *taps, *[0.0] * (MAX_TAPS - len(taps)), *SMOOTH_3TAP)
+    split = min(nsymb, max(1, -(-TARGET_BLOCKS // (n * npt))))
+    with torch.cuda.device(dev):
+        rc = _lib()(grid.data_ptr(), *(t.data_ptr() for t in tabs),
+                    host_taps, len(taps),
+                    None if h is None else h.data_ptr(), noise.data_ptr(),
+                    n, npt, nsymb, nre, 2 * cell.nof_prb, split,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chest_dl kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    trace.count_launch("chest_kernel")
+    return h, noise
+
+
+def chest_dl_ports(grid, cell: Cell, sf_idx: int, ports,
+                   smooth: bool = True, gauss_std: float | None = None):
+    """Channel and pilot noise estimates of several TX ports at once:
+    grid [..., nsymb, nre] -> (h [..., P, nsymb, nre], noise [..., P]),
+    P = len(ports), each port's as ``chest_dl`` and ``noise_est_pilots``
+    give them. On the card one kernel launch (``chest_dl_cuda``); on the
+    CPU the plain twins."""
+    ports = tuple(int(p) for p in ports)
+    if grid.is_cuda:
+        return chest_dl_cuda(grid.contiguous(), cell, sf_idx, ports,
+                             fir_taps(smooth, gauss_std))
+    h = torch.stack([_chest_dl_plain(grid, cell, sf_idx, p, smooth,
+                                     gauss_std) for p in ports], dim=-3)
+    noise = torch.stack([_noise_est_plain(grid, cell, sf_idx, p)
+                         for p in ports], dim=-1)
+    return h, noise
+
+
+def chest_dl(grid, cell: Cell, sf_idx: int, port: int = 0,
+             smooth: bool = True, gauss_std: float | None = None):
+    """Estimate h for one TX port: grid [..., nsymb, nre] -> same shape.
+
+    LS at pilots, 3-tap freq smoothing (or the SNR-adaptive Gaussian of
+    ``gauss_std``, chest_dl.c:616 smooth_filter_auto, see
+    ``auto_gauss_std``), then freq + time linear interpolation. Batched
+    over all leading dims.
+    """
+    if grid.is_cuda:
+        return chest_dl_ports(grid, cell, sf_idx, (port,), smooth,
+                              gauss_std)[0][..., 0, :, :]
+    return _chest_dl_plain(grid, cell, sf_idx, port, smooth, gauss_std)
+
+
+def noise_est_pilots(grid, cell: Cell, sf_idx: int, port: int = 0):
+    """Noise power from pilot residuals after 3-tap smoothing
+    (chest_dl.c:268-329 estimate_noise_pilots): E|h_ls - smooth(h_ls)|^2,
+    unbiased by 3/2. Returns [...] per batch element."""
+    if grid.is_cuda:
+        return chest_dl_cuda(grid.contiguous(), cell, sf_idx, (port,),
+                             SMOOTH_3TAP, with_h=False)[1][..., 0]
+    return _noise_est_plain(grid, cell, sf_idx, port)
 
 
 def noise_est_pss(grid, ce, cell: Cell):

@@ -27,7 +27,7 @@ from ..models.pdcch import (BITS_PER_CCE, pdcch_encode, pdcch_extract_llr,
                             ue_search_candidates)
 from ..models.pdsch import PdschConfig, pdsch_decode, pdsch_encode
 from ..models.regs import pdcch_nof_cces
-from ..ops.chest import chest_dl, noise_est_pilots
+from ..ops.chest import chest_dl_ports
 from ..ops.fec.convcoder import viterbi_decode
 from ..ops.fec.rm_conv import rm_conv_rx
 from ..ops.modem import Mod
@@ -72,8 +72,9 @@ def build_uedl_mini(seed: int = 0, device=None):
         grid = grid + pdsch_encode(tb_bits, cfg, plan)
         samples = enb_dl_gen_signal(grid, cell)[..., 0, :]
         rx = ofdm_rx_sf(samples, cell)
-        h = chest_dl(rx, cell, sf_idx, port=0)
-        n0 = torch.clamp(noise_est_pilots(rx, cell, sf_idx), min=1e-6)
+        h, n0 = chest_dl_ports(rx, cell, sf_idx, (0,))
+        h = h[..., 0, :, :]
+        n0 = torch.clamp(n0[..., 0], min=1e-6)
         cfi_hat, _ = pcfich_decode(rx, h, cell, sf_idx,
                                    noise_est=n0[..., None])
         llr_c = pdcch_extract_llr(rx, h, cell, cfi, sf_idx,

@@ -20,6 +20,11 @@ it), and the counter registry counts first-use events by kind:
 * ``gc_gen2``: a full garbage collection (every collection while tracing
   runs in a ``runtime.gc`` range).
 
+Apart from those, which a steady state leaves at 0, ``count_launch``
+counts the launches of a hand-written kernel by name while tracing
+(``chest_kernel``: ``ops/chest.py chest_dl_cuda``), so that a traced run
+shows which path a call took; ``launch_counts()`` reads them.
+
 Tracing off, ``span`` and ``root`` check one flag and return a shared
 empty context manager, and nothing is counted.
 """
@@ -38,6 +43,7 @@ from torch.autograd import profiler as _profiler
 _enabled = False
 _OFF = contextlib.nullcontext()
 _COUNTS: collections.Counter = collections.Counter()
+_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def enable() -> None:
@@ -76,8 +82,21 @@ def counts() -> dict:
     return dict(_COUNTS)
 
 
+def count_launch(kernel: str) -> None:
+    """Count one launch of the hand-written kernel ``kernel`` while
+    tracing (kept out of ``counts()``, which holds first uses alone)."""
+    if tracing():
+        _LAUNCHES[kernel] += 1
+
+
+def launch_counts() -> dict:
+    """A snapshot of the kernel launch counters: {kernel: launches}."""
+    return dict(_LAUNCHES)
+
+
 def reset() -> None:
     _COUNTS.clear()
+    _LAUNCHES.clear()
 
 
 def _device_counters(device: torch.device) -> tuple:

@@ -44,7 +44,7 @@ from ..models import ra
 from ..models.enb_dl import enb_dl_base_grid, enb_dl_gen_signal
 from ..models.pdsch import PdschConfig, pdsch_decode, pdsch_encode
 from ..models.sch import DlschPlan
-from ..ops.chest import chest_dl, noise_est_pilots
+from ..ops.chest import chest_dl_ports
 from ..ops.ofdm import ofdm_rx_sf
 from ..utils.cell import Cell
 from ..utils.device import resolve_device
@@ -114,8 +114,9 @@ def receive(tb, nz_re, nz_im, inv_snr: float, cfg: PdschConfig,
     sigma = torch.sqrt(p * inv_snr / 2.0)
     noisy = samples + sigma * torch.complex(nz_re, nz_im)
     rx = ofdm_rx_sf(noisy, cell).reshape(b, cell.nsymb_sf, -1)
-    h = chest_dl(rx, cell, cfg.sf_idx)
-    noise = torch.mean(noise_est_pilots(rx, cell, cfg.sf_idx))
+    h, noise = chest_dl_ports(rx, cell, cfg.sf_idx, (0,))
+    h = h[..., 0, :, :]
+    noise = torch.mean(noise[..., 0])
     out = {}
     for name, plan in plans.items():
         bits, ok, _ = pdsch_decode(rx[:, None], h[:, None, None], cfg, plan,

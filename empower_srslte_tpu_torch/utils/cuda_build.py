@@ -32,6 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the host C++ sources' flags (those of the JAX package's native/Makefile)
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
+#: the receivers' CUDA kernels: the first ``load`` of one of them builds
+#: each of them not built yet, all compilers started together
+KERNELS = ("chest_dl", "turbo_nii", "turbo_win", "viterbi37")
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: ptxas resource report (registers, shared memory, spills) per source,
@@ -121,15 +125,17 @@ def build(names, sources=None) -> dict[str, float]:
 
 def load(name: str, source=None) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` or ``.cpp``, or for
-    ``source`` when given (built on first use). A miss (the build, or the
-    cached library's load) runs in the range ``runtime.kernel_load`` and
-    counts one ``kernel_load``."""
+    ``source`` when given (built on first use, with the rest of
+    ``KERNELS`` when it is one of them). A miss (the build, or the cached
+    library's load) runs in the range ``runtime.kernel_load`` and counts
+    one ``kernel_load``."""
     sources = None if source is None else {name: source}
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             with trace.span("runtime.kernel_load"):
-                build([name], sources)
+                build(KERNELS if source is None and name in KERNELS
+                      else [name], sources)
                 lib = _LIBS[name] = ctypes.CDLL(str(library_path(name,
                                                                  sources)))
             trace.count("kernel_load")
