@@ -116,8 +116,11 @@ and ``kernel_turbo_win``, of
 ``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
 use a second card where one is visible, and the stack scenario phases
 ``stack_multi_ue``, ``stack_mac_harq``, ``stack_idle``,
-``stack_mobility`` and ``stack_csi``, and the two tools' phases
-``rx_bler_gate`` and ``scaling_sweep``), then the last line with
+``stack_mobility`` and ``stack_csi``, the two tools' phases
+``rx_bler_gate`` and ``scaling_sweep``, the uplink's ``uplink_path``,
+``uplink_midsnr``, ``uplink_int8``, ``uplink_msg3``, ``ul_control`` and
+``precision_pair``, and the stack's ``stack_attach``, ``stack_tm4`` and
+``stack_cold_boot``), then the last line with
 ``"phases"`` naming them, and no kernels line.
 
 Needs one CUDA card (H100, sm_90a) and the CUDA toolkit's nvcc. Prints
@@ -3453,6 +3456,15 @@ def main() -> int:
                  "multihost": phase_multihost,
                  "rx_bler_gate": phase_rx_bler_gate,
                  "scaling_sweep": phase_scaling_sweep,
+                 "uplink_path": phase_uplink,
+                 "uplink_midsnr": phase_uplink_midsnr,
+                 "uplink_int8": phase_uplink_int8,
+                 "uplink_msg3": phase_uplink_msg3,
+                 "ul_control": phase_ul_control,
+                 "precision_pair": phase_precision_pair,
+                 "stack_attach": phase_stack_attach,
+                 "stack_tm4": phase_stack_tm4,
+                 "stack_cold_boot": phase_stack_cold_boot,
                  **{name: (lambda name=name: phase_stack_scenarios(name))
                     for name in STACK_SCENARIO_PHASES}}
         for name in names:

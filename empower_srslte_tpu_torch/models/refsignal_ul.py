@@ -6,11 +6,13 @@ ul_rs_tables.h: Zadoff-Chu base sequences with cyclic extension for
 allocations >= 3 PRB, the 30 special QPSK-phase sequences for 1-2 PRB
 (the spec tables in ``data/ul_rs_phi{12,24}.npy``), group assignment
 u = (f_gh + f_ss) mod 30 with group hopping (phy_common.c:342) and
-sequence hopping v (refsignal_ul.c:154), cyclic shifts, and PUSCH DMRS
-placement on the middle SC-FDMA symbol of each slot. Counterpart of the
-JAX package's models/refsignal_ul.py:1-215, with the sounding reference
-signal (SRS) on the last SC-FDMA symbol; the sequences are built on the
-host (numpy, cached), placement and channel estimates are torch.
+sequence hopping v (refsignal_ul.c:154), cyclic shifts with the PUSCH
+DMRS's pseudo-random n_PN(ns) (5.5.2.1.1, refsignal_ul.c generate_n_prs,
+which the JAX package leaves out), and PUSCH DMRS placement on the middle
+SC-FDMA symbol of each slot. Counterpart of the JAX package's
+models/refsignal_ul.py:1-215, with the sounding reference signal (SRS) on
+the last SC-FDMA symbol; the sequences are built on the host (numpy,
+cached), placement and channel estimates are torch.
 """
 
 from __future__ import annotations
@@ -102,6 +104,19 @@ def pusch_dmrs_symbols(cell: Cell) -> tuple[int, int]:
     return (l, cell.nsymb_slot + l)
 
 
+@functools.lru_cache(maxsize=64)
+def n_pn(cell: Cell, delta_ss: int = 0) -> np.ndarray:
+    """n_PN(ns) for the 20 slots of a frame: n_PN(ns) = sum_i c(8 N_symb
+    ns + i) 2^i, with c_init = floor(N_ID / 30) 2^5 + f_ss^PUSCH and
+    f_ss^PUSCH = (N_ID + delta_ss) mod 30 (36.211 5.5.2.1.1;
+    refsignal_ul.c generate_n_prs)."""
+    c_init = ((cell.id // 30) << 5) + ((cell.id % 30) + delta_ss) % 30
+    n_symb = cell.nsymb_slot
+    c = gold_sequence(c_init, 8 * n_symb * 20).astype(np.int64)
+    slots = c.reshape(20, 8 * n_symb)[:, :8]
+    return slots @ (1 << np.arange(8)).astype(np.int64)
+
+
 @functools.lru_cache(maxsize=256)
 def pusch_dmrs(cell: Cell, n_prb: int, cyclic_shift: int = 0,
                delta_ss: int = 0, sf_idx: int = 0,
@@ -109,13 +124,15 @@ def pusch_dmrs(cell: Cell, n_prb: int, cyclic_shift: int = 0,
                sequence_hopping: bool = False) -> np.ndarray:
     """[2, 12*n_prb] complex64 DMRS sequences for the two slots of
     subframe ``sf_idx`` (36.211 5.5.1.3/5.5.2.1.1; refsignal_ul.c:368).
-    alpha = 2*pi*cyclic_shift/12."""
+    ``cyclic_shift`` is n_DMRS(1) + n_DMRS(2); slot ns takes
+    alpha = 2 pi n_cs / 12 with n_cs = (cyclic_shift + n_PN(ns)) mod 12."""
     m_sc = 12 * n_prb
     n = np.arange(m_sc)
-    alpha = 2 * np.pi * cyclic_shift / 12.0
+    pn = n_pn(cell, delta_ss)
     slots = []
     for slot in range(2):
         ns = 2 * sf_idx + slot
+        alpha = 2 * np.pi * ((cyclic_shift + int(pn[ns])) % 12) / 12.0
         u, v = dmrs_u_v(cell.id, ns, n_prb, delta_ss, group_hopping,
                         sequence_hopping)
         r = base_sequence(u, v, m_sc)

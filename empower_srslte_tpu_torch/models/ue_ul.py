@@ -3,9 +3,10 @@
 
 Counterpart of the JAX package's models/ue_ul.py:26-88: composes PUSCH
 (with or without UCI), PUCCH and SRS into the UL grid, SC-FDMA modulates
-it with the half-subcarrier shift, applies CFO pre-compensation and
-timing advance, and on the eNB side undoes the shift and FFTs back to
-the grid. ``ue_ul_pusch_jit`` is the JAX package's cached PUSCH-subframe
+it (TS 36.211 5.6: ``ops.ofdm.sc_fdma_tx_sf``), applies CFO
+pre-compensation and timing advance, and on the eNB side demodulates back
+to the grid. ``enb_ul_pusch_batch`` is the eNB's batched PUSCH-with-UCI
+receiver. ``ue_ul_pusch_jit`` is the JAX package's cached PUSCH-subframe
 generator; the port has no jit, so it caches a plain closure.
 
 ``ul_uci_stimulus`` builds the uplink path's receive samples: a batch of
@@ -21,13 +22,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.ofdm import freq_shift_half_subcarrier, ofdm_rx_sf, ofdm_tx_sf
+from ..ops.ofdm import sc_fdma_rx_sf, sc_fdma_tx_sf
 from ..ops.sync import cfo_correct
 from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import resolve_device
 from .pucch import F2_FORMATS, pucch_f1_encode, pucch_f2_encode
-from .pusch import UciPlan, pusch_encode, pusch_encode_uci
+from .pusch import UciPlan, pusch_decode_uci, pusch_encode, pusch_encode_uci
 from .refsignal_ul import srs_chest, srs_put
 
 
@@ -68,8 +69,7 @@ def ue_ul_generate(cell: Cell, *, pusch: tuple | None = None,
                                           device=grid.device)
     if srs is not None:
         grid = srs_put(grid, cell, **srs)
-    samples = freq_shift_half_subcarrier(ofdm_tx_sf(grid, cell), cell,
-                                         direction=1)
+    samples = sc_fdma_tx_sf(grid, cell)
     if cfo:
         samples = cfo_correct(samples, -cfo, cell.fft_size)
     if timing_advance:
@@ -87,12 +87,47 @@ def ue_ul_pusch_jit(cell: Cell, cfg, plan, timing_advance: int = 0):
 
 
 def enb_ul_receive_grid(samples: torch.Tensor, cell: Cell) -> torch.Tensor:
-    """eNB side: undo the half-subcarrier shift and FFT to the UL grid
-    [..., nsymb, nre] (srslte_enb_ul_fft analog; profiler range
+    """eNB side: SC-FDMA demodulation to the UL grid [..., nsymb, nre]
+    (srslte_enb_ul_fft analog; TS 36.211 5.6; profiler range
     ``enb_ul.fft``)."""
     with trace.span("enb_ul.fft"):
-        shifted = freq_shift_half_subcarrier(samples, cell, direction=-1)
-        return ofdm_rx_sf(shifted, cell)
+        return sc_fdma_rx_sf(samples, cell)
+
+
+@dataclass
+class PuschBatchResult:
+    """Per-subframe outcome of ``enb_ul_pusch_batch``."""
+
+    tb_bits: torch.Tensor        # [B, tbs] int8
+    crc_ok: torch.Tensor         # [B] bool
+    ack: tuple                   # one [B] int8 per HARQ-ACK bit
+    ri: torch.Tensor | None      # [B] int8, or None without an RI
+    cqi_bits: torch.Tensor | None  # [B, O] int8, or None without a CQI
+    cqi_ok: torch.Tensor | None  # [B] bool: the CQI's CRC8 (a long CQI)
+    iterations: list             # turbo iteration count per turbo call
+
+
+def enb_ul_pusch_batch(samples: torch.Tensor, cfg, plan: UciPlan,
+                       noise_est) -> PuschBatchResult:
+    """The eNB's PUSCH-with-UCI receiver over a batch of subframes at one
+    rx antenna: samples [B, sf_len] complex64 -> ``enb_ul_receive_grid``
+    (SC-FDMA) -> ``pusch_decode_uci`` (DMRS channel estimate, per-RE
+    MMSE, transform de-precoding, UCI demultiplexing, HARQ-ACK / RI / CQI
+    decode, UL-SCH decode), with ``noise_est`` the noise per RE.
+
+    The whole call runs in the root range ``enb_ul.pusch_batch`` (its self
+    time is the receiver's glue); the stages in ``enb_ul.fft``,
+    ``pusch.chest``, ``pusch.eq_demod``, ``pusch.uci_demux``,
+    ``uci.cqi_decode``, ``dlsch.*`` and ``turbo.stop_read``.
+    """
+    with trace.root("enb_ul.pusch_batch", samples.device):
+        grid = enb_ul_receive_grid(samples, cfg.cell)
+        iters: list = []
+        out = pusch_decode_uci(grid, cfg, plan, noise_est=noise_est,
+                               iters_out=iters)
+        return PuschBatchResult(out["tb"], out["crc_ok"], out["ack"],
+                                out["ri"], out["cqi_bits"], out["cqi_ok"],
+                                iters)
 
 
 #: the uplink path's grant: the JAX benchmark's 20 MHz uplink
@@ -135,7 +170,7 @@ def _ul_batch(cfg, plan, batch: int, n0: float, rng, dev) -> UlStimulus:
     channel ``UL_H`` plus AWGN of ``n0`` per resource element of the
     received grid; TB bits, then the noise, drawn from ``rng``.
 
-    The noise is added to the time samples: ``ofdm_rx_sf`` is an
+    The noise is added to the time samples: ``sc_fdma_rx_sf`` is an
     unnormalized FFT, so white noise of variance s2 per sample has
     variance fft_size * s2 per grid RE; s2 = n0 / fft_size."""
     cell = cfg.cell

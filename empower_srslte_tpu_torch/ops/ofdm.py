@@ -1,5 +1,5 @@
 """Batched OFDM modulation/demodulation with cyclic prefix, the MBSFN
-subframe's mixed-CP timeline, and the uplink half-subcarrier shift.
+subframe's mixed-CP timeline, and the uplink's SC-FDMA signal.
 
 Capability parity with lib/src/phy/dft/ofdm.c (srslte_ofdm_rx_sf /
 srslte_ofdm_tx_sf and the mbsfn plans): per-symbol FFTs with the unequal
@@ -7,6 +7,12 @@ first-symbol CP and DC-subcarrier skipping (ofdm.c:121,409-415). The
 whole subframe across the batch is one ``torch.fft`` call over
 [..., nsymb_sf, fft]. The FFTs are unnormalized; the JAX package's
 ``normalize`` keyword is not ported.
+
+The uplink (``sc_fdma_tx_sf`` / ``sc_fdma_rx_sf``) follows TS 36.211 5.6:
+grid subcarrier k sits at frequency k - 6 N_RB + 1/2, with no DC gap, and
+the half-subcarrier phase starts from 0 at each symbol's useful part. (The
+JAX package's uplink keeps the downlink's DC gap and shifts by one phase
+ramp over the whole subframe.)
 """
 
 from __future__ import annotations
@@ -154,13 +160,43 @@ def ofdm_tx_sf_mbsfn(grid: torch.Tensor, cell: Cell,
     return _add_cps(_tx_symbols(grid, cell), cps)
 
 
-def freq_shift_half_subcarrier(samples: torch.Tensor, cell: Cell,
-                               direction: int = 1) -> torch.Tensor:
-    """Multiply by exp(j*2*pi*0.5*n/fft): the UL half-subcarrier shift
-    (ofdm.c:363-381). direction=+1 TX, -1 RX."""
-    n = samples.shape[-1]
-    ph = device_table(
-        ("half_sc", cell.fft_size, n, direction), samples.device,
-        lambda: np.exp(direction * 2j * np.pi * 0.5 * np.arange(n)
-                       / cell.fft_size).astype(np.complex64))
-    return samples * ph
+def _half_ramp(fft: int, device, sign: int) -> torch.Tensor:
+    """exp(sign j pi n / fft) over one symbol's useful part: the half
+    subcarrier's phase, from 0 at the part's first sample."""
+    return device_table(
+        ("sc_fdma_half", fft, sign), device,
+        lambda: np.exp(sign * 1j * np.pi * np.arange(fft) / fft)
+        .astype(np.complex64))
+
+
+def sc_fdma_tx_sf(grid: torch.Tensor, cell: Cell) -> torch.Tensor:
+    """Uplink subframe modulation (TS 36.211 5.6): grid [..., nsymb, nre]
+    -> [..., sf_sample_len]. Subcarrier k goes to FFT bin
+    (k - nre / 2) mod fft, the IFFT's output is turned by the half
+    subcarrier's phase, and each cyclic prefix continues its symbol
+    backwards: the half subcarrier turns the prefix's sign over the
+    ``fft`` samples it reaches back."""
+    fft, half = cell.fft_size, cell.nof_re // 2
+    gap = grid.new_zeros((*grid.shape[:-1], fft - cell.nof_re))
+    spec = torch.cat([grid[..., half:], gap, grid[..., :half]], dim=-1)
+    sym = torch.fft.ifft(spec, dim=-1) * _half_ramp(fft, grid.device, 1)
+    cps = cell.cp_len_slot
+    pieces = []
+    for i in range(cell.nsymb_sf):
+        cp_len = cps[i % cell.nsymb_slot]
+        pieces.append(-sym[..., i, fft - cp_len:])
+        pieces.append(sym[..., i, :])
+    return torch.cat(pieces, dim=-1)
+
+
+def sc_fdma_rx_sf(samples: torch.Tensor, cell: Cell) -> torch.Tensor:
+    """Uplink subframe demodulation (TS 36.211 5.6): [..., sf_sample_len]
+    -> grid [..., nsymb, nre]. Each symbol's useful part is turned back by
+    the half subcarrier's phase and FFTed; grid subcarrier k is bin
+    (k - nre / 2) mod fft."""
+    fft, half = cell.fft_size, cell.nof_re // 2
+    starts = _symbol_starts(cell.nof_prb, cell.cp, cell.reduced_rates)
+    sym = torch.stack([samples[..., int(s):int(s) + fft] for s in starts],
+                      dim=-2)                              # [..., nsymb, fft]
+    spec = torch.fft.fft(sym * _half_ramp(fft, samples.device, -1), dim=-1)
+    return torch.cat([spec[..., fft - half:], spec[..., :half]], dim=-1)

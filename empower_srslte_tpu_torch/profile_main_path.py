@@ -6,7 +6,7 @@
 (models/enb_dl.py tm4_stimulus) and profiles ``ue_dl_tm4_batch``;
 ``--path uplink`` builds the 20 MHz PUSCH+UCI stimulus at n0 1e-3
 (models/ue_ul.py ul_uci_stimulus) and profiles the eNB receiver
-(``enb_ul_receive_grid`` + ``pusch_decode_uci``); ``--path ul_control``
+``enb_ul_pusch_batch``; ``--path ul_control``
 profiles the eNB's PUCCH/SRS decode of ``ul_control_stimulus``
 (``ul_control_receive``); ``--path prach`` ``prach_detect`` on 256
 format-0 windows of ``prach_stimulus``; ``--path pmch`` the MBSFN
@@ -185,16 +185,14 @@ def receiver(path: str):
     elif path == "stack":
         run = stack_ttis()
     else:
-        from .models.pusch import pusch_decode_uci
-        from .models.ue_ul import enb_ul_receive_grid, ul_uci_stimulus
+        from .models.ue_ul import enb_ul_pusch_batch, ul_uci_stimulus
 
         n0 = 1e-3
         st = ul_uci_stimulus(BATCH, n0, device="cuda")
 
         def run():
-            iters.clear()
-            pusch_decode_uci(enb_ul_receive_grid(st.samples, st.cfg.cell),
-                             st.cfg, st.plan, noise_est=n0, iters_out=iters)
+            iters[:] = enb_ul_pusch_batch(st.samples, st.cfg, st.plan,
+                                          n0).iterations
     return run, iters
 
 

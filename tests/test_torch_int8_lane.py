@@ -11,7 +11,9 @@ was sent. Both packages decode the int8 lane's LLRs in bfloat16 (their
 bfloat16), so against the JAX ``pallas2_interpret`` decode the turbo
 decoder's a-posteriori LLRs are equal too, bit for bit. The uplink test
 holds the port's windowed bfloat16 decode to JAX's float32 XLA decoder,
-so it compares bits only.
+so it compares bits only. The uplink tests replace the JAX package's
+PUSCH DMRS and SC-FDMA pair, which depart from TS 36.211 where the
+port's follow it, by the specification's (``tests/jax_ul_spec.py``).
 """
 
 import numpy as np
@@ -36,6 +38,8 @@ from empower_srslte_tpu_torch.models import pdsch, pusch, ue_ul
 from empower_srslte_tpu_torch.ops import modem, scrambling
 from empower_srslte_tpu_torch.ops.fec.rate_matching import RateMatchTurbo
 from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
+
+from tests.jax_ul_spec import spec_uplink
 
 
 @pytest.fixture(autouse=True)
@@ -193,6 +197,13 @@ CELL = dict(nof_prb=6, nof_ports=1, id=5)
 N0 = 0.01
 
 
+@pytest.fixture
+def spec_ul():
+    """The JAX package's PUSCH DMRS and SC-FDMA pair held to TS 36.211."""
+    with spec_uplink():
+        yield
+
+
 def _pusch_cfgs(llr_int8: bool):
     mod, tbs = jra.mcs_to_tbs(11, 2, dl=False)
     jcfg = jpusch.PuschConfig(cell=JCell(**CELL), sf_idx=2, rnti=0x3a,
@@ -209,7 +220,7 @@ def _ul_samples(rng, jcfg, jplan, tb):
     return (x + n[0] + 1j * n[1]).astype(np.complex64)
 
 
-def test_pusch_decode_int8_matches_jax(rng):
+def test_pusch_decode_int8_matches_jax(rng, spec_ul):
     """The JAX side decodes with its XLA windowed decoder (float32), the
     port with the windowed twin (bfloat16, its default there): the point
     is the lane ahead of the decoder."""
@@ -234,7 +245,7 @@ def test_pusch_decode_int8_matches_jax(rng):
     assert ok.all() and (bits.numpy() == tb).all()
 
 
-def test_pusch_decode_uci_ignores_int8_flag_as_jax(rng):
+def test_pusch_decode_uci_ignores_int8_flag_as_jax(rng, spec_ul):
     jcfg, cfg, tbs = _pusch_cfgs(True)
     fields = dict(cqi_bits=tuple(int(b) for b in rng.integers(0, 2, 20)),
                   ri=1, ack=(1, 0))

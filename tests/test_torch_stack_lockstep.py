@@ -23,11 +23,17 @@ noise is drawn from its own seeded generator, so both sides get the same
 noise); the UE NACKs, the eNB sends the next rv and the UE combines it
 with its softbuffer (the port in bfloat16 with its scaled filler prior)
 and delivers the packet: the same events every TTI, and the same IQ.
+
+The port's PUSCH DMRS and SC-FDMA follow TS 36.211 5.5.2.1.1 and 5.6,
+where the JAX package's depart from it, so the JAX pairs run with those
+stages replaced by the specification's (``tests/jax_ul_spec.py``): the
+UL IQ is compared with every other JAX stage as it is.
 """
 
 import os
 
 import numpy as np
+import pytest
 
 import empower_srslte_tpu.epc as jepc
 import empower_srslte_tpu.epc.mme as jmme
@@ -44,6 +50,8 @@ from empower_srslte_tpu_torch.tools.stack_scenarios import pong
 from empower_srslte_tpu_torch.upper import security as tsec
 from empower_srslte_tpu_torch.utils.cell import Cell as TCell
 
+from tests.jax_ul_spec import spec_uplink
+
 K = bytes.fromhex("465b5ce8b199b49faa5f0a2ee238a6bc")
 OP = bytes.fromhex("cdc202d5123e20f62b6d676ac72cb318")
 IMSI = "001010123456789"
@@ -56,6 +64,13 @@ MAX_TTI_TWO = 200
 MAX_TTI_HARQ = 140
 #: IQ tolerance: a fraction of the subframe's largest sample magnitude
 IQ_RTOL_OF_PEAK = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _spec_uplink():
+    """The JAX stack's PUSCH DMRS and SC-FDMA pair held to TS 36.211."""
+    with spec_uplink():
+        yield
 
 
 def _seed_urandom(monkeypatch, seed: int = 5) -> None:

@@ -10,6 +10,11 @@ phase 2 pi cfo n / fft in float32, the port reduces it in float64 first
 ``awgn`` draws from a torch generator where JAX's draws from a key, so it
 is checked by its statistics, and ``awgn_np`` / ``rayleigh_taps``, which
 take the same numpy generator, are equal.
+
+The port's DMRS and SC-FDMA follow TS 36.211 5.5.2.1.1 and 5.6, where the
+JAX package's depart from it: every test here runs with those JAX stages
+replaced by the specification's (``tests/jax_ul_spec.py``), every other
+JAX stage as it is.
 """
 
 import dataclasses
@@ -37,6 +42,16 @@ from empower_srslte_tpu_torch.models import refsignal_ul as rs
 from empower_srslte_tpu_torch.models import ue_ul
 from empower_srslte_tpu_torch.ops import channel
 from empower_srslte_tpu_torch.utils.cell import Cell
+
+from tests.jax_ul_spec import spec_uplink
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _spec_uplink():
+    """The JAX package's PUSCH DMRS and SC-FDMA pair held to TS 36.211,
+    as the port's are (``tests/jax_ul_spec.py``)."""
+    with spec_uplink():
+        yield
 
 
 def _c(x):

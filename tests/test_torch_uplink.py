@@ -14,6 +14,11 @@ are compared after the turbo decoder), the port ``decoder_impl=
 the JAX side's data with its XLA decoder: there the point is the UCI
 fields, and both sides' TB bits must still equal the sent ones
 (tests/test_torch_turbo_win.py holds the decoder itself to the kernel).
+
+The port's DMRS and SC-FDMA follow TS 36.211 5.5.2.1.1 and 5.6, where the
+JAX package's depart from it: every test here runs with those JAX stages
+replaced by the specification's (``tests/jax_ul_spec.py``), every other
+JAX stage as it is.
 """
 
 import numpy as np
@@ -35,6 +40,8 @@ from empower_srslte_tpu_torch.models import uci
 from empower_srslte_tpu_torch.ops.fec import turbo_win
 from empower_srslte_tpu_torch.utils.cell import Cell
 
+from tests.jax_ul_spec import spec_uplink
+
 CELL = dict(nof_prb=6, nof_ports=1, id=5)
 #: 16QAM: TBS 1032 on 6 PRB (K=1056, 6 windows of 176); the decode
 #: tests use 2 PRB from PRB 2 (TBS 328, K=352, 2 windows), which keeps
@@ -42,6 +49,14 @@ CELL = dict(nof_prb=6, nof_ports=1, id=5)
 MCS = 11
 DECODE = dict(n_prb=2, prb_start=2)
 N0 = 0.01
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _spec_uplink():
+    """The JAX package's PUSCH DMRS and SC-FDMA pair held to TS 36.211,
+    as the port's are (``tests/jax_ul_spec.py``)."""
+    with spec_uplink():
+        yield
 
 
 def _cfgs(**kw):
