@@ -8,13 +8,18 @@ as the JAX package on its accelerator); each path phase holds every turbo
 shape it launched against the twin of that shape's dtype:
 
 * the no-genie 20 MHz 2x2 TM4 two-codeword UE downlink receiver
-  (NII turbo kernel, Viterbi kernel);
+  (control kernels, NII turbo kernel);
 * the 20 MHz eNB PUSCH receiver with UCI (windowed turbo kernel, Viterbi
   kernel for the CQI), at a high and at a mid SNR;
 * the recursion-rate probe tool (its own kernel);
 * the CRS channel and noise estimate kernel against its twin at every
   shape the receive paths give it, and its launches a path call
   (``chest_dl``);
+* the control kernels (the PCFICH and the PDCCH LLRs, the blind search)
+  against their twins on the main path's control region at 256 and 1
+  subframes and on generated regions of 6-100 PRB, 1-4 ports, CFI 1-3,
+  the extended CP and an SNR where most candidates are noise, timed
+  beside their bounds, and their launches a path call (``pdcch_rx``);
 * the PDSCH in TM2 on 4 ports (SFBC-FSTD) on the float32 and the int8
   LLR lanes and in TM3 (CDD, 2 codewords), genie channel (NII kernel);
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
@@ -111,7 +116,9 @@ at the main or uplink shape, at one code block and over a sweep of
 batches (``BASELINE_SWEEP``), and puts both on its phase line.
 
 ``--phases`` runs the build and the named phases alone (any of the
-chest kernel's ``chest_dl``, the turbo kernel checks ``kernel_turbo``
+chest kernel's ``chest_dl``, the control kernels' ``pdcch_rx``, the
+downlink paths ``main_path``, ``ue_dl_frame`` and ``cold_boot``, the
+turbo kernel checks ``kernel_turbo``
 and ``kernel_turbo_win``, of
 ``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
 use a second card where one is visible, and the stack scenario phases
@@ -209,7 +216,7 @@ BASELINE_SWEEP = {
 #: phase gives the kernel (``hold_shapes``, ``vit_path_check``); the turbo
 #: kernels per metric dtype
 PATH_TWIN: dict = {"turbo_nii": {}, "turbo_nii_bf16": {}, "turbo_win": {},
-                   "turbo_win_bf16": {}, "viterbi37": {}}
+                   "turbo_win_bf16": {}, "viterbi37": {}, "pdcch_rx": {}}
 #: the launch counters read per path: (name, module, attribute); the two
 #: turbo wrappers count their float32 and bfloat16 kernels apart
 COUNTERS = (("turbo_nii", "turbo_nii", "LAUNCHES"),
@@ -217,7 +224,9 @@ COUNTERS = (("turbo_nii", "turbo_nii", "LAUNCHES"),
             ("turbo_win", "turbo_win", "LAUNCHES"),
             ("turbo_win_bf16", "turbo_win", "LAUNCHES_BF16"),
             ("viterbi37", "viterbi37", "LAUNCHES"),
-            ("chest_dl", "chest", "LAUNCHES"))
+            ("chest_dl", "chest", "LAUNCHES"),
+            ("pdcch_llr", "pdcch", "LAUNCHES_LLR"),
+            ("pdcch_blind", "pdcch", "LAUNCHES_BLIND"))
 
 
 def emit(obj):
@@ -468,7 +477,8 @@ def merge_shapes(*shapes) -> dict:
 
 def turbo_shapes(shapes: dict) -> dict:
     """The turbo kernels' part of a run's launches per shape."""
-    return {k: v for k, v in shapes.items() if k != "viterbi37"}
+    return {k: v for k, v in shapes.items()
+            if k not in ("viterbi37", "pdcch")}
 
 
 def check(phase: str, checks: dict):
@@ -941,6 +951,303 @@ def phase_chest_dl():
     return out
 
 
+#: the control kernel's LLRs against the plain twin run on the CPU, as a
+#: share of the twin's largest magnitude: float32 rounding, since
+#: PyTorch's CPU complex division (Smith's algorithm, or its vector
+#: form) and |h|^2 through the complex abs round otherwise than the
+#: kernel's x / |h|^2 and re^2 + im^2; the twin run on the card differs
+#: besides by CUDA's reciprocal division (``chest_dl``'s finding), as
+#: ``llr_err_card_twin`` shows
+PDCCH_LLR_TOL = 1e-5
+#: the control phase's SNRs: the receivers' operating point, and one at
+#: which most candidates are noise
+PDCCH_SNR_DB, PDCCH_NOISE_SNR_DB = 20.0, -6.0
+
+
+def ctrl_stimulus(g, prb: int, ports: int, cfi: int, cp, batch: int,
+                  snr_db: float, sf_idx: int = 3, rnti: int = 0x1234):
+    """``batch`` control regions on the card: the PCFICH and one format-1A
+    PDCCH (the search space's first candidate of L 4 or less) over a flat
+    channel per port and subframe (a random phase, the ports' powers
+    summing to 1), with noise at ``snr_db``. -> (cell,
+    grid [B, S, K], h [B, P, S, K], noise [B], sizes, candidates)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import dci as dci_mod
+    from empower_srslte_tpu_torch.models import pcfich, pdcch, regs
+    from empower_srslte_tpu_torch.utils.cell import Cell
+
+    cell = Cell(nof_prb=prb, nof_ports=ports, id=prb + 3 * ports + cfi,
+                cp=cp)
+    dev = g.device
+    size = dci_mod.format0_1a_size(prb)
+    cands = pdcch.ue_search_candidates(rnti, sf_idx,
+                                       regs.pdcch_nof_cces(cell, cfi))
+    l, cce = next(c for c in cands if c[0] <= 4)
+    bits = torch.randint(0, 2, (batch, size), generator=g, device=dev,
+                         dtype=torch.int8)
+    tx = torch.zeros((batch, ports, cell.nsymb_sf, cell.nof_re),
+                     dtype=torch.complex64, device=dev)
+    tx = pcfich.pcfich_put(tx, cfi, cell, sf_idx)
+    tx = tx + pdcch.pdcch_encode(bits, rnti, cce, l, cell, cfi, sf_idx)
+    phase = 2 * torch.pi * torch.rand((batch, ports), generator=g, device=dev)
+    h = (torch.polar(torch.ones_like(phase), phase) / ports ** 0.5)[
+        ..., None, None].expand(-1, -1, cell.nsymb_sf, cell.nof_re).contiguous()
+    n0 = 10 ** (-snr_db / 10)
+    shape = (batch, cell.nsymb_sf, cell.nof_re)
+    nz = torch.complex(torch.randn(shape, generator=g, device=dev),
+                       torch.randn(shape, generator=g, device=dev))
+    grid = (tx * h).sum(1) + nz * (n0 / 2) ** 0.5
+    noise = torch.full((batch,), n0, dtype=torch.float32, device=dev)
+    sizes = (size, dci_mod.format1_size(prb))
+    return cell, grid, h, noise, sizes, cands
+
+
+def derm_ascending(llr, cands, k: int):
+    """The blind kernel's de-rate-matching in PyTorch: each trellis
+    position's repetitions below E added in ascending order from 0 (the
+    kernel's order; ``rm_conv_rx``'s ``torch.sum`` takes it up to 4
+    repetitions). llr [N, n_llr] -> [N, n_cand, 3, K]."""
+    import torch
+
+    from empower_srslte_tpu_torch.models.pdcch import derm_inverse
+
+    inv = torch.as_tensor(derm_inverse(k), dtype=torch.int64,
+                          device=llr.device)
+    out = []
+    for l, cce in cands:
+        e = 72 * l
+        seg = llr[:, 72 * cce:72 * cce + e]
+        acc = torch.zeros((llr.shape[0], 3 * k), dtype=torch.float32,
+                          device=llr.device)
+        for r in range(-(-e // (3 * k))):
+            pos = inv + r * 3 * k
+            acc = acc + torch.where(pos < e, seg[:, pos.clamp(max=e - 1)],
+                                    0.0)
+        out.append(acc.reshape(-1, 3, k))
+    return torch.stack(out, 1)
+
+
+def blind_twin_check(llr, cands, sizes, rnti: int) -> dict:
+    """The blind kernel on llr [N, n_llr] (card) against (a) the plain
+    twin run on the CPU (``_pdcch_blind_bits_plain``, ``dci_crc_ok``) and
+    (b) the plain Viterbi and CRC on the kernel's own ascending-order
+    de-rate-matching, both on the CPU. The bits and CRC flags must equal
+    (b) everywhere, and (a) in every word whose de-rate-matched input
+    equals the twin's (every word of 4 repetitions or fewer); the
+    subframes' pass counts must equal the twin's."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import pdcch
+    from empower_srslte_tpu_torch.ops.fec.convcoder import (
+        viterbi_decode_plain)
+    from empower_srslte_tpu_torch.ops.fec.rm_conv import rm_conv_rx
+
+    bits, ok, hits = pdcch.pdcch_blind_cuda(llr, cands, sizes, rnti)
+    torch.cuda.synchronize()
+    x = llr.cpu()
+    n_det = torch.zeros(x.shape[0], dtype=torch.int64)
+    out = {"words": 0, "mismatched_bits_asc": 0, "mismatched_ok_asc": 0,
+           "words_derm_differs": 0, "mismatched_words_same_derm": 0,
+           "mismatched_ok_same_derm": 0, "words_differ_derm_differs": 0,
+           "passes": 0}
+    for i, size in enumerate(sizes):
+        k = size + 16
+        got, got_ok = bits[i].cpu(), ok[i].cpu()
+        twin = pdcch._pdcch_blind_bits_plain(x, cands, size)
+        twin_ok = pdcch.dci_crc_ok(twin, size, rnti)
+        n_det = n_det + twin_ok.sum(-1)
+        d_asc = derm_ascending(x, cands, k)
+        asc = viterbi_decode_plain(d_asc)
+        asc_ok = pdcch.dci_crc_ok(asc, size, rnti)
+        d_twin = torch.stack([rm_conv_rx(x[:, 72 * c:72 * (c + l)], k)
+                              for l, c in cands], 1)
+        same = (d_asc == d_twin).all(-1).all(-1)
+        word_diff = (got != twin).any(-1)
+        out["words"] += got_ok.numel()
+        out["mismatched_bits_asc"] += int((got != asc).sum())
+        out["mismatched_ok_asc"] += int((got_ok != asc_ok).sum())
+        out["words_derm_differs"] += int((~same).sum())
+        out["mismatched_words_same_derm"] += int((word_diff & same).sum())
+        out["mismatched_ok_same_derm"] += int(
+            ((got_ok != twin_ok) & same).sum())
+        out["words_differ_derm_differs"] += int((word_diff & ~same).sum())
+        out["passes"] += int(got_ok.sum())
+    out["hits_equal_twin"] = bool(torch.equal(hits.cpu(), n_det))
+    out["exact"] = (out["mismatched_bits_asc"] == 0
+                    and out["mismatched_ok_asc"] == 0
+                    and out["mismatched_words_same_derm"] == 0
+                    and out["mismatched_ok_same_derm"] == 0
+                    and out["hits_equal_twin"])
+    return out
+
+
+def blind_work(sizes, n_cand: int, n: int, n_llr: int) -> tuple:
+    """(compulsory bytes, operations) of one blind launch: the LLRs read
+    once and every word's bits written once; the Viterbi operations of
+    each word (as the Viterbi kernel's bound counts them)."""
+    from empower_srslte_tpu_torch.ops.fec.convcoder import TRAIN_LEN
+
+    nbytes = n * (4 * n_llr + n_cand * sum(s + 16 for s in sizes))
+    ops = 0
+    for s in sizes:
+        k = s + 16
+        halo = min(TRAIN_LEN, k)
+        ops += n * n_cand * ((2 * halo + k) * VIT_OPS_STEP
+                             + (k + halo) * VIT_OPS_TRACE)
+    return nbytes, ops
+
+
+def ctrl_shape(tag: str, cell, grid, h, noise, cfi: int, sizes, cands,
+               sf_idx: int = 3, rnti: int = 0x1234, want_cfi=None) -> dict:
+    """Both control kernels at one shape against their twins: kernel A's
+    CFI and LLRs against the plain twin on the CPU (and, for the record,
+    on the card), kernel B fed kernel A's LLRs (``blind_twin_check``);
+    each timed by CUDA-graph replay beside its bound, and the twins'
+    three stages on the card (CUDA events: their launches' host cost
+    included)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import pcfich, pdcch
+
+    cfi_hat, corr, llr = pdcch.ctrl_llr_cuda(grid, h, cell, sf_idx, noise,
+                                             region=(cfi, 1.0))
+    torch.cuda.synchronize()
+    gc, hc, nc = grid.cpu(), h.cpu(), noise.cpu()[:, None]
+    t_cfi, t_corr = pcfich._pcfich_decode_plain(gc, hc, cell, sf_idx, nc)
+    t_llr = pdcch._pdcch_extract_llr_plain(gc, hc, cell, cfi, sf_idx, nc)
+    c_llr = pdcch._pdcch_extract_llr_plain(grid, h, cell, cfi, sf_idx,
+                                           noise[:, None])
+    scale = float(t_llr.abs().max())
+    blind = blind_twin_check(llr, cands, sizes, rnti)
+
+    def twin():
+        cf, _ = pcfich._pcfich_decode_plain(grid, h, cell, sf_idx,
+                                            noise[:, None])
+        x = pdcch._pdcch_extract_llr_plain(grid, h, cell, cfi, sf_idx,
+                                           noise[:, None])
+        return cf, [pdcch.dci_crc_ok(pdcch._pdcch_blind_bits_plain(
+            x, cands, s), s, rnti).sum(-1) for s in sizes]
+
+    n = grid.shape[0]
+    n_re = llr.shape[-1] // 2
+    ports = h.shape[1]
+    a_ms = graph_ms(lambda: pdcch.ctrl_llr_cuda(
+        grid, h, cell, sf_idx, noise, region=(cfi, 1.0)),
+        reps=20)
+    b_ms = graph_ms(lambda: pdcch.pdcch_blind_cuda(
+        llr, cands, sizes, rnti), reps=20)
+    a_bytes = n * ((16 + n_re) * 8 * (1 + min(ports, 2)) + 8 * n_re + 12)
+    return {"tag": tag, "subframes": n, "nof_prb": cell.nof_prb,
+            "ports": ports, "cfi": cfi, "cp": cell.cp.value,
+            "candidates": len(cands), "sizes": list(sizes),
+            "cfi_equal_twin": bool(torch.equal(cfi_hat.cpu(), t_cfi)),
+            "cfi_right": (None if want_cfi is None
+                          else bool((cfi_hat == want_cfi).all())),
+            "corr_abs_err": float((corr.cpu() - t_corr).abs().max()),
+            "llr_err": float((llr.cpu() - t_llr).abs().max()) / scale,
+            "llr_err_card_twin": float((llr - c_llr).abs().max()) / scale,
+            "blind": blind,
+            "kernel_a": {"ms": a_ms, **bound(a_bytes, 0)},
+            "kernel_b": {"ms": b_ms, **bound(*blind_work(
+                sizes, len(cands), n, llr.shape[-1]))},
+            "twin_ms": cuda_ms(twin, reps=3)}
+
+
+def phase_pdcch_rx():
+    """The control kernels (``csrc/pdcch_rx.cu``) against their plain
+    twins: the main path's own control region (``ue_dl_tm4_batch``'s
+    grid and channel of rx 0 at 256 and 1 subframes, 100 PRB, 2 ports,
+    CFI 1), then on generated regions at 6 and 25 PRB, 1, 2 and 4
+    ports, CFI 1-3, the extended CP, and at an SNR where most candidates
+    are noise; then the launches each receiver path makes a call."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import dci as dci_mod
+    from empower_srslte_tpu_torch.models import enb_dl, pdcch, regs
+    from empower_srslte_tpu_torch.models.ue_dl import (ue_dl_decode,
+                                                       ue_dl_tm4_batch)
+    from empower_srslte_tpu_torch.ops.chest import chest_dl_ports
+    from empower_srslte_tpu_torch.ops.equalizer import MimoType
+    from empower_srslte_tpu_torch.ops.ofdm import ofdm_rx_sf
+    from empower_srslte_tpu_torch.utils.cell import CP
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    shapes = []
+    st256 = enb_dl.tm4_stimulus(BATCH, device="cuda")
+    st1 = enb_dl.tm4_stimulus(1, device="cuda")
+    for tag, st in (("tm4_b256", st256), ("tm4_b1", st1)):
+        cfg = st.cfg
+        grid = ofdm_rx_sf(st.samples, cfg.cell)
+        h, noise = chest_dl_ports(grid, cfg.cell, cfg.sf_idx, (0, 1))
+        n0 = torch.clamp(noise[:, 0, 0], min=1e-7)
+        cands = pdcch.ue_search_candidates(
+            cfg.rnti, cfg.sf_idx, regs.pdcch_nof_cces(cfg.cell, cfg.cfi))
+        sizes = tuple(sorted({dci_mod.format1_size(cfg.cell.nof_prb),
+                              dci_mod.format0_1a_size(cfg.cell.nof_prb)}))
+        shapes.append(ctrl_shape(tag, cfg.cell, grid[:, 0], h[:, 0], n0,
+                                 cfg.cfi, sizes, cands, cfg.sf_idx,
+                                 cfg.rnti, want_cfi=cfg.cfi))
+    gen = [(100, 2, 1, CP.NORM, BATCH, PDCCH_NOISE_SNR_DB),
+           (100, 4, 3, CP.NORM, 16, PDCCH_SNR_DB),
+           (25, 1, 2, CP.NORM, 16, PDCCH_SNR_DB),
+           (25, 2, 3, CP.EXT, 16, PDCCH_SNR_DB),
+           (6, 1, 1, CP.NORM, 16, PDCCH_SNR_DB),
+           (6, 2, 3, CP.NORM, 16, PDCCH_NOISE_SNR_DB),
+           (6, 4, 2, CP.EXT, 16, PDCCH_SNR_DB)]
+    for prb, ports, cfi, cp, b, snr in gen:
+        cell, grid, h, noise, sizes, cands = ctrl_stimulus(
+            g, prb, ports, cfi, cp, b, snr)
+        tag = f"{prb}prb_{ports}p_cfi{cfi}_{cp.value}_b{b}_{snr:g}db"
+        shapes.append(ctrl_shape(tag, cell, grid, h, noise, cfi, sizes,
+                                 cands, want_cfi=cfi if snr > 0 else None))
+
+    fr = enb_dl.tm2_frame_stimulus(device="cuda")
+    paths = {
+        "tm4_b256": lambda: ue_dl_tm4_batch(st256.samples, st256.cfg,
+                                            st256.plan),
+        "tm4_b1": lambda: ue_dl_tm4_batch(st1.samples, st1.cfg, st1.plan),
+        "ue_dl_decode": lambda: ue_dl_decode(
+            fr.samples[1], fr.cell, 1, fr.rnti, mimo=MimoType.DIVERSITY),
+    }
+
+    def per_call(run):
+        run()
+        torch.cuda.synchronize()
+        before = (pdcch.LAUNCHES_LLR, pdcch.LAUNCHES_BLIND)
+        run()
+        torch.cuda.synchronize()
+        return {"pdcch_llr": pdcch.LAUNCHES_LLR - before[0],
+                "pdcch_blind": pdcch.LAUNCHES_BLIND - before[1]}
+
+    launches = {name: per_call(run) for name, run in paths.items()}
+    path_ms = {name: cuda_ms(paths[name], reps=3)
+               for name in ("tm4_b256", "tm4_b1")}
+    res = paths["tm4_b256"]()
+    checks = {
+        "cfi_equal_twin": all(v["cfi_equal_twin"] for v in shapes),
+        "cfi_right": all(v["cfi_right"] in (None, True) for v in shapes),
+        "llr_within_tol": all(v["llr_err"] <= PDCCH_LLR_TOL for v in shapes),
+        "blind_exact": all(v["blind"]["exact"] for v in shapes),
+        "blind_noise_checked": any(v["blind"]["passes"]
+                                   < v["blind"]["words"] / 2
+                                   for v in shapes),
+        "dci_found_every_subframe": bool((res.dci_hits >= 1).all()),
+        "one_launch_each_a_batch_call": all(
+            launches[p] == {"pdcch_llr": 1, "pdcch_blind": 1}
+            for p in ("tm4_b256", "tm4_b1")),
+        "ue_dl_decode_launches": launches["ue_dl_decode"]
+        == {"pdcch_llr": 2, "pdcch_blind": 1},
+    }
+    out = {"phase": "pdcch_rx", "llr_tol": PDCCH_LLR_TOL,
+           "shapes": shapes, "launches_per_call": launches,
+           "path_ms": path_ms, "ptxas": PTXAS.get("pdcch_rx"),
+           "ptxas_viterbi37": PTXAS.get("viterbi37"), "checks": checks}
+    emit(out)
+    check("pdcch_rx", checks)
+    return out
+
+
 def turbo_kernel_check():
     """map_decode_nii against the plain twin, max abs error exactly 0, in
     float32 and in bfloat16, at the geometries the kernel's code paths
@@ -1189,7 +1496,8 @@ def phase_main_path():
         "dci_found": bool((res.dci_hits >= 1).all()),
         "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
         "no_turbo_f32_launch": launches["turbo_nii"] == 0,
-        "viterbi_launched": launches["viterbi37"] > 0,
+        "pdcch_kernels_one_launch_each": launches["pdcch_llr"] == 1
+        and launches["pdcch_blind"] == 1,
         **turbo_checks(turbo),
     }
     tbs = st.plan.tbs
@@ -1638,16 +1946,9 @@ def phase_ue_dl_frame():
     tx_s = time.perf_counter() - t0
     harq_sfs = enb_dl.FRAME_HARQ_SFS
 
-    # the Viterbi kernel against its twin at each call's blind search,
-    # one batch per DCI size over its candidates (formats 1A, 1 and 2, or
-    # 1C for the SI-RNTI, as ue_dl_decode picks); the turbo kernels at
-    # every shape the counted run launches (one TB per call)
-    vit_geos = set().union(*(
-        search_geos(fr.cell, enb_dl.FRAME_CFI, sf, rnti)
-        for sf, rnti in [(sf, fr.rnti) for sf in range(10)]
-        + [(enb_dl.FRAME_SI_SF, 0xFFFF)]))
-    vit_twin = vit_path_check("frame", vit_geos, seed=35)
-
+    # the turbo kernels and the blind-search kernel at every shape the
+    # counted run launches (one TB per call; one blind launch a call over
+    # formats 1A, 1 and 2, or 1C for the SI-RNTI, as ue_dl_decode picks)
     def run():
         harq: dict = {}
         out = []
@@ -1663,6 +1964,8 @@ def phase_ue_dl_frame():
 
     res, launches, ms_first, ms, peak, shapes = counted_run(run)
     nii_twin = hold_shapes("ue_dl_frame", turbo_shapes(shapes), seed=33)
+    blind_twin = hold_shapes("ue_dl_frame", {"pdcch": shapes["pdcch"]},
+                             seed=35)["pdcch"]
     calls = len(res)
     per_sf, checks = [], {}
     ok_all = {"cfi": True, "dci": True, "crc": True, "bits": True,
@@ -1694,7 +1997,9 @@ def phase_ue_dl_frame():
     # the frame's TBs (K 5120, l 256) in bfloat16, the SI's K 280 (no
     # window) in float32
     checks["turbo_bf16_launched"] = launches["turbo_nii_bf16"] > 0
-    checks["viterbi_launched"] = launches["viterbi37"] > 0
+    checks["blind_kernel_launched"] = launches["pdcch_blind"] == calls
+    checks["blind_twin_exact_every_shape"] = bool(blind_twin) and all(
+        v["exact"] for v in blind_twin.values())
     checks.update(turbo_checks(nii_twin))
     # the TBs whose CRC passed: sf 2's copy fails, sf 3 decodes that TB
     decoded_bits = sum(int(fr.tb[x["sf"]].numel()) for x in per_sf
@@ -1711,7 +2016,7 @@ def phase_ue_dl_frame():
           "ms_counted_run": ms_first,
           "mbps": decoded_bits / (ms * 1e-3) / 1e6,
           "launches": launches, "turbo_shapes": nii_twin,
-          "viterbi_twin_mismatched_bits": vit_twin, "peak_mem_gb": peak,
+          "blind_twin": blind_twin, "peak_mem_gb": peak,
           "per_subframe": per_sf, "checks": checks})
     check("ue_dl_frame", checks)
     return launches, nii_twin
@@ -1813,25 +2118,6 @@ def phase_uplink_msg3():
     return launches, twin
 
 
-def search_geos(cell, cfi: int, sf: int, rnti: int) -> set:
-    """The Viterbi shapes of ``ue_dl_decode``'s blind search for ``rnti``
-    in subframe ``sf``: one batch per DCI size over the search space's
-    candidates (formats 1A and 1, then 1C for an SI-RNTI or 2 for a
-    C-RNTI on a cell of 2 or more ports, as ``ue_dl_decode`` picks)."""
-    from empower_srslte_tpu_torch.models import dci as dci_mod
-    from empower_srslte_tpu_torch.models.pdcch import ue_search_candidates
-    from empower_srslte_tpu_torch.models.regs import pdcch_nof_cces
-
-    prb = cell.nof_prb
-    words = len(ue_search_candidates(rnti, sf, pdcch_nof_cces(cell, cfi)))
-    sizes = [dci_mod.format0_1a_size(prb), dci_mod.format1_size(prb)]
-    if rnti == 0xFFFF:
-        sizes.append(dci_mod.format1c_size(prb))
-    elif cell.nof_ports >= 2:
-        sizes.append(dci_mod.format2_size(prb))
-    return {(size + 16, words) for size in sizes}
-
-
 def phase_cold_boot():
     """A UE's cold start at 20 MHz (what the JAX stack's ``UeStack``
     does before camping): the 26-subframe capture of ``cold_boot_stimulus``
@@ -1862,13 +2148,10 @@ def phase_cold_boot():
     sf_len, data_sf = cell.sf_sample_len, enb_dl.COLD_DATA_SF
     r_cell, r_rnti, _bits, _cand, r_cfg, r_plan = enb_dl.one_rx_tm4_grant()
 
-    # the kernels against their twins at this phase's shapes: the PBCH's
-    # 4 frame phases at K 40, each blind search, the data grant's TB and
-    # the format-2 subframe's two equal-plan codewords (one turbo batch)
-    vit_twin = vit_path_check(
-        "cold_boot", {(PBCH_K, 4)}
-        | search_geos(cell, enb_dl.COLD_CFI, data_sf, cap.rnti)
-        | search_geos(r_cell, r_cfg.cfi, r_cfg.sf_idx, r_rnti), seed=36)
+    # the Viterbi kernel against its twin at the PBCH's 4 frame phases at
+    # K 40; the blind searches and the turbo kernels at the shapes the
+    # decodes below launch
+    vit_twin = vit_path_check("cold_boot", {(PBCH_K, 4)}, seed=36)
     stage_events: list = []
 
     def run():
@@ -1912,6 +2195,8 @@ def phase_cold_boot():
     # grant's TB and the format-2 subframe's two equal-plan codewords
     nii_twin = hold_shapes("cold_boot", turbo_shapes(merge_shapes(
         shapes, rep_shapes)), seed=37)
+    blind_twin = hold_shapes("cold_boot", {"pdcch": merge_shapes(
+        shapes, rep_shapes)["pdcch"]}, seed=36)["pdcch"]
     checks = {
         "vote_n_id_2": n_id_2 == cell.n_id_2 and votes[n_id_2] == 2,
         "cell_id": res.cell_id == enb_dl.COLD_CELL_ID,
@@ -1925,6 +2210,10 @@ def phase_cold_boot():
         "data_bits_equal": len(hits) == 1 and bool(
             (torch.as_tensor(hits[0].tb_bits) == cap.tb.cpu()).all()),
         "viterbi_launched": launches["viterbi37"] > 0,
+        "blind_kernel_launched": launches["pdcch_blind"] > 0
+        and rep_launches["pdcch_blind"] > 0,
+        "blind_twin_exact_every_shape": bool(blind_twin) and all(
+            v["exact"] for v in blind_twin.values()),
         "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
         "one_rx_tm4_turbo_bf16_launched": rep_launches["turbo_nii_bf16"] > 0,
         **turbo_checks(nii_twin),
@@ -1945,7 +2234,7 @@ def phase_cold_boot():
           "tbs": int(cap.tb.numel()), "tx_s": round(tx_s, 3), **stage_ms,
           "ms_acquire_total": ms, "ms_counted_run": ms_first,
           "launches": launches, "one_rx_tm4_launches": rep_launches,
-          "turbo_shapes": nii_twin,
+          "turbo_shapes": nii_twin, "blind_twin": blind_twin,
           "viterbi_twin_mismatched_bits": vit_twin, "peak_mem_gb": peak,
           "one_rx_tm4": [{"cw": r.cw, "crc_ok": r.crc_ok} for r in rep],
           "checks": checks})
@@ -2231,6 +2520,7 @@ def open_counts():
     -> the modules, by name."""
     import torch
 
+    from empower_srslte_tpu_torch.models import pdcch
     from empower_srslte_tpu_torch.ops import chest
     from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
         viterbi37
@@ -2238,7 +2528,7 @@ def open_counts():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
-            "viterbi37": viterbi37, "chest": chest}
+            "viterbi37": viterbi37, "chest": chest, "pdcch": pdcch}
     for _name, mod, attr in COUNTERS:
         setattr(mods[mod], attr, 0)
     for m in mods.values():
@@ -2263,15 +2553,17 @@ def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
     launch and the NII kernel at every ``bounds`` it was launched with
     (the name of a shape launched off the default bounds (0, W-1) ends in
     ``_bounds{first}_{last}``): -> {"turbo_nii": {...}, "turbo_win":
-    {...}, "viterbi37": {...}} per shape, with its launches. The phase's
-    checks require every error to be 0 (``turbo_checks``,
+    {...}, "viterbi37": {...}, "pdcch": {...}} per shape, with its
+    launches; the blind-search kernel (``pdcch``, a shape being its DCI
+    sizes, candidates and subframes) on noisy LLRs (``blind_hold``). The
+    phase's checks require every error to be 0 (``turbo_checks``,
     ``shape_checks``)."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_win import DEFAULT_OVERLAP
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}}
+    out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}, "pdcch": {}}
     i = 0
     for (k, l, b, dt, first, last), c in sorted(
             shapes.get("turbo_nii", {}).items()):
@@ -2304,7 +2596,34 @@ def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
         PATH_TWIN["viterbi37"][f"{phase}_{name}"] = \
             out["viterbi37"][name]["mismatched_bits"]
         i += 1
+    for (sizes, cands, n), c in sorted(shapes.get("pdcch", {}).items()):
+        name = f"sizes{'_'.join(map(str, sizes))}_cands{len(cands)}_sf{n}"
+        out["pdcch"][name] = {**blind_hold(sizes, cands, n, seed + i),
+                              "launches": c}
+        PATH_TWIN["pdcch_rx"][f"{phase}_{name}"] = \
+            out["pdcch"][name]["exact"]
+        i += 1
     return out
+
+
+def blind_hold(sizes, cands, n: int, seed: int) -> dict:
+    """The blind-search kernel at one launch shape on noisy LLRs (each
+    subframe's at a random scale, so that most candidates are noise),
+    held to its twins (``blind_twin_check``) and timed (CUDA events over
+    10 launches, as a path calls it)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import pdcch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_llr = 72 * max(cce + l for l, cce in cands)
+    llr = (torch.randn((n, n_llr), generator=g, device="cuda")
+           * 4 * torch.rand((n, 1), generator=g, device="cuda"))
+    return {"sizes": list(sizes), "candidates": len(cands), "subframes": n,
+            **blind_twin_check(llr, cands, sizes, 0x1234),
+            "ms": cuda_ms(lambda: pdcch.pdcch_blind_cuda(
+                llr, cands, sizes, 0x1234),
+                reps=10)}
 
 
 def bounds_kind(bounds, windows: int) -> str:
@@ -2408,18 +2727,21 @@ def drive_stats(drives) -> dict:
 
 
 def shape_checks(shapes: dict, launches: dict) -> dict:
-    """Both on-path kernels launched at a non-empty set of shapes
-    (``hold_shapes``; the NII kernel in either dtype), each held to its
+    """The on-path kernels launched at a non-empty set of shapes
+    (``hold_shapes``; the NII kernel in either dtype; a Viterbi decode on
+    the Viterbi kernel or the blind-search kernel), each held to its
     twin exactly (0.0 error, 0 bits)."""
     nii, vit = shapes["turbo_nii"], shapes["viterbi37"]
+    blind = shapes.get("pdcch", {})
     return {"turbo_launched_shapes": bool(nii)
             and launches["turbo_nii"] + launches["turbo_nii_bf16"] > 0,
-            "viterbi_launched_shapes": bool(vit)
-            and launches["viterbi37"] > 0,
+            "viterbi_launched_shapes": bool(vit or blind)
+            and launches["viterbi37"] + launches["pdcch_blind"] > 0,
             "nii_twin_exact_every_shape": all(v["max_abs_err"] == 0.0
                                               for v in nii.values()),
             "viterbi_twin_exact_every_shape": all(
-                v["mismatched_bits"] == 0 for v in vit.values())}
+                v["mismatched_bits"] == 0 for v in vit.values())
+            and all(v["exact"] for v in blind.values())}
 
 
 STACK_PING = b"\x45\x00" + bytes(18) + b"PING-FROM-UE-01"
@@ -3146,7 +3468,7 @@ def phase_parallel_batch():
               "bits_equal_sent": bool(torch.equal(ref.tb_bits[0], st.tb)
                                       and torch.equal(ref.tb_bits[1], st.tb2)),
               "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
-              "viterbi_launched": launches["viterbi37"] > 0,
+              "blind_kernel_launched": launches["pdcch_blind"] > 0,
               "mini_ok_sum": mini_ok == [4],
               "mini_bits_equal_sent": mini_bits,
               "mini_viterbi_launched": mini_launches["viterbi37"] > 0}
@@ -3170,7 +3492,8 @@ def phase_parallel_batch():
     twin = hold_shapes("parallel_batch", merge_shapes(*shapes_all), seed=73)
     checks.update(turbo_checks(twin))
     checks["viterbi_twin_exact_every_shape"] = all(
-        v["mismatched_bits"] == 0 for v in twin["viterbi37"].values())
+        v["mismatched_bits"] == 0 for v in twin["viterbi37"].values()) \
+        and all(v["exact"] for v in twin["pdcch"].values())
     emit({"phase": "parallel_batch", "batch": BATCH, "mesh": mesh.shape,
           "subframes_per_shard": BATCH // len(mesh.local()),
           "ms_unsharded": (ms_one + ms_one2) / 2,
@@ -3449,6 +3772,10 @@ def main() -> int:
     if "--phases" in sys.argv:
         names = sys.argv[sys.argv.index("--phases") + 1].split(",")
         alone = {"chest_dl": phase_chest_dl,
+                 "pdcch_rx": phase_pdcch_rx,
+                 "main_path": phase_main_path,
+                 "ue_dl_frame": phase_ue_dl_frame,
+                 "cold_boot": phase_cold_boot,
                  "kernel_turbo": turbo_kernel_check,
                  "kernel_turbo_win": turbo_win_kernel_check,
                  "parallel_sp": phase_parallel_sp,
@@ -3475,6 +3802,7 @@ def main() -> int:
                          "count": torch.cuda.device_count()}})
         return 0
     chest_out = phase_chest_dl()
+    pdcch_out = phase_pdcch_rx()
     turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
@@ -3600,6 +3928,19 @@ def main() -> int:
          "replaces": None, "launches": launches["chest_dl"],
          "launches_by_path": per_path("chest_dl"),
          **{k: chest_out[k] for k in ("shapes", "launches_per_call",
+                                      "ptxas")},
+         "library_ms": None},
+        {"name": "pdcch_rx", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/pdcch_rx.cu",
+         "replaces": "empower_srslte_tpu/ops/fec/viterbi_pallas.py:146 "
+                     "(the blind search's Viterbi; the rest none)",
+         "launches": launches["pdcch_llr"] + launches["pdcch_blind"],
+         "launches_by_path": {k: {n: v[n] for n in ("pdcch_llr",
+                                                    "pdcch_blind")}
+                              for k, v in by_path.items()
+                              if v.get("pdcch_llr") or v.get("pdcch_blind")},
+         "exact_by_path_shape": PATH_TWIN["pdcch_rx"],
+         **{k: pdcch_out[k] for k in ("shapes", "launches_per_call",
                                       "ptxas")},
          "library_ms": None},
         {"name": "recursion_probe", "route": "cuda",

@@ -24,12 +24,18 @@ counterpart for Hopper (sm_90a) under ``csrc/``, built on first use:
                               (wrapper, twin and tool:
                               tools/microbench_recursion.py)
 
-and one kernel that replaces no Pallas kernel but a loop of tiny
-PyTorch ops on the receive paths:
+and kernels that replace loops of tiny PyTorch ops on the receive
+paths:
 
   csrc/chest_dl.cu         the CRS channel and pilot noise estimate of
                            every (subframe, rx, port) in one launch
                            (wrapper and plain twins: ops/chest.py)
+  csrc/pdcch_rx.cu         the PCFICH and the PDCCH region's LLRs in one
+                           launch, the blind search of every candidate
+                           and DCI size (rate de-matching, the Viterbi
+                           warp code of viterbi37_warp.cuh, CRC16) in
+                           another (wrappers and plain twins:
+                           models/pdcch.py, models/pcfich.py)
 
 Entry points that create tensors run on the CUDA card unless given
 ``device="cpu"``; on a CPU tensor a kernel wrapper runs its plain twin.

@@ -4,6 +4,12 @@ Capability parity with lib/src/phy/phch/pcfich.c: the 3 fixed 32-bit CFI
 codewords, scrambling, QPSK, single-port, 2-port SFBC or 4-port
 SFBC-FSTD transmit diversity, mapping to 4 quarter-spaced REGs of symbol
 0; decoding by correlating the received soft bits against the codewords.
+
+On the card ``pcfich_decode`` is one launch of ``csrc/pdcch_rx.cu``'s
+first kernel (``models/pdcch.py ctrl_llr_cuda``), which
+``ue_dl_tm4_batch`` runs together with the PDCCH's LLRs
+(``pdcch.control_rx``); on the CPU it is the plain twin
+``_pcfich_decode_plain``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from ..ops.modem import Mod, demod_soft, modulate
 from ..ops.scrambling import descramble_llrs, scramble_bits
 from ..utils.cell import Cell
 from ..utils.device import device_table
-from ..utils.sequence import cinit_pcfich
+from ..utils.sequence import cinit_pcfich, gold_sequence
 from .regs import pcfich_regs, symbol_regs
 
 #: CFI codewords (36.212 Table 5.3.4-1): periodic 011/101/110 patterns.
@@ -59,12 +65,34 @@ def pcfich_put(grid, cfi: int, cell: Cell, sf_idx: int):
     return out
 
 
+def kernel_signs(cell: Cell, sf_idx: int) -> np.ndarray:
+    """The signs ``csrc/pdcch_rx.cu`` reads for the PCFICH of
+    (cell, sf_idx), float32 [128]: the 32 descrambling signs
+    1 - 2 c(n) (``descramble_llrs``), then the 3 codewords' 1 - 2 b."""
+    seq = gold_sequence(cinit_pcfich(2 * sf_idx, cell.id), 32)
+    return np.concatenate([1.0 - 2.0 * seq,
+                           (1.0 - 2.0 * CFI_CODEWORDS).reshape(-1)]
+                          ).astype(np.float32)
+
+
 def pcfich_decode(grid, h, cell: Cell, sf_idx: int, noise_est=0.0):
     """Decode CFI -> (cfi [...], corr [...]).
 
     grid [..., nsymb, nre]; h [..., nsymb, nre] (single port) or
     [..., P, nsymb, nre]: MRC / SFBC / SFBC-FSTD combining, then
-    correlation against the 3 codewords (srslte_pcfich_decode)."""
+    correlation against the 3 codewords (srslte_pcfich_decode). On the
+    card one kernel launch (``pdcch.ctrl_llr_cuda``), on the CPU the
+    plain twin."""
+    if grid.is_cuda:
+        from .pdcch import ctrl_llr_cuda
+
+        cfi, corr, _ = ctrl_llr_cuda(grid, h, cell, sf_idx, noise_est)
+        return cfi, corr
+    return _pcfich_decode_plain(grid, h, cell, sf_idx, noise_est)
+
+
+def _pcfich_decode_plain(grid, h, cell: Cell, sf_idx: int, noise_est=0.0):
+    """``pcfich_decode`` in plain PyTorch (the kernel's twin)."""
     idx = device_table(("pcfich_re", cell), grid.device,
                        lambda: _re_indices(cell))
     y = grid[..., 0, :][..., idx]

@@ -8,10 +8,23 @@ of the whole region once (srslte_pdcch_extract_llr_multi) and the blind
 search over candidate locations and formats (pdcch.c:341) — every
 candidate of every aggregation level decodes in one Viterbi batch per
 DCI size.
+
+On the card the control stages are two launches of ``csrc/pdcch_rx.cu``:
+``ctrl_llr_cuda`` (the PCFICH decode and the region's LLRs, which
+``pcfich_decode`` and ``pdcch_extract_llr`` go through) and
+``pdcch_blind_cuda`` (the rate de-matching, Viterbi decode and CRC16 of
+every candidate and DCI size, which ``pdcch_blind_bits`` and
+``pdcch_blind_decode`` go through); ``control_rx`` is the batched
+receiver's entry to both. On the CPU each function runs its plain twin
+(``_pdcch_extract_llr_plain``, ``_pdcch_blind_bits_plain``). The tables
+the kernels read (candidates, the sizes' de-rate-matching and CRC
+tables, RE indices and descrambling signs) are built once per plan.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -19,19 +32,35 @@ import numpy as np
 import torch
 
 from ..ops.equalizer import eq_sfbc, precode_sfbc
-from ..ops.fec.convcoder import conv_encode, viterbi_decode
-from ..ops.fec.rm_conv import rm_conv_rx, rm_conv_tx
+from ..ops.fec.convcoder import TRAIN_LEN, conv_encode, viterbi_decode
+from ..ops.fec.rm_conv import _circle, rm_conv_rx, rm_conv_tx
+from ..ops.fec.turbo_nii import MAX_SMEM
 from ..ops.modem import Mod, demod_soft, modulate
 from ..ops.scrambling import descramble_llrs
+from ..runtime import trace
 from ..utils.bits import uint_to_bits
 from ..utils.cell import Cell
 from ..utils.crc import CRC16
 from ..utils.device import device_table
 from ..utils.sequence import cinit_pdcch, gold_sequence
+from . import pcfich
 from .regs import RE_PER_CCE, pdcch_nof_cces, pdcch_reg_map
 
 #: Bits per CCE (36 QPSK REs).
 BITS_PER_CCE = 2 * RE_PER_CCE
+#: launches of ``ctrl_llr_cuda`` and ``pdcch_blind_cuda`` (read by
+#: chip_smoke.py)
+LAUNCHES_LLR = 0
+LAUNCHES_BLIND = 0
+#: the blind-search launches per shape (DCI sizes, candidates, subframes);
+#: reset it with ``LAUNCHES_BY_SHAPE.clear()``
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+#: the blind kernel's limits (csrc/pdcch_rx.cu): warps a block, DCI sizes
+#: a launch, K = size + 16
+MAX_BLIND_WARPS, MAX_SIZES, MAX_K = 32, 4, 128
+#: ints of a size's header in the size table: K, halo, the offset of its
+#: inverse circle (its syndromes follow), the RNTI mask's syndrome
+SIZE_HDR = 4
 
 
 @functools.lru_cache(maxsize=64)
@@ -45,8 +74,10 @@ def _region_idx(cell: Cell, cfi: int, ng: float, device):
                         lambda: _region_re_indices(cell, cfi, ng))
 
 
-def ue_search_candidates(rnti: int, sf_idx: int, n_cce: int):
-    """(L, cce) candidates: common + UE-specific (36.213 9.1.1)."""
+@functools.lru_cache(maxsize=1024)
+def ue_search_candidates(rnti: int, sf_idx: int, n_cce: int) -> tuple:
+    """(L, cce) candidates: common + UE-specific (36.213 9.1.1), cached
+    per (rnti, sf_idx, n_cce)."""
     out = []
     for l, m_max in ((4, 4), (8, 2)):
         for m in range(m_max):
@@ -63,12 +94,7 @@ def ue_search_candidates(rnti: int, sf_idx: int, n_cce: int):
             cce = l * ((y + m) % (n_cce // l))
             if cce + l <= n_cce:
                 out.append((l, cce))
-    seen, uniq = set(), []
-    for c in out:
-        if c not in seen:
-            seen.add(c)
-            uniq.append(c)
-    return uniq
+    return tuple(dict.fromkeys(out))
 
 
 def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
@@ -106,10 +132,22 @@ def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
 def pdcch_extract_llr(grid, h, cell: Cell, cfi: int, sf_idx: int,
                       noise_est=0.0, ng: float = 1.0):
     """Equalize + demap + descramble the whole region once
-    (srslte_pdcch_extract_llr_multi): -> llr [..., n_cce*72].
+    (srslte_pdcch_extract_llr_multi): -> llr [..., n_regs*8].
 
     ``h``: [..., nsymb, nre] single-port or [..., P, nsymb, nre]; a
-    cell of 2 or more ports takes the SFBC branch on ports 0 and 1."""
+    cell of 2 or more ports takes the SFBC branch on ports 0 and 1. On
+    the card one kernel launch (``ctrl_llr_cuda``), on the CPU the plain
+    twin."""
+    if _on_card(grid):
+        return ctrl_llr_cuda(grid, h, cell, sf_idx, noise_est,
+                             region=(cfi, ng))[2]
+    return _pdcch_extract_llr_plain(grid, h, cell, cfi, sf_idx, noise_est,
+                                    ng)
+
+
+def _pdcch_extract_llr_plain(grid, h, cell: Cell, cfi: int, sf_idx: int,
+                             noise_est=0.0, ng: float = 1.0):
+    """``pdcch_extract_llr`` in plain PyTorch (the kernel's twin)."""
     idx = _region_idx(cell, cfi, ng, grid.device)
     y = grid.reshape(*grid.shape[:-2], -1)[..., idx]
     if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:
@@ -135,8 +173,17 @@ def pdcch_blind_bits(llr, cands, size: int):
     common [3, k] trellis shape (k = size + 16), so candidates of every
     aggregation level stack along one batch axis.
 
-    llr [..., n_cce*72] -> bits [..., n_cand, k], in ``cands`` order.
+    llr [..., n_cce*72] -> bits [..., n_cand, k], in ``cands`` order. On
+    the card one kernel launch (``pdcch_blind_cuda``), on the CPU the
+    plain twin.
     """
+    if _on_card(llr):
+        return pdcch_blind_cuda(llr, tuple(cands), (size,), 0)[0][0]
+    return _pdcch_blind_bits_plain(llr, cands, size)
+
+
+def _pdcch_blind_bits_plain(llr, cands, size: int):
+    """``pdcch_blind_bits`` in plain PyTorch (the kernel's twin)."""
     k = size + 16
     by_l: dict[int, list[int]] = {}
     for l, cce in cands:
@@ -185,14 +232,21 @@ def pdcch_blind_decode(grid, h, cell: Cell, cfi: int, sf_idx: int,
     n_cce = pdcch_nof_cces(cell, cfi, ng)
     llr = pdcch_extract_llr(grid, h, cell, cfi, sf_idx, noise_est, ng)
     cands = ue_search_candidates(rnti, sf_idx, n_cce)
+    if _on_card(llr):
+        bits, ok, _ = pdcch_blind_cuda(llr, cands, tuple(dci_sizes), rnti)
+        oks = ok.cpu().numpy()
+        bits_np = [b.cpu().numpy() for b in bits]
+    else:
+        bits_np, oks = [], []
+        for size in dci_sizes:
+            b = _pdcch_blind_bits_plain(llr, cands, size)
+            oks.append(dci_crc_ok(b, size, rnti).numpy())
+            bits_np.append(b.numpy())
     hits: list[DciHit] = []
-    for size in dci_sizes:
-        bits = pdcch_blind_bits(llr, cands, size)
-        ok = dci_crc_ok(bits, size, rnti).cpu().numpy()
-        bits_np = bits.cpu().numpy()
+    for size, bits_s, ok in zip(dci_sizes, bits_np, oks):
         for row, (l, cce) in enumerate(cands):
             if ok[row]:
-                hits.append(DciHit(bits_np[row, :size].astype(np.int8), l,
+                hits.append(DciHit(bits_s[row, :size].astype(np.int8), l,
                                    cce, rnti))
     seen, uniq = set(), []
     for hit in hits:
@@ -201,3 +255,274 @@ def pdcch_blind_decode(grid, h, cell: Cell, cfi: int, sf_idx: int,
             seen.add(key)
             uniq.append(hit)
     return uniq
+
+
+def control_rx(grid0, h0, cell: Cell, cfi: int, sf_idx: int, rnti: int,
+               sizes: tuple, noise_est):
+    """The batched receiver's control stages: grid0 [..., nsymb, nre] (one
+    rx antenna), h0 [..., P, nsymb, nre], noise_est [...] (or a float) ->
+    (cfi_hat [...] from the PCFICH, n_det [...] int64: the candidates
+    whose CRC16 with ``rnti``'s mask passes, over every DCI size of
+    ``sizes`` and the search space of ``rnti`` in the region of ``cfi``).
+
+    The PCFICH and the region's LLRs run in the range ``ue_dl.pdcch_llr``,
+    the blind search in ``ue_dl.pdcch_blind_search``: on the card one
+    launch each (``ctrl_llr_cuda``, ``pdcch_blind_cuda``) and no host
+    sync; on the CPU the plain twins."""
+    cands = ue_search_candidates(rnti, sf_idx, pdcch_nof_cces(cell, cfi))
+    if _on_card(grid0):
+        with trace.span("ue_dl.pdcch_llr"):
+            cfi_hat, _, llr = ctrl_llr_cuda(grid0, h0, cell, sf_idx,
+                                            noise_est, region=(cfi, 1.0))
+        with trace.span("ue_dl.pdcch_blind_search"):
+            n_det = pdcch_blind_cuda(llr, cands, tuple(sizes), rnti)[2]
+        return cfi_hat, n_det
+    noise = (noise_est[..., None] if isinstance(noise_est, torch.Tensor)
+             else noise_est)
+    with trace.span("ue_dl.pdcch_llr"):
+        cfi_hat, _ = pcfich._pcfich_decode_plain(grid0, h0, cell, sf_idx,
+                                                 noise)
+        llr = _pdcch_extract_llr_plain(grid0, h0, cell, cfi, sf_idx, noise)
+    with trace.span("ue_dl.pdcch_blind_search"):
+        n_det = torch.zeros(llr.shape[:-1], dtype=torch.int64,
+                            device=llr.device)
+        for size in sizes:
+            bits = _pdcch_blind_bits_plain(llr, cands, size)
+            n_det = n_det + dci_crc_ok(bits, size, rnti).sum(-1)
+    return cfi_hat, n_det
+
+
+# --- the kernels (csrc/pdcch_rx.cu) ----------------------------------------
+
+
+def region_signs(cell: Cell, cfi: int, ng: float, sf_idx: int):
+    """(RE indices int32 [n_re] of the region, quadruplet order; the
+    descrambling signs 1 - 2 c(n) float32 [2 n_re], ``descramble_llrs``'s
+    table) for ``ctrl_llr_cuda``."""
+    idx = _region_re_indices(cell, cfi, ng)
+    c_init = cinit_pdcch(2 * sf_idx, cell.id)
+    return (idx.astype(np.int32),
+            (1.0 - 2.0 * gold_sequence(c_init, 2 * len(idx))
+             ).astype(np.float32))
+
+
+def candidate_table(cands: tuple) -> np.ndarray:
+    """int32 [n_cand, 2]: each candidate's first LLR (cce * 72) and E
+    (L * 72), in ``cands`` order."""
+    return np.array([(cce * BITS_PER_CCE, l * BITS_PER_CCE)
+                     for l, cce in cands], np.int32).reshape(-1, 2)
+
+
+def crc16_syndromes(k: int) -> np.ndarray:
+    """int32 [k]: row t of CRC16's parity matrix of length k packed as a
+    16-bit word (bit j = column j): a bit vector's CRC16 is the XOR of
+    its set bits' rows."""
+    h = CRC16.parity_matrix(k).astype(np.int64)
+    return (h << np.arange(16)).sum(-1).astype(np.int32)
+
+
+def derm_inverse(k: int) -> np.ndarray:
+    """int32 [3k]: for each position of the [3, k] trellis input, its
+    place in one circle of the circular buffer (``rm_conv_rx`` adds the
+    E LLRs at place, place + 3k, place + 6k, ... there)."""
+    circle = _circle(k)
+    inv = np.empty(3 * k, np.int32)
+    inv[circle] = np.arange(len(circle), dtype=np.int32)
+    return inv
+
+
+def size_table(sizes: tuple, rnti: int):
+    """The blind kernel's per-size table, int32: SIZE_HDR ints a size (K,
+    halo min(TRAIN_LEN, K), the offset of its inverse circle, the syndrome of
+    ``rnti``'s mask over the CRC's 16 bits), then per size its
+    ``derm_inverse`` [3K] and ``crc16_syndromes`` [K]."""
+    head, body = [], []
+    off = SIZE_HDR * len(sizes)
+    mask = uint_to_bits(rnti & 0xFFFF, 16).astype(bool)
+    for size in sizes:
+        k = size + 16
+        syn = crc16_syndromes(k)
+        target = int(np.bitwise_xor.reduce(syn[size:][mask], initial=0))
+        head += [k, min(TRAIN_LEN, k), off, target]
+        body += [derm_inverse(k), syn]
+        off += 4 * k
+    return np.concatenate([np.asarray(head, np.int32), *body])
+
+
+def blind_warp_bytes(k: int, halo: int) -> int:
+    """Shared bytes a warp of the blind kernel takes at K: the metrics,
+    the 8 combinations a column, two decision words a middle and flush
+    step, the winner's packed words; rounded up to 16."""
+    return (2 * 64 * 4 + 32 * k + 8 * (k + halo) + 16 + 15) // 16 * 16
+
+
+def blind_plan(ks: tuple, n_cand: int):
+    """(warps a block, dynamic shared bytes) of a blind launch: one warp a
+    (candidate, size) job, jobs spread evenly when there are more than
+    MAX_BLIND_WARPS. Raises ``ValueError`` out of range."""
+    if not 1 <= len(ks) <= MAX_SIZES or n_cand < 1 \
+            or not all(1 <= k <= MAX_K for k in ks):
+        raise ValueError(f"K {ks} x {n_cand} candidates out of range "
+                         f"(1-{MAX_SIZES} sizes, K <= {MAX_K})")
+    jobs = len(ks) * n_cand
+    warps = -(-jobs // -(-jobs // MAX_BLIND_WARPS))
+    smem = warps * max(blind_warp_bytes(k, min(TRAIN_LEN, k)) for k in ks)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{smem} shared bytes a block exceed {MAX_SMEM}")
+    return warps, smem
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    from ..utils.cuda_build import load
+
+    lib = load("pdcch_rx")
+    llr_fn, blind_fn = lib.ctrl_llr_launch, lib.pdcch_blind_launch
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    llr_fn.argtypes = [ptr, i64, ptr, i64, i64, i32, ptr, i32,
+                       ctypes.c_float, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                       ptr, i32, ptr]
+    blind_fn.argtypes = [ptr, i64, i32, ptr, i32, ptr, ptr, i32, i32, ptr,
+                         ptr, ptr, i32, i32, ptr]
+    llr_fn.restype = blind_fn.restype = i32
+    return {"ctrl_llr": llr_fn, "pdcch_blind": blind_fn}
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels (a CUDA tensor) or the twins."""
+    return t.is_cuda
+
+
+def _launch(kernel: str, dev, *args) -> None:
+    """One launch of ``kernel`` on ``dev``'s current stream; raises on
+    the launch's CUDA error."""
+    with torch.cuda.device(dev):
+        rc = _lib()[kernel](*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def ctrl_llr_cuda(grid, h, cell: Cell, sf_idx: int, noise_est=0.0,
+                  region: tuple | None = None):
+    """One launch of ``csrc/pdcch_rx.cu``'s ``ctrl_llr_kernel`` over the
+    subframes of grid [..., nsymb, nre] complex64 on the card (its last
+    two dims contiguous; leading dims may be strided) with h [..., nsymb,
+    nre] or [..., P, nsymb, nre] complex64 likewise, noise_est a float or
+    a float32 tensor of one value or one a subframe: -> the PCFICH's (cfi
+    [...] int64, corr [...] float32) as ``pcfich_decode`` gives them, and
+    the LLRs [..., 2 n_re] float32 of the PDCCH region of ``region`` =
+    (cfi, ng), as ``pdcch_extract_llr`` gives them (None without a
+    region)."""
+    global LAUNCHES_LLR
+    for name, t in (("grid", grid), ("h", h)):
+        if not _on_card(t):
+            raise ValueError(f"ctrl_llr_cuda takes CUDA tensors ({name})")
+        if t.dtype != torch.complex64:
+            raise ValueError(f"{name} must be complex64")
+    nsymb, nre = cell.nsymb_sf, cell.nof_re
+    if grid.dim() < 2 or tuple(grid.shape[-2:]) != (nsymb, nre):
+        raise ValueError(f"grid shape {tuple(grid.shape)}, want "
+                         f"[..., {nsymb}, {nre}]")
+    lead = grid.shape[:-2]
+    has_ports = h.dim() == grid.dim() + 1
+    ports = h.shape[-3] if has_ports else 1
+    if tuple(h.shape) != (*lead, *((ports,) if has_ports else ()), nsymb,
+                          nre):
+        raise ValueError(f"h shape {tuple(h.shape)} does not match grid "
+                         f"{tuple(grid.shape)}")
+    if ports not in (1, 2, 4):
+        raise ValueError(f"the PCFICH takes 1, 2 or 4 ports, not {ports}")
+    n = int(np.prod(lead)) if lead else 1
+    g3 = grid.reshape(n, nsymb, nre)
+    h4 = h.reshape(n, ports, nsymb, nre)
+    if g3.stride()[1:] != (nre, 1) or h4.stride()[2:] != (nre, 1):
+        raise ValueError("grid and h need contiguous [nsymb, nre] planes")
+    dev = grid.device
+    noise, step, value = None, 0, 0.0
+    if isinstance(noise_est, torch.Tensor):
+        noise = noise_est.reshape(-1)
+        if noise.dtype != torch.float32 or noise.device != dev:
+            raise ValueError("noise_est must be float32 on grid's device")
+        if noise.numel() not in (1, n):
+            raise ValueError(f"{noise.numel()} noise values for {n} "
+                             f"subframes")
+        step = 0 if noise.numel() == 1 else noise.stride(0)
+    else:
+        value = float(noise_est)
+    pcf_re = device_table(("pcfich_re32", cell), dev, lambda: (
+        pcfich._re_indices(cell).astype(np.int32)))
+    pcf_sgn = device_table(("pcfich_k_signs", cell, sf_idx), dev,
+                           lambda: pcfich.kernel_signs(cell, sf_idx))
+    cfi = torch.empty(n, dtype=torch.int64, device=dev)
+    corr = torch.empty(n, dtype=torch.float32, device=dev)
+    llr = pd_re = pd_sgn = None
+    n_re = 0
+    if region is not None:
+        rcfi, ng = region
+        key = (cell, rcfi, ng, sf_idx)
+        pd_re, pd_sgn = (device_table((name,) + key, dev,
+                                      lambda i=i: region_signs(*key)[i])
+                         for i, name in enumerate(("pdcch_k_re",
+                                                   "pdcch_k_signs")))
+        n_re = pd_re.shape[0]
+        llr = torch.empty((n, 2 * n_re), dtype=torch.float32, device=dev)
+    if n:
+        _launch("ctrl_llr", dev, g3.data_ptr(), g3.stride(0), h4.data_ptr(),
+                h4.stride(0), h4.stride(1), ports, _ptr(noise), step, value,
+                pcf_re.data_ptr(), pcf_sgn.data_ptr(), cfi.data_ptr(),
+                corr.data_ptr(), _ptr(pd_re), _ptr(pd_sgn), n_re, _ptr(llr),
+                n)
+        LAUNCHES_LLR += 1
+        trace.count_launch("pdcch_llr_kernel")
+    return (cfi.reshape(lead), corr.reshape(lead),
+            None if llr is None else llr.reshape(*lead, 2 * n_re))
+
+
+def pdcch_blind_cuda(llr, cands: tuple, sizes: tuple, rnti: int):
+    """One launch of ``csrc/pdcch_rx.cu``'s ``pdcch_blind_kernel``: every
+    (L, cce) candidate of ``cands`` decoded for every DCI size of
+    ``sizes`` from llr [..., n_llr] float32 on the card (the last dim
+    contiguous), the CRC16 checked with ``rnti``'s mask. -> (per size
+    bits [..., n_cand, size + 16] int8, as ``pdcch_blind_bits``; ok
+    [n_sizes, ..., n_cand] bool, as ``dci_crc_ok`` on them; hits [...]
+    int64, the passes summed over sizes and candidates)."""
+    global LAUNCHES_BLIND
+    if not _on_card(llr):
+        raise ValueError("pdcch_blind_cuda takes a CUDA tensor")
+    if llr.dtype != torch.float32 or llr.dim() < 1 or llr.stride(-1) != 1:
+        raise ValueError("llr must be float32 with a contiguous last dim")
+    lead, n_llr = llr.shape[:-1], llr.shape[-1]
+    n = int(np.prod(lead)) if lead else 1
+    cands = tuple((int(l), int(cce)) for l, cce in cands)
+    sizes = tuple(int(s) for s in sizes)
+    ks = tuple(s + 16 for s in sizes)
+    warps, smem = blind_plan(ks, len(cands))
+    if any((cce + l) * BITS_PER_CCE > n_llr for l, cce in cands):
+        raise ValueError(f"a candidate of {cands} reaches past {n_llr} LLRs")
+    l2 = llr.reshape(n, n_llr)
+    dev = llr.device
+    cand_t = device_table(("pdcch_k_cands", cands), dev,
+                          lambda: candidate_table(cands))
+    tab = device_table(("pdcch_k_sizes", sizes, rnti), dev,
+                       lambda: size_table(sizes, rnti))
+    nc = len(cands)
+    buf = torch.empty(n * nc * sum(ks), dtype=torch.int8, device=dev)
+    ok = torch.empty((len(sizes), n, nc), dtype=torch.bool, device=dev)
+    hits = torch.empty(n, dtype=torch.int64, device=dev)
+    if n:
+        host_ks = (ctypes.c_int * len(ks))(*ks)
+        _launch("pdcch_blind", dev, l2.data_ptr(), l2.stride(0), n,
+                cand_t.data_ptr(), nc, tab.data_ptr(), host_ks, len(ks),
+                TRAIN_LEN, buf.data_ptr(), ok.data_ptr(), hits.data_ptr(),
+                warps, smem)
+        LAUNCHES_BLIND += 1
+        LAUNCHES_BY_SHAPE[(sizes, cands, n)] += 1
+        trace.count_launch("pdcch_blind_kernel")
+    offs = [int(o) * n * nc for o in np.cumsum((0,) + ks)]
+    bits = [buf[offs[i]:offs[i + 1]].view(*lead, nc, k)
+            for i, k in enumerate(ks)]
+    return bits, ok.reshape(len(sizes), *lead, nc), hits.reshape(lead)

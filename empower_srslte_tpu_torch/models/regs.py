@@ -142,5 +142,7 @@ def pdcch_reg_map(cell: Cell, cfi: int, ng: float = 1.0) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=256)
 def pdcch_nof_cces(cell: Cell, cfi: int, ng: float = 1.0) -> int:
+    """CCEs of the PDCCH region, cached per (cell, cfi, Ng)."""
     return len(pdcch_reg_map(cell, cfi, ng)) // REG_PER_CCE

@@ -35,11 +35,9 @@ from . import dci as dci_mod
 from . import ra
 from .pbch import mib_unpack, pbch_decode
 from .pcfich import pcfich_decode
-from .pdcch import (dci_crc_ok, pdcch_blind_bits, pdcch_blind_decode,
-                    pdcch_extract_llr, ue_search_candidates)
+from .pdcch import control_rx, pdcch_blind_decode
 from .pdsch import PdschConfig, pdsch_decode
 from .phich import phich_decode
-from .regs import pdcch_nof_cces
 
 
 @dataclass
@@ -272,14 +270,16 @@ def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
     samples [B, rx=2, sf_len] complex64 -> OFDM FFT -> CRS channel
     estimate per (rx, port) and pilot noise estimate on rx 0 (one
     ``chest_dl_ports``: one kernel launch on the card) -> PCFICH on
-    rx 0 (SFBC) -> PDCCH LLRs of the whole region (SFBC) -> blind search
-    of every candidate for both monitored DCI sizes (formats 1A and 1),
-    CRC16 with the RNTI mask -> 2x2 MMSE PDSCH decode of both codewords
+    rx 0 (SFBC) and the PDCCH LLRs of the whole region (SFBC) -> blind
+    search of every candidate for both monitored DCI sizes (formats 1A
+    and 1), CRC16 with the RNTI mask (``pdcch.control_rx``: two kernel
+    launches on the card) -> 2x2 MMSE PDSCH decode of both codewords
     (one DL-SCH decode, both codewords stacked).
 
     The whole call runs in the range ``ue_dl.tm4_batch`` (its self time
     is the receiver's glue), each stage in a range named ``ue_dl.<stage>``
-    (``pdsch.eq_demod`` and ``dlsch.*`` inside the PDSCH decode, and
+    (the PCFICH with the PDCCH LLRs in ``ue_dl.pdcch_llr``,
+    ``pdsch.eq_demod`` and ``dlsch.*`` inside the PDSCH decode, and
     ``turbo.stop_read`` around each early-stop read), all through
     ``runtime.trace``: ``profile_main_path`` and the benchmark read them
     from one ``torch.profiler`` trace.
@@ -292,22 +292,12 @@ def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
             h, noise = chest_dl_ports(grid, cell, sf_idx, (0, 1))
             # h [B, rx, port, S, K]; the rx-0, port-0 noise
             n0 = torch.clamp(noise[:, 0, 0], min=1e-7)
-        grid0, h0 = grid[:, 0], h[:, 0]                    # rx 0 for control
-        with trace.span("ue_dl.pcfich"):
-            cfi_hat, _ = pcfich_decode(grid0, h0, cell, sf_idx,
-                                       noise_est=n0[..., None])
-        with trace.span("ue_dl.pdcch_llr"):
-            llr = pdcch_extract_llr(grid0, h0, cell, cfi, sf_idx,
-                                    noise_est=n0[..., None])
-        with trace.span("ue_dl.pdcch_blind_search"):
-            cands = ue_search_candidates(cfg.rnti, sf_idx,
-                                         pdcch_nof_cces(cell, cfi))
-            n_det = torch.zeros(samples.shape[0], dtype=torch.int64,
-                                device=samples.device)
-            for size in sorted({dci_mod.format1_size(cell.nof_prb),
-                                dci_mod.format0_1a_size(cell.nof_prb)}):
-                bits = pdcch_blind_bits(llr, cands, size)  # [B, n_cand, k]
-                n_det = n_det + dci_crc_ok(bits, size, cfg.rnti).sum(-1)
+        # rx 0's PCFICH and PDCCH (ranges ue_dl.pdcch_llr and
+        # ue_dl.pdcch_blind_search: one kernel launch each on the card)
+        cfi_hat, n_det = control_rx(
+            grid[:, 0], h[:, 0], cell, cfi, sf_idx, cfg.rnti,
+            tuple(sorted({dci_mod.format1_size(cell.nof_prb),
+                          dci_mod.format0_1a_size(cell.nof_prb)})), n0)
         iters: list = []
         (b1, b2), (ok1, ok2), _ = pdsch_decode(
             grid, h, cfg, plan, noise_est=n0[:, None], plan2=plan,

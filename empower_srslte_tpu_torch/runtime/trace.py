@@ -22,7 +22,8 @@ it), and the counter registry counts first-use events by kind:
 
 Apart from those, which a steady state leaves at 0, ``count_launch``
 counts the launches of a hand-written kernel by name while tracing
-(``chest_kernel``: ``ops/chest.py chest_dl_cuda``), so that a traced run
+(``chest_kernel``: ``ops/chest.py chest_dl_cuda``; ``pdcch_llr_kernel``
+and ``pdcch_blind_kernel``: ``models/pdcch.py``), so that a traced run
 shows which path a call took; ``launch_counts()`` reads them.
 
 Tracing off, ``span`` and ``root`` check one flag and return a shared

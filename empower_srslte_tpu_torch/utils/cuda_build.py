@@ -34,7 +34,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 #: the receivers' CUDA kernels: the first ``load`` of one of them builds
 #: each of them not built yet, all compilers started together
-KERNELS = ("chest_dl", "turbo_nii", "turbo_win", "viterbi37")
+KERNELS = ("chest_dl", "pdcch_rx", "turbo_nii", "turbo_win", "viterbi37")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -72,10 +72,11 @@ def _flags(src: pathlib.Path) -> tuple:
 
 def library_path(name: str, sources=None) -> pathlib.Path:
     """Where the library of ``csrc/<name>.cu`` or ``.cpp`` (or of
-    ``sources[name]``) is built: named after a hash of its source and
-    flags."""
+    ``sources[name]``) is built: named after a hash of its source, the
+    headers beside it and its flags."""
     src = _source(name, sources)
-    tag = hashlib.sha1(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    tag = hashlib.sha1(src.read_bytes() + headers
                        + " ".join(_flags(src)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

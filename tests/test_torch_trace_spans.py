@@ -2,7 +2,9 @@
 the CPU, at a tiny 2x2 TM4 cell (6 PRB, batch 2, 30 dB).
 
 Under ``torch.profiler`` the batched receiver emits its root range
-``ue_dl.tm4_batch``, every stage range by its old name, and one
+``ue_dl.tm4_batch``, every stage range by its old name (the PCFICH runs
+inside ``ue_dl.pdcch_llr``, as its kernel does on the card, so
+``ue_dl.pcfich`` is gone), and one
 ``turbo.stop_read`` inside ``dlsch.turbo_decode`` per early-stop check;
 the new ranges nested in a stage hold no operation that would launch a
 kernel on a card (only the early-stop read's own scalar copy). With the
@@ -34,8 +36,7 @@ from empower_srslte_tpu_torch.utils.device import device_table
 
 BATCH, NOF_PRB, MCS, CFI, SF_IDX, RNTI = 2, 6, 10, 2, 1, 0x1234
 #: the stage ranges the benchmark's per-layer metrics read, by name
-STAGES = ("ue_dl.ofdm_rx", "ue_dl.chest_noise", "ue_dl.pcfich",
-          "ue_dl.pdcch_llr", "ue_dl.pdcch_blind_search", "pdsch.eq_demod",
+STAGES = ("ue_dl.ofdm_rx", "ue_dl.chest_noise", "ue_dl.pdcch_llr", "ue_dl.pdcch_blind_search", "pdsch.eq_demod",
           "dlsch.derm", "dlsch.turbo_decode", "dlsch.crc_reassembly")
 #: the ranges this module nests inside a stage: none may launch a kernel
 NESTED = re.compile(r"^(turbo\.stop_read|runtime\.\w+)$")
@@ -94,6 +95,29 @@ def test_every_stage_range_keeps_its_name_inside_the_root(tm4, name):
     got = _ranges(tm4.events, name)
     assert len(got) == 1
     assert _inside(got[0], root)
+
+
+def test_the_pcfich_decodes_inside_the_pdcch_llr_range(tm4, monkeypatch):
+    """The PCFICH has no range of its own any more: it is decoded in
+    ``ue_dl.pdcch_llr``, with the region's LLRs."""
+    from empower_srslte_tpu_torch.models import pcfich
+
+    assert _ranges(tm4.events, "ue_dl.pcfich") == []
+    seen = []
+    real = pcfich._pcfich_decode_plain
+
+    def spy(*args, **kw):
+        seen.append(trace.tracing())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pcfich, "_pcfich_decode_plain", spy)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = ue_dl_tm4_batch(tm4.samples, tm4.cfg, tm4.plan)
+    assert seen == [True]
+    assert (res.cfi == CFI).all()
+    llr, = _ranges(prof.events(), "ue_dl.pdcch_llr")
+    assert any(e.name == "aten::einsum" and _inside(e, llr)
+               for e in prof.events())
 
 
 def test_one_stop_read_per_early_stop_check(tm4):
