@@ -217,16 +217,6 @@ BASELINE_SWEEP = {
 #: kernels per metric dtype
 PATH_TWIN: dict = {"turbo_nii": {}, "turbo_nii_bf16": {}, "turbo_win": {},
                    "turbo_win_bf16": {}, "viterbi37": {}, "pdcch_rx": {}}
-#: the launch counters read per path: (name, module, attribute); the two
-#: turbo wrappers count their float32 and bfloat16 kernels apart
-COUNTERS = (("turbo_nii", "turbo_nii", "LAUNCHES"),
-            ("turbo_nii_bf16", "turbo_nii", "LAUNCHES_BF16"),
-            ("turbo_win", "turbo_win", "LAUNCHES"),
-            ("turbo_win_bf16", "turbo_win", "LAUNCHES_BF16"),
-            ("viterbi37", "viterbi37", "LAUNCHES"),
-            ("chest_dl", "chest", "LAUNCHES"),
-            ("pdcch_llr", "pdcch", "LAUNCHES_LLR"),
-            ("pdcch_blind", "pdcch", "LAUNCHES_BLIND"))
 
 
 def emit(obj):
@@ -262,7 +252,7 @@ def card_sms() -> int:
     them)."""
     import torch
 
-    from empower_srslte_tpu_torch.ops.fec.turbo_nii import sm_count
+    from empower_srslte_tpu_torch.utils.device import sm_count
 
     return sm_count(torch.device("cuda", torch.cuda.current_device()))
 
@@ -435,14 +425,14 @@ def counted_run(run, reps: int = 3):
     import torch
 
     run()                                              # warm-up
-    mods = open_counts()
+    open_counts()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     out = run()
     e1.record()
     torch.cuda.synchronize()
-    launches, shapes = read_counts(mods)
+    launches, shapes = read_counts()
     ms_first = e0.elapsed_time(e1)
     e0.record()
     for _ in range(reps):
@@ -458,10 +448,10 @@ def counted(fn):
     launches per shape)."""
     import torch
 
-    mods = open_counts()
+    open_counts()
     out = fn()
     torch.cuda.synchronize()
-    return (out, *read_counts(mods))
+    return (out, *read_counts())
 
 
 def merge_shapes(*shapes) -> dict:
@@ -477,8 +467,7 @@ def merge_shapes(*shapes) -> dict:
 
 def turbo_shapes(shapes: dict) -> dict:
     """The turbo kernels' part of a run's launches per shape."""
-    return {k: v for k, v in shapes.items()
-            if k not in ("viterbi37", "pdcch")}
+    return {k: shapes[k] for k in ("turbo_nii", "turbo_win") if k in shapes}
 
 
 def check(phase: str, checks: dict):
@@ -613,7 +602,7 @@ def forced_split_baseline(shifted: bool):
         plan = turbo_nii.nii_plan(l, apr is not None, bf16,
                                   1 if shifted or b % 2 else None, w)
         ext, a_next, b_next = map(torch.empty_like, (u, a_st, b_st))
-        rc = turbo_nii._lib(bf16)(
+        rc = turbo_nii.NII_KERNELS[bf16].fn(
             u.data_ptr(), p.data_ptr(), None if apr is None else
             apr.data_ptr(), tail_u.data_ptr(), tail_p.data_ptr(),
             a_st.data_ptr(), b_st.data_ptr(), ext.data_ptr(),
@@ -630,7 +619,7 @@ def forced_split_baseline(shifted: bool):
         plan = turbo_win.win_plan(l, o, bf16, 1 if shifted or b % 2 else None,
                                   k // l)
         llr = torch.empty((k, b), dtype=bf16, device=lsa.device)
-        rc = turbo_win._lib(bf16)(
+        rc = turbo_win.WIN_KERNELS[bf16].fn(
             lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(), None, b, k, l, o,
             plan.threads, plan.shifted, plan.smem,
             torch.cuda.current_stream().cuda_stream)
@@ -885,7 +874,6 @@ def phase_chest_dl():
     from empower_srslte_tpu_torch.models.ue_dl import (ue_dl_decode,
                                                        ue_dl_tm4_batch,
                                                        ue_mib_acquire)
-    from empower_srslte_tpu_torch.ops import chest
     from empower_srslte_tpu_torch.ops.equalizer import MimoType
     from empower_srslte_tpu_torch.utils.cell import CP, Cell
 
@@ -911,12 +899,7 @@ def phase_chest_dl():
     }
 
     def per_call(run):
-        run()                                              # warm-up
-        torch.cuda.synchronize()
-        before = chest.LAUNCHES
-        run()
-        torch.cuda.synchronize()
-        return chest.LAUNCHES - before
+        return launches_per_call(run, ["chest_dl"])["chest_dl"]
 
     paths = {
         "tm4_b256": lambda: ue_dl_tm4_batch(st256.samples, st256.cfg,
@@ -1211,16 +1194,8 @@ def phase_pdcch_rx():
             fr.samples[1], fr.cell, 1, fr.rnti, mimo=MimoType.DIVERSITY),
     }
 
-    def per_call(run):
-        run()
-        torch.cuda.synchronize()
-        before = (pdcch.LAUNCHES_LLR, pdcch.LAUNCHES_BLIND)
-        run()
-        torch.cuda.synchronize()
-        return {"pdcch_llr": pdcch.LAUNCHES_LLR - before[0],
-                "pdcch_blind": pdcch.LAUNCHES_BLIND - before[1]}
-
-    launches = {name: per_call(run) for name, run in paths.items()}
+    launches = {name: launches_per_call(run, ["ctrl_llr", "pdcch_blind"])
+                for name, run in paths.items()}
     path_ms = {name: cuda_ms(paths[name], reps=3)
                for name in ("tm4_b256", "tm4_b1")}
     res = paths["tm4_b256"]()
@@ -1234,10 +1209,10 @@ def phase_pdcch_rx():
                                    for v in shapes),
         "dci_found_every_subframe": bool((res.dci_hits >= 1).all()),
         "one_launch_each_a_batch_call": all(
-            launches[p] == {"pdcch_llr": 1, "pdcch_blind": 1}
+            launches[p] == {"ctrl_llr": 1, "pdcch_blind": 1}
             for p in ("tm4_b256", "tm4_b1")),
         "ue_dl_decode_launches": launches["ue_dl_decode"]
-        == {"pdcch_llr": 2, "pdcch_blind": 1},
+        == {"ctrl_llr": 2, "pdcch_blind": 1},
     }
     out = {"phase": "pdcch_rx", "llr_tol": PDCCH_LLR_TOL,
            "shapes": shapes, "launches_per_call": launches,
@@ -1496,7 +1471,7 @@ def phase_main_path():
         "dci_found": bool((res.dci_hits >= 1).all()),
         "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
         "no_turbo_f32_launch": launches["turbo_nii"] == 0,
-        "pdcch_kernels_one_launch_each": launches["pdcch_llr"] == 1
+        "pdcch_kernels_one_launch_each": launches["ctrl_llr"] == 1
         and launches["pdcch_blind"] == 1,
         **turbo_checks(turbo),
     }
@@ -1681,6 +1656,7 @@ def recursion_kernel_check():
     the path its launch count is read from."""
     import torch
 
+    from empower_srslte_tpu_torch.runtime import trace
     from empower_srslte_tpu_torch.tools import microbench_recursion as mr
 
     mism = {}
@@ -1696,9 +1672,10 @@ def recursion_kernel_check():
     x = mr.probe_input("f32", mr.DEFAULT_LANES, "cuda")
     steps = mr.DEFAULT_STEPS
     plain_ms = cuda_ms(lambda: mr.recursion_plain(x, steps), reps=1)
-    mr.LAUNCHES = 0
+    before = trace.launch_counts()
     rates = mr.run(steps)
-    launches = mr.LAUNCHES
+    launches = sum(launches_since(before, [t[3].name for t in mr.TYPES])
+                   .values())
     f32 = rates[0]
     emit({"phase": "kernel_recursion", "mismatched": mism,
           "rates": rates, "launches": launches, "plain_ms": plain_ms})
@@ -1964,7 +1941,8 @@ def phase_ue_dl_frame():
 
     res, launches, ms_first, ms, peak, shapes = counted_run(run)
     nii_twin = hold_shapes("ue_dl_frame", turbo_shapes(shapes), seed=33)
-    blind_twin = hold_shapes("ue_dl_frame", {"pdcch": shapes["pdcch"]},
+    blind_twin = hold_shapes("ue_dl_frame",
+                             {"pdcch_blind": shapes["pdcch_blind"]},
                              seed=35)["pdcch"]
     calls = len(res)
     per_sf, checks = [], {}
@@ -2195,8 +2173,8 @@ def phase_cold_boot():
     # grant's TB and the format-2 subframe's two equal-plan codewords
     nii_twin = hold_shapes("cold_boot", turbo_shapes(merge_shapes(
         shapes, rep_shapes)), seed=37)
-    blind_twin = hold_shapes("cold_boot", {"pdcch": merge_shapes(
-        shapes, rep_shapes)["pdcch"]}, seed=36)["pdcch"]
+    blind_twin = hold_shapes("cold_boot", {"pdcch_blind": merge_shapes(
+        shapes, rep_shapes).get("pdcch_blind", {})}, seed=36)["pdcch"]
     checks = {
         "vote_n_id_2": n_id_2 == cell.n_id_2 and votes[n_id_2] == 2,
         "cell_id": res.cell_id == enb_dl.COLD_CELL_ID,
@@ -2514,37 +2492,59 @@ def vit_shape_time(k: int, halo: int, words: int, seed: int) -> dict:
                              + (k + halo) * VIT_OPS_TRACE))}
 
 
-def open_counts():
-    """After a synchronize, the device's peak memory reset and every
-    kernel's launch count (``COUNTERS``) and per-shape launch counts at 0.
-    -> the modules, by name."""
+def open_counts() -> None:
+    """After a synchronize, the device's peak memory reset and the launch
+    registry cleared (``trace.reset()``)."""
     import torch
 
-    from empower_srslte_tpu_torch.models import pdcch
-    from empower_srslte_tpu_torch.ops import chest
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win, \
-        viterbi37
+    from empower_srslte_tpu_torch.runtime import trace
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mods = {"turbo_nii": turbo_nii, "turbo_win": turbo_win,
-            "viterbi37": viterbi37, "chest": chest, "pdcch": pdcch}
-    for _name, mod, attr in COUNTERS:
-        setattr(mods[mod], attr, 0)
-    for m in mods.values():
-        if hasattr(m, "LAUNCHES_BY_SHAPE"):
-            m.LAUNCHES_BY_SHAPE.clear()
-    return mods
+    trace.reset()
 
 
-def read_counts(mods) -> tuple:
-    """(launches by kernel, launches by shape per module) since
-    ``open_counts``; a turbo shape is (K, window, code blocks, dtype), the
-    NII kernel's followed by the (first, last) of its resolved
-    ``bounds``."""
-    return ({name: getattr(mods[mod], attr) for name, mod, attr in COUNTERS},
-            {name: dict(m.LAUNCHES_BY_SHAPE) for name, m in mods.items()
-             if hasattr(m, "LAUNCHES_BY_SHAPE")})
+def read_counts() -> tuple:
+    """(launches by kernel, launches by shape per kernel) since
+    ``open_counts``, from the launch registry: a kernel not launched reads
+    0 and has no shapes, and each turbo kernel's float32 and bfloat16
+    launches share its float32 name's shapes (a turbo shape is (K, window,
+    code blocks, dtype), the NII kernel's followed by the (first, last) of
+    its resolved ``bounds``)."""
+    import collections
+
+    from empower_srslte_tpu_torch.runtime import trace
+
+    launches = collections.Counter(trace.launch_counts())
+    shapes: dict = collections.defaultdict(dict)
+    for kernel in launches:
+        shapes[kernel.removesuffix("_bf16")].update(
+            trace.launch_shapes(kernel))
+    return launches, shapes
+
+
+def launches_since(before: dict, kernels) -> dict:
+    """Each of ``kernels``' launches since the launch registry read
+    ``before`` (``trace.launch_counts()``)."""
+    from empower_srslte_tpu_torch.runtime import trace
+
+    after = trace.launch_counts()
+    return {k: after.get(k, 0) - before.get(k, 0) for k in kernels}
+
+
+def launches_per_call(run, kernels) -> dict:
+    """``run()`` once to warm up, then once more: -> each of ``kernels``'
+    launches in the second call."""
+    import torch
+
+    from empower_srslte_tpu_torch.runtime import trace
+
+    run()
+    torch.cuda.synchronize()
+    before = trace.launch_counts()
+    run()
+    torch.cuda.synchronize()
+    return launches_since(before, kernels)
 
 
 def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
@@ -2596,7 +2596,8 @@ def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
         PATH_TWIN["viterbi37"][f"{phase}_{name}"] = \
             out["viterbi37"][name]["mismatched_bits"]
         i += 1
-    for (sizes, cands, n), c in sorted(shapes.get("pdcch", {}).items()):
+    for (sizes, cands, n), c in sorted(
+            shapes.get("pdcch_blind", {}).items()):
         name = f"sizes{'_'.join(map(str, sizes))}_cands{len(cands)}_sf{n}"
         out["pdcch"][name] = {**blind_hold(sizes, cands, n, seed + i),
                               "launches": c}
@@ -2677,7 +2678,7 @@ class StackPhase:
         self.run = ScenarioRun("cuda", sync=torch.cuda.synchronize)
         self.scenarios: dict = {}
         self.checks: dict = {}
-        self.mods = open_counts()
+        open_counts()
 
     def drive(self, enbs, ues, **kw):
         return self.run.drive(enbs, ues, **kw)
@@ -2701,7 +2702,7 @@ class StackPhase:
         run launched."""
         import torch
 
-        launches, shapes = read_counts(self.mods)
+        launches, shapes = read_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         held = hold_shapes(self.phase, shapes, self.seed)
         names = {(k, n) for k, by in held.items() for n in by}
@@ -2982,7 +2983,7 @@ def phase_app_pdsch():
     APP_DIR.mkdir(parents=True, exist_ok=True)
     cap = APP_DIR / "enb_20mhz.bin"
     _, tbs, _ = pdsch_enodeb.grant(APP_PRB, APP_MCS)
-    mods = open_counts()
+    open_counts()
     t0 = time.perf_counter()
     rc_enb = pdsch_enodeb.main(["-o", str(cap), "-p", str(APP_PRB), "-c",
                                 str(APP_CELL), "-m", str(APP_MCS), "-f",
@@ -2991,7 +2992,7 @@ def phase_app_pdsch():
     ms_gen = (time.perf_counter() - t0) * 1e3 / (10 * APP_FRAMES)
     samples = np.fromfile(cap, np.complex64)
     run = pdsch_ue.receive(samples, APP_PRB, APP_RNTI, 10 * APP_FRAMES)
-    launches, shapes_run = read_counts(mods)
+    launches, shapes_run = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     rc_ue = pdsch_ue.main(["-i", str(cap), "-p", str(APP_PRB), "-r",
                            hex(APP_RNTI), "-n", str(10 * APP_FRAMES)])
@@ -3038,7 +3039,7 @@ def phase_app_stream(ref_run):
 
     cap, cap2 = APP_DIR / "enb_20mhz.bin", APP_DIR / "capture_20mhz.bin"
     n_sf = 10 * APP_FRAMES
-    mods = open_counts()
+    open_counts()
     t0 = time.perf_counter()
     got = iq_capture.capture(str(cap2), n_sf, APP_PRB, device_name="stream",
                              device_args=f"rx={cap}")
@@ -3063,7 +3064,7 @@ def phase_app_stream(ref_run):
         APP_CELL)
     rc_meas = cell_measurement.main(["-i", str(cap2), "-p", str(APP_PRB)])
     run = pdsch_ue.receive(samples, APP_PRB, APP_RNTI, n_sf)
-    launches, shapes_run = read_counts(mods)
+    launches, shapes_run = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     shapes = hold_shapes("app_stream", shapes_run, seed=120)
     _, tbs, _ = pdsch_enodeb.grant(APP_PRB, APP_MCS)
@@ -3120,7 +3121,7 @@ def phase_app_cell_search():
     from empower_srslte_tpu_torch.models.pbch import PBCH_K
 
     cap6, cap20 = APP_DIR / "enb_6prb.bin", APP_DIR / "enb_20mhz.bin"
-    mods = open_counts()
+    open_counts()
     rc_enb = pdsch_enodeb.main(["-o", str(cap6), "-p", "6", "-c",
                                 str(APP_CELL), "-f", "4"])
     s6 = np.fromfile(cap6, np.complex64)
@@ -3132,7 +3133,7 @@ def phase_app_cell_search():
     found20 = cell_search.search(np.fromfile(cap20, np.complex64), APP_PRB)
     torch.cuda.synchronize()
     ms_search20 = (time.perf_counter() - t0) * 1e3
-    launches, shapes_run = read_counts(mods)
+    launches, shapes_run = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     rc_srch = cell_search.main(["-i", str(cap6), "-p", "6"])
     shapes = hold_shapes("app_cell_search", shapes_run, seed=130)
@@ -3145,7 +3146,8 @@ def phase_app_cell_search():
               "cell_id_20mhz": found20["cell_id"] == APP_CELL,
               "no_mib_at_20mhz": found20["mib"] is None,
               "pbch_k40_launched": any(
-                  k == PBCH_K for k, _h, _w in shapes_run["viterbi37"]),
+                  k == PBCH_K for k, _h, _w in shapes_run.get("viterbi37",
+                                                              {})),
               "viterbi_twin_exact_every_shape": all(
                   v["mismatched_bits"] == 0
                   for v in shapes["viterbi37"].values()),
@@ -3505,7 +3507,7 @@ def phase_parallel_batch():
           "multicard": multicard or "not run: 1 card",
           "shapes": twin, "checks": checks})
     check("parallel_batch", checks)
-    return {k: launches[k] + mini_launches[k] for k in launches}, twin
+    return launches + mini_launches, twin
 
 
 def run_multihost(backend: str) -> dict:
@@ -3934,11 +3936,11 @@ def main() -> int:
          "source": "empower_srslte_tpu_torch/csrc/pdcch_rx.cu",
          "replaces": "empower_srslte_tpu/ops/fec/viterbi_pallas.py:146 "
                      "(the blind search's Viterbi; the rest none)",
-         "launches": launches["pdcch_llr"] + launches["pdcch_blind"],
-         "launches_by_path": {k: {n: v[n] for n in ("pdcch_llr",
-                                                    "pdcch_blind")}
+         "launches": launches["ctrl_llr"] + launches["pdcch_blind"],
+         "launches_by_path": {k: {n: v.get(n, 0)
+                                  for n in ("ctrl_llr", "pdcch_blind")}
                               for k, v in by_path.items()
-                              if v.get("pdcch_llr") or v.get("pdcch_blind")},
+                              if v.get("ctrl_llr") or v.get("pdcch_blind")},
          "exact_by_path_shape": PATH_TWIN["pdcch_rx"],
          **{k: pdcch_out[k] for k in ("shapes", "launches_per_call",
                                       "ptxas")},

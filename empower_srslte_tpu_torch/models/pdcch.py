@@ -23,7 +23,6 @@ tables, RE indices and descrambling signs) are built once per plan.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -34,27 +33,36 @@ import torch
 from ..ops.equalizer import eq_sfbc, precode_sfbc
 from ..ops.fec.convcoder import TRAIN_LEN, conv_encode, viterbi_decode
 from ..ops.fec.rm_conv import _circle, rm_conv_rx, rm_conv_tx
-from ..ops.fec.turbo_nii import MAX_SMEM
 from ..ops.modem import Mod, demod_soft, modulate
 from ..ops.scrambling import descramble_llrs
 from ..runtime import trace
 from ..utils.bits import uint_to_bits
 from ..utils.cell import Cell
 from ..utils.crc import CRC16
-from ..utils.device import device_table
+from ..utils.cuda_build import Kernel
+from ..utils.device import MAX_SMEM, device_table
 from ..utils.sequence import cinit_pdcch, gold_sequence
 from . import pcfich
 from .regs import RE_PER_CCE, pdcch_nof_cces, pdcch_reg_map
 
 #: Bits per CCE (36 QPSK REs).
 BITS_PER_CCE = 2 * RE_PER_CCE
-#: launches of ``ctrl_llr_cuda`` and ``pdcch_blind_cuda`` (read by
-#: chip_smoke.py)
-LAUNCHES_LLR = 0
-LAUNCHES_BLIND = 0
-#: the blind-search launches per shape (DCI sizes, candidates, subframes);
-#: reset it with ``LAUNCHES_BY_SHAPE.clear()``
-LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel A's launcher: grid, its stride, h, its subframe and port
+#: strides, ports, noise, its step, a noise value, the PCFICH's REs and
+#: signs, cfi, corr, the region's REs and signs, their count, llr,
+#: subframes. A launch's shape in the launch registry is (subframes,
+#: ports, region REs)
+CTRL_LLR = Kernel("pdcch_rx", "ctrl_llr_launch",
+                  [_P, _I64, _P, _I64, _I64, _I32, _P, _I32, ctypes.c_float,
+                   _P, _P, _P, _P, _P, _P, _I32, _P, _I32])
+#: kernel B's launcher: llr, its stride, subframes, candidates, their
+#: count, the sizes' table, K per size, sizes, the training length, bits,
+#: ok, hits, warps, smem. A launch's shape in the launch registry is (DCI
+#: sizes, candidates, subframes)
+PDCCH_BLIND = Kernel("pdcch_rx", "pdcch_blind_launch",
+                     [_P, _I64, _I32, _P, _I32, _P, _P, _I32, _I32, _P, _P,
+                      _P, _I32, _I32])
 #: the blind kernel's limits (csrc/pdcch_rx.cu): warps a block, DCI sizes
 #: a launch, K = size + 16
 MAX_BLIND_WARPS, MAX_SIZES, MAX_K = 32, 4, 128
@@ -372,34 +380,9 @@ def blind_plan(ks: tuple, n_cand: int):
     return warps, smem
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from ..utils.cuda_build import load
-
-    lib = load("pdcch_rx")
-    llr_fn, blind_fn = lib.ctrl_llr_launch, lib.pdcch_blind_launch
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    llr_fn.argtypes = [ptr, i64, ptr, i64, i64, i32, ptr, i32,
-                       ctypes.c_float, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                       ptr, i32, ptr]
-    blind_fn.argtypes = [ptr, i64, i32, ptr, i32, ptr, ptr, i32, i32, ptr,
-                         ptr, ptr, i32, i32, ptr]
-    llr_fn.restype = blind_fn.restype = i32
-    return {"ctrl_llr": llr_fn, "pdcch_blind": blind_fn}
-
-
 def _on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` takes the kernels (a CUDA tensor) or the twins."""
     return t.is_cuda
-
-
-def _launch(kernel: str, dev, *args) -> None:
-    """One launch of ``kernel`` on ``dev``'s current stream; raises on
-    the launch's CUDA error."""
-    with torch.cuda.device(dev):
-        rc = _lib()[kernel](*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
 def _ptr(t):
@@ -417,7 +400,6 @@ def ctrl_llr_cuda(grid, h, cell: Cell, sf_idx: int, noise_est=0.0,
     the LLRs [..., 2 n_re] float32 of the PDCCH region of ``region`` =
     (cfi, ng), as ``pdcch_extract_llr`` gives them (None without a
     region)."""
-    global LAUNCHES_LLR
     for name, t in (("grid", grid), ("h", h)):
         if not _on_card(t):
             raise ValueError(f"ctrl_llr_cuda takes CUDA tensors ({name})")
@@ -471,13 +453,11 @@ def ctrl_llr_cuda(grid, h, cell: Cell, sf_idx: int, noise_est=0.0,
         n_re = pd_re.shape[0]
         llr = torch.empty((n, 2 * n_re), dtype=torch.float32, device=dev)
     if n:
-        _launch("ctrl_llr", dev, g3.data_ptr(), g3.stride(0), h4.data_ptr(),
-                h4.stride(0), h4.stride(1), ports, _ptr(noise), step, value,
-                pcf_re.data_ptr(), pcf_sgn.data_ptr(), cfi.data_ptr(),
-                corr.data_ptr(), _ptr(pd_re), _ptr(pd_sgn), n_re, _ptr(llr),
-                n)
-        LAUNCHES_LLR += 1
-        trace.count_launch("pdcch_llr_kernel")
+        CTRL_LLR.launch(dev, (n, ports, n_re), g3.data_ptr(), g3.stride(0),
+                        h4.data_ptr(), h4.stride(0), h4.stride(1), ports,
+                        _ptr(noise), step, value, pcf_re.data_ptr(),
+                        pcf_sgn.data_ptr(), cfi.data_ptr(), corr.data_ptr(),
+                        _ptr(pd_re), _ptr(pd_sgn), n_re, _ptr(llr), n)
     return (cfi.reshape(lead), corr.reshape(lead),
             None if llr is None else llr.reshape(*lead, 2 * n_re))
 
@@ -490,7 +470,6 @@ def pdcch_blind_cuda(llr, cands: tuple, sizes: tuple, rnti: int):
     bits [..., n_cand, size + 16] int8, as ``pdcch_blind_bits``; ok
     [n_sizes, ..., n_cand] bool, as ``dci_crc_ok`` on them; hits [...]
     int64, the passes summed over sizes and candidates)."""
-    global LAUNCHES_BLIND
     if not _on_card(llr):
         raise ValueError("pdcch_blind_cuda takes a CUDA tensor")
     if llr.dtype != torch.float32 or llr.dim() < 1 or llr.stride(-1) != 1:
@@ -515,13 +494,11 @@ def pdcch_blind_cuda(llr, cands: tuple, sizes: tuple, rnti: int):
     hits = torch.empty(n, dtype=torch.int64, device=dev)
     if n:
         host_ks = (ctypes.c_int * len(ks))(*ks)
-        _launch("pdcch_blind", dev, l2.data_ptr(), l2.stride(0), n,
-                cand_t.data_ptr(), nc, tab.data_ptr(), host_ks, len(ks),
-                TRAIN_LEN, buf.data_ptr(), ok.data_ptr(), hits.data_ptr(),
-                warps, smem)
-        LAUNCHES_BLIND += 1
-        LAUNCHES_BY_SHAPE[(sizes, cands, n)] += 1
-        trace.count_launch("pdcch_blind_kernel")
+        PDCCH_BLIND.launch(dev, (sizes, cands, n), l2.data_ptr(),
+                           l2.stride(0), n, cand_t.data_ptr(), nc,
+                           tab.data_ptr(), host_ks, len(ks), TRAIN_LEN,
+                           buf.data_ptr(), ok.data_ptr(), hits.data_ptr(),
+                           warps, smem)
     offs = [int(o) * n * nc for o in np.cumsum((0,) + ks)]
     bits = [buf[offs[i]:offs[i + 1]].view(*lead, nc, k)
             for i, k in enumerate(ks)]

@@ -25,14 +25,18 @@ import numpy as np
 import torch
 
 from ..models.refsignal import crs_pilots
-from ..runtime import trace
 from ..utils.cell import Cell
+from ..utils.cuda_build import Kernel
 from ..utils.device import device_table
 
 #: 3-tap frequency smoothing filter (chest_dl.c default smooth filter).
 SMOOTH_3TAP = np.array([0.3333, 0.3334, 0.3333], np.float32)
-#: kernel launches made by ``chest_dl_cuda`` (read by chip_smoke.py)
-LAUNCHES = 0
+#: the launcher: grid, cv, meta, tw, taps, n_taps, h, noise; grids, ports,
+#: nsymb, nre, pilots a row, symbol split. A launch's shape in the launch
+#: registry is (grids, ports, PRB)
+CHEST_DL = Kernel("chest_dl", "chest_dl_launch",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6)
 #: the kernel's limits: FIR taps, pilot rows per port (csrc/chest_dl.cu)
 MAX_TAPS, MAX_ROWS = 5, 4
 #: blocks a launch aims for: a block per (grid, port), split over
@@ -216,25 +220,12 @@ def kernel_tables(cell: Cell, sf_idx: int, ports: tuple):
     return cv, meta, tw
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from ..utils.cuda_build import load
-
-    fn = load("chest_dl").chest_dl_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def chest_dl_cuda(grid, cell: Cell, sf_idx: int, ports: tuple, taps,
                   with_h: bool = True):
     """One launch of ``csrc/chest_dl.cu``: grid [..., S, K] contiguous
     complex64 on the card -> (h [..., P, S, K] complex64, or None without
     ``with_h``; noise [..., P] float32), P = len(ports), with the FIR
     ``taps`` (1 to MAX_TAPS)."""
-    global LAUNCHES
     if grid.dtype != torch.complex64 or not grid.is_contiguous():
         raise ValueError("grid must be contiguous complex64")
     if not grid.is_cuda:
@@ -264,16 +255,10 @@ def chest_dl_cuda(grid, cell: Cell, sf_idx: int, ports: tuple, taps,
     host_taps = (ctypes.c_float * (MAX_TAPS + 3))(
         *taps, *[0.0] * (MAX_TAPS - len(taps)), *SMOOTH_3TAP)
     split = min(nsymb, max(1, -(-TARGET_BLOCKS // (n * npt))))
-    with torch.cuda.device(dev):
-        rc = _lib()(grid.data_ptr(), *(t.data_ptr() for t in tabs),
-                    host_taps, len(taps),
+    CHEST_DL.launch(dev, (n, npt, cell.nof_prb), grid.data_ptr(),
+                    *(t.data_ptr() for t in tabs), host_taps, len(taps),
                     None if h is None else h.data_ptr(), noise.data_ptr(),
-                    n, npt, nsymb, nre, 2 * cell.nof_prb, split,
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"chest_dl kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    trace.count_launch("chest_kernel")
+                    n, npt, nsymb, nre, 2 * cell.nof_prb, split)
     return h, noise
 
 

@@ -45,7 +45,6 @@ shared-memory bytes.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -53,27 +52,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ...utils.device import device_table
+from ...utils.cuda_build import Kernel
+from ...utils.device import H100_SMS, MAX_SMEM, aligned4, device_table, \
+    sm_count
 from .turbo_encoder import trellis
 
 NEG = -1e30
 #: steps between renormalizations (the JAX kernel's ``group``)
 GROUP = 16
 
-#: float32 kernel launches made by ``map_decode_nii`` (read by
-#: chip_smoke.py)
-LAUNCHES = 0
-#: bfloat16 kernel launches made by ``map_decode_nii``
-LAUNCHES_BF16 = 0
-#: the same launches per shape and resolved ``bounds`` (K, window l, code
-#: blocks, dtype name: "float32" or "bfloat16", first, last): a whole
-#: trellis launches at (0, W-1), a trellis-sharded decode
-#: (parallel/turbo_sp.py) its edge shards at (0, -1) and (-1, last), its
-#: interior ones at (-1, -1); reset it with ``LAUNCHES_BY_SHAPE.clear()``
-LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+#: the launchers per metric dtype: u, p, apr, tail_u, tail_p, a_st, b_st,
+#: ext, a_next, b_next; B, l, W, first, last, threads, (bfloat16: the
+#: plan's segment rows and columns), smem. A launch's shape in the launch
+#: registry is (K, window l, code blocks, dtype name: "float32" or
+#: "bfloat16", first, last) with the resolved ``bounds``: a whole trellis
+#: launches at (0, W-1), a trellis-sharded decode (parallel/turbo_sp.py)
+#: its edge shards at (0, -1) and (-1, last), its interior ones at (-1, -1)
+NII_KERNELS = {
+    torch.float32: Kernel("turbo_nii", "turbo_nii_launch",
+                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7),
+    torch.bfloat16: Kernel("turbo_nii", "turbo_nii_launch_bf16",
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9)}
 
-#: shared memory one block may use on sm_90 (227 KB)
-MAX_SMEM = 232_448
 #: metric dtypes the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
 #: the bfloat16 split kernels (here and in turbo_win.py): code block pairs
@@ -90,8 +90,6 @@ SPLIT_ROW_WORDS = {"aligned": 32, "shifted": 33}
 #: kernel's fewer instructions per code block win (timed in turns on an
 #: H100, PERF.md)
 NII_SPLIT_BLOCKS_PER_SM = 5
-#: SMs of an NVIDIA H100 SXM: the plans' card where none is given
-H100_SMS = 132
 #: rows per segment of the split kernel: half the renormalization group
 #: (64 registers of recomputed metrics; 16 rows took 255 and spilled),
 #: or the whole group where a long window's 8-row checkpoints do not fit
@@ -204,18 +202,6 @@ def nii_plan(l: int, apr: bool, dtype=torch.float32, cbs: int | None = None,
     return plan
 
 
-def aligned4(*xs) -> bool:
-    """Every tensor's data starts on a 4-byte boundary (a bfloat16 pair
-    is then one aligned word)."""
-    return all(x is None or x.data_ptr() % 4 == 0 for x in xs)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """SMs of a CUDA ``device``."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 @functools.lru_cache(maxsize=1)
 def _wiring_np():
     t = trellis()
@@ -318,20 +304,6 @@ def map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, *, l: int,
     return ext.reshape(k, b), a_next, b_next
 
 
-@functools.lru_cache(maxsize=2)
-def _lib(dtype):
-    from ...utils.cuda_build import load
-
-    lib = load("turbo_nii")
-    fn = (lib.turbo_nii_launch_bf16 if dtype == torch.bfloat16
-          else lib.turbo_nii_launch)
-    # bfloat16 also passes the plan's segment rows and columns
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * (
-        9 if dtype == torch.bfloat16 else 7) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
                    bounds=None):
     """One NII constituent decode; see the module docstring.
@@ -343,7 +315,6 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
     Returns (ext [K, B], a_next, b_next) in the slot convention above,
     ready to pass back on the next call. Any batch launches as it is.
     """
-    global LAUNCHES, LAUNCHES_BF16
     if not u.is_cuda:
         return map_decode_nii_plain(u, p, tail_u, tail_p, a_st, b_st, l=l,
                                     apr=apr, bounds=bounds)
@@ -356,25 +327,13 @@ def map_decode_nii(u, p, tail_u, tail_p, a_st, b_st, *, l: int, apr=None,
     plan = nii_plan(l, apr is not None, dt, b, w_count,
                     aligned4(u, p, apr, tail_u, tail_p, a_st, b_st, ext,
                              a_next, b_next), sm_count(u.device))
-    # the launcher calls the runtime on the current device and stream 0 of
-    # a device is its legacy default stream: both must be u's card
-    with torch.cuda.device(u.device):
-        rc = _lib(dt)(u.data_ptr(), p.data_ptr(),
-                      None if apr is None else apr.data_ptr(),
-                      tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
-                      b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
-                      b_next.data_ptr(), b, l, w_count, first, last,
-                      plan.threads,
-                      *((plan.segments[0][1], plan.shifted)
-                        if dt == torch.bfloat16 else ()),
-                      plan.smem,
-                      torch.cuda.current_stream(u.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"turbo_nii kernel launch failed: CUDA error {rc}")
-    if dt == torch.bfloat16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."), first,
-                       last)] += 1
+    NII_KERNELS[dt].launch(
+        u.device, (k, l, b, str(dt).removeprefix("torch."), first, last),
+        u.data_ptr(), p.data_ptr(), None if apr is None else apr.data_ptr(),
+        tail_u.data_ptr(), tail_p.data_ptr(), a_st.data_ptr(),
+        b_st.data_ptr(), ext.data_ptr(), a_next.data_ptr(),
+        b_next.data_ptr(), b, l, w_count, first, last, plan.threads,
+        *((plan.segments[0][1], plan.shifted) if dt == torch.bfloat16
+          else ()),
+        plan.smem)
     return ext, a_next, b_next

@@ -47,17 +47,15 @@ bytes.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from ...utils.device import device_table
-from .turbo_encoder import trellis
-from .turbo_nii import (DTYPES, H100_SMS, LaunchPlan, aligned4, sm_count,
-                        split_blocks, split_plan)
+from ...utils.cuda_build import Kernel
+from ...utils.device import H100_SMS, aligned4, device_table, sm_count
+from .turbo_nii import DTYPES, LaunchPlan, _wiring, split_blocks, split_plan
 
 NEG = -1e30
 #: steps per renormalization (the JAX kernel's GROUP)
@@ -67,11 +65,14 @@ PAD_LLR = 1e5
 #: overlap training length (turbodecoder_win.h win_overlap_len)
 DEFAULT_OVERLAP = 40
 
-#: float32 kernel launches made by ``map_decode_win`` (read by
-#: chip_smoke.py)
-LAUNCHES = 0
-#: bfloat16 kernel launches made by ``map_decode_win``
-LAUNCHES_BF16 = 0
+#: the launchers per metric dtype: lsa, lp, llr, ckpt; B, K, L, O,
+#: threads, (bfloat16: the plan's columns), smem. A launch's shape in the
+#: launch registry is (K, window l, code blocks, dtype name)
+WIN_KERNELS = {
+    torch.float32: Kernel("turbo_win", "turbo_win_launch",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6),
+    torch.bfloat16: Kernel("turbo_win", "turbo_win_launch_bf16",
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)}
 #: the largest bfloat16 launch, in split blocks (windows x ceil(B / 64))
 #: per SM of the card, that takes the split kernel when the one-thread
 #: kernel could run it: one wave of split blocks at the uplink's window
@@ -79,19 +80,6 @@ LAUNCHES_BF16 = 0
 #: chains stop paying for its extra instructions (timed in turns on an
 #: H100, PERF.md)
 WIN_SPLIT_BLOCKS_PER_SM = 6
-#: the same launches per shape (K, window l, code blocks, dtype name);
-#: reset it with ``LAUNCHES_BY_SHAPE.clear()``
-LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
-
-
-@functools.lru_cache(maxsize=1)
-def _wiring_np():
-    t = trellis()
-    ns, par, ps = t.next_state, t.parity, t.prev_state
-    # gamma slot per (state, input): g[(0, p)] -> p, g[(1, p)] -> 2 + p
-    return (ns[:, 0].astype(np.int64), ns[:, 1].astype(np.int64),
-            par[:, 0].astype(np.int64), 2 + par[:, 1].astype(np.int64),
-            ps[:, 0].astype(np.int64), ps[:, 1].astype(np.int64))
 
 
 def _check(lsa, lp, k: int, l: int, o: int) -> int:
@@ -169,9 +157,7 @@ def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     w = k // l
     n = w * b
     dev, dt = lsa.device, lsa.dtype
-    ns0, ns1, gi0, gi1, ps0, ps1 = [
-        device_table(("win_wiring", i), dev, lambda a=a: a)
-        for i, a in enumerate(_wiring_np())]
+    ns0, ns1, gi0, gi1, ps0, ps1 = _wiring(dev)
     ls = _window_rows(lsa, PAD_LLR, k, l, o)
     lq = _window_rows(lp, 0.0, k, l, o)
 
@@ -211,24 +197,9 @@ def map_decode_win_plain(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     return llr.view(l, w, b).transpose(0, 1).reshape(k, b)
 
 
-@functools.lru_cache(maxsize=2)
-def _lib(dtype):
-    from ...utils.cuda_build import load
-
-    lib = load("turbo_win")
-    fn = (lib.turbo_win_launch_bf16 if dtype == torch.bfloat16
-          else lib.turbo_win_launch)
-    # bfloat16 also passes the plan's columns
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
-        7 if dtype == torch.bfloat16 else 6) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     """One windowed constituent decode: lsa, lp [K+3, B] -> llr [K, B]
     in the inputs' dtype (see the module docstring)."""
-    global LAUNCHES, LAUNCHES_BF16
     if not lsa.is_cuda:
         return map_decode_win_plain(lsa, lp, k=k, l=l, o=o)
     b = _check(lsa, lp, k, l, o)
@@ -236,22 +207,14 @@ def map_decode_win(lsa, lp, *, k: int, l: int, o: int = DEFAULT_OVERLAP):
     llr = torch.empty((k, b), dtype=dt, device=lsa.device)
     plan = win_plan(l, o, dt, b, k // l, aligned4(lsa, lp, llr),
                     sm_count(lsa.device))
-    # float32: the beta carry entering each segment above the first, per
-    # window (the split kernel keeps its checkpoints on chip)
+    # the one-thread kernel (either dtype): the beta carry entering each
+    # segment above the first, per window (the split kernel keeps its
+    # checkpoints on chip)
     ckpt = (torch.empty((len(plan.checkpoints), 8, k // l * b), dtype=dt,
                         device=lsa.device) if plan.sides == 1 else None)
-    with torch.cuda.device(lsa.device):      # the launcher's device
-        rc = _lib(dt)(lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
-                      None if ckpt is None else ckpt.data_ptr(), b, k, l, o,
-                      plan.threads,
-                      *((plan.shifted,) if dt == torch.bfloat16 else ()),
-                      plan.smem,
-                      torch.cuda.current_stream(lsa.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"turbo_win kernel launch failed: CUDA error {rc}")
-    if dt == torch.bfloat16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(k, l, b, str(dt).removeprefix("torch."))] += 1
+    WIN_KERNELS[dt].launch(
+        lsa.device, (k, l, b, str(dt).removeprefix("torch.")),
+        lsa.data_ptr(), lp.data_ptr(), llr.data_ptr(),
+        None if ckpt is None else ckpt.data_ptr(), b, k, l, o, plan.threads,
+        *((plan.shifted,) if dt == torch.bfloat16 else ()), plan.smem)
     return llr

@@ -14,21 +14,19 @@ op here. ``vit_plan`` gives the launch geometry.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
 
+from ...utils.cuda_build import Kernel
+from ...utils.device import MAX_SMEM
 from .convcoder import TRAIN_LEN, unpack_regs
-from .turbo_nii import MAX_SMEM
 
-#: kernel launches made by ``viterbi_decode_cuda`` (read by chip_smoke.py)
-LAUNCHES = 0
-#: the same launches per shape (K, halo, code words); reset it with
-#: ``LAUNCHES_BY_SHAPE.clear()``
-LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+#: the launcher: llr, regs; B, K, halo, registers a word, warps, smem. A
+#: launch's shape in the launch registry is (K, halo, code words)
+VITERBI37 = Kernel("viterbi37", "viterbi37_launch",
+                   [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6)
 #: code words (warps) per block
 WARPS = 4
 #: shared bytes per warp besides the per-column and per-step arrays: the
@@ -58,21 +56,9 @@ def vit_plan(k: int, halo: int) -> VitPlan:
     return VitPlan(WARPS, WARPS * (_METRIC_BYTES + 32 * k + 8 * (k + halo)))
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    from ...utils.cuda_build import load
-
-    fn = load("viterbi37").viterbi37_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def viterbi_regs_cuda(llr: torch.Tensor, halo: int) -> torch.Tensor:
     """llr [B, 3, K] float32 contiguous CUDA -> winner registers
     [B, ceil(K/32)] int32 (middle-copy decision t at bit k-1-t)."""
-    global LAUNCHES
     if not llr.is_cuda:
         raise ValueError("viterbi_regs_cuda takes a CUDA tensor")
     if llr.dtype != torch.float32 or not llr.is_contiguous():
@@ -85,14 +71,9 @@ def viterbi_regs_cuda(llr: torch.Tensor, halo: int) -> torch.Tensor:
     regs = torch.empty((b, n_regs), dtype=torch.int32, device=llr.device)
     if b == 0:
         return regs
-    with torch.cuda.device(llr.device):      # the launcher's device
-        rc = _lib()(llr.data_ptr(), regs.data_ptr(), b, k, halo, n_regs,
-                    plan.warps, plan.smem,
-                    torch.cuda.current_stream(llr.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"viterbi37 kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(k, halo, b)] += 1
+    VITERBI37.launch(llr.device, (k, halo, b), llr.data_ptr(),
+                     regs.data_ptr(), b, k, halo, n_regs, plan.warps,
+                     plan.smem)
     return regs
 
 

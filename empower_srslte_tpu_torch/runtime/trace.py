@@ -20,14 +20,21 @@ it), and the counter registry counts first-use events by kind:
 * ``gc_gen2``: a full garbage collection (every collection while tracing
   runs in a ``runtime.gc`` range).
 
-Apart from those, which a steady state leaves at 0, ``count_launch``
-counts the launches of a hand-written kernel by name while tracing
-(``chest_kernel``: ``ops/chest.py chest_dl_cuda``; ``pdcch_llr_kernel``
-and ``pdcch_blind_kernel``: ``models/pdcch.py``), so that a traced run
-shows which path a call took; ``launch_counts()`` reads them.
+Apart from those, which a steady state leaves at 0, the launch registry
+counts every launch of a hand-written kernel, tracing or not, by kernel
+and launch shape: ``utils.cuda_build.Kernel.launch`` calls
+``count_launch``, and ``launch_counts()`` (launches by kernel) and
+``launch_shapes(kernel)`` (launches by shape) read it. The kernels and
+their shapes: ``turbo_nii`` / ``turbo_nii_bf16`` (K, window, code
+blocks, dtype name, first, last), ``turbo_win`` / ``turbo_win_bf16`` (K,
+window, code blocks, dtype name), ``viterbi37`` (K, halo, code words),
+``chest_dl`` (grids, ports, PRB), ``ctrl_llr`` (subframes, ports,
+region REs), ``pdcch_blind`` (DCI sizes, candidates, subframes),
+``recursion_f32`` / ``recursion_bf16`` / ``recursion_i8`` (words per
+state, steps). ``reset()`` clears both registries.
 
 Tracing off, ``span`` and ``root`` check one flag and return a shared
-empty context manager, and nothing is counted.
+empty context manager, and no first use is counted.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from torch.autograd import profiler as _profiler
 _enabled = False
 _OFF = contextlib.nullcontext()
 _COUNTS: collections.Counter = collections.Counter()
-_LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCH_REGISTRY: collections.Counter = collections.Counter()
 
 
 def enable() -> None:
@@ -83,21 +90,30 @@ def counts() -> dict:
     return dict(_COUNTS)
 
 
-def count_launch(kernel: str) -> None:
-    """Count one launch of the hand-written kernel ``kernel`` while
-    tracing (kept out of ``counts()``, which holds first uses alone)."""
-    if tracing():
-        _LAUNCHES[kernel] += 1
+def count_launch(kernel: str, shape) -> None:
+    """Count one launch of the hand-written kernel ``kernel`` at
+    ``shape``, tracing or not (kept out of ``counts()``, which holds first
+    uses alone)."""
+    _LAUNCH_REGISTRY[kernel, shape] += 1
 
 
 def launch_counts() -> dict:
-    """A snapshot of the kernel launch counters: {kernel: launches}."""
-    return dict(_LAUNCHES)
+    """A snapshot of the launch registry: {kernel: launches}."""
+    out: collections.Counter = collections.Counter()
+    for (kernel, _shape), n in _LAUNCH_REGISTRY.items():
+        out[kernel] += n
+    return dict(out)
+
+
+def launch_shapes(kernel: str) -> dict:
+    """A snapshot of one kernel's launches: {shape: launches}."""
+    return {shape: n for (k, shape), n in _LAUNCH_REGISTRY.items()
+            if k == kernel}
 
 
 def reset() -> None:
     _COUNTS.clear()
-    _LAUNCHES.clear()
+    _LAUNCH_REGISTRY.clear()
 
 
 def _device_counters(device: torch.device) -> tuple:

@@ -22,27 +22,33 @@ given ``device="cpu"``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import json
 import sys
 
 import numpy as np
 import torch
 
+from ..utils.cuda_build import Kernel
 from ..utils.device import resolve_device
 
-#: (name, torch dtype, sub, launcher symbol, elements per packed word)
-TYPES = (("f32", torch.float32, 8, "recursion_f32_launch", 1),
-         ("bf16", torch.bfloat16, 16, "recursion_bf16_launch", 2),
-         ("int8", torch.int8, 32, "recursion_i8_launch", 4))
+
+def _kernel(symbol: str) -> Kernel:
+    """A type's launcher: x, out, words per state, steps. A launch's shape
+    in the launch registry is (words per state, steps)."""
+    return Kernel("recursion_probe", symbol,
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int])
+
+
+#: (name, torch dtype, sub, launcher, elements per packed word)
+TYPES = (("f32", torch.float32, 8, _kernel("recursion_f32_launch"), 1),
+         ("bf16", torch.bfloat16, 16, _kernel("recursion_bf16_launch"), 2),
+         ("int8", torch.int8, 32, _kernel("recursion_i8_launch"), 4))
 #: operations per element and step: 8 x (2 adds + 1 max) + 7 maxes + 8 subs
 OPS_PER_STEP = 8 * 3 + 15
 DEFAULT_STEPS = 4096
 #: 131072 lanes give every type 2^20 threads: about 7900 per SM of an H100
 DEFAULT_LANES = 131072
-
-#: kernel launches made by ``recursion_probe`` (read by chip_smoke.py)
-LAUNCHES = 0
 
 
 def recursion_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
@@ -60,27 +66,15 @@ def recursion_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
     return torch.stack(ms)
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher(symbol: str):
-    from ..utils.cuda_build import load
-
-    fn = getattr(load("recursion_probe"), symbol)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def recursion_probe(x: torch.Tensor, steps: int) -> torch.Tensor:
     """x [8, ...] float32/bfloat16/int8 -> m [8, ...]: the kernel on a
     CUDA tensor, ``recursion_plain`` on a CPU tensor."""
-    global LAUNCHES
     if not x.is_cuda:
         return recursion_plain(x, steps)
     kind = next((t for t in TYPES if t[1] == x.dtype), None)
     if kind is None:
         raise TypeError(f"dtype {x.dtype}: float32, bfloat16 or int8")
-    _, _, _, symbol, pack = kind
+    _, _, _, kernel, pack = kind
     if x.shape[0] != 8 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous [8, ...], got "
                          f"{tuple(x.shape)}")
@@ -89,15 +83,9 @@ def recursion_probe(x: torch.Tensor, steps: int) -> torch.Tensor:
         raise ValueError(f"{per_state} elements per state: not a multiple "
                          f"of {pack}")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):        # the launcher's device
-        rc = _launcher(symbol)(x.data_ptr(), out.data_ptr(),
-                               per_state // pack, steps,
-                               torch.cuda.current_stream(x.device)
-                               .cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"recursion_probe kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES += 1
+    words = per_state // pack
+    kernel.launch(x.device, (words, steps), x.data_ptr(), out.data_ptr(),
+                  words, steps)
     return out
 
 

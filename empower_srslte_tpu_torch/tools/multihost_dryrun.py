@@ -90,9 +90,9 @@ def part_a(mesh, device) -> dict:
 def part_b(mesh, device, k: int, seed: int) -> dict:
     """``sp_turbo_decode_nii`` with axis "host" on 8 code blocks of K
     ``k``: a counted first decode, then a timed one; -> its line."""
-    from ..ops.fec import turbo_nii
     from ..ops.fec.turbo_encoder import turbo_encode
     from ..parallel.turbo_sp import sp_turbo_decode_nii
+    from ..runtime import trace
 
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.integers(0, 2, size=(8, k)).astype(np.int8))
@@ -100,15 +100,14 @@ def part_b(mesh, device, k: int, seed: int) -> dict:
     run = lambda: sp_turbo_decode_nii(llr, k, mesh, axis="host",
                                       iterations=2)
     _sync(device)
-    turbo_nii.LAUNCHES = 0
-    turbo_nii.LAUNCHES_BY_SHAPE.clear()
+    trace.reset()
     t0 = time.perf_counter()
     bits, _ = run()
     _sync(device)
     ms_first = (time.perf_counter() - t0) * 1e3
-    launches = turbo_nii.LAUNCHES
+    launches = trace.launch_counts().get("turbo_nii", 0)
     by_bounds = [[*key, c] for key, c in
-                 sorted(turbo_nii.LAUNCHES_BY_SHAPE.items())]
+                 sorted(trace.launch_shapes("turbo_nii").items())]
     if not torch.equal(bits.cpu(), u):
         raise AssertionError(f"cross-process NII decode mismatch at K {k}")
     t0 = time.perf_counter()

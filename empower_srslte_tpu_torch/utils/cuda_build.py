@@ -1,5 +1,5 @@
-"""Build the hand-written CUDA kernels and the native host runtime, and
-load them with ctypes.
+"""Build the hand-written CUDA kernels and the native host runtime, load
+them with ctypes, and launch the kernels.
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc``, and each
 ``csrc/<name>.cpp`` (the sample ring buffer) by ``g++``, into a shared
@@ -7,6 +7,11 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), named after a hash of its source and flags, inside the
 package's ``_build/`` directory. Several sources build in parallel, one
 compiler process each. Nothing here runs at import time.
+
+A kernel's C launcher is declared once, beside its wrapper, as a
+``Kernel``; ``Kernel.launch`` is the one way the port launches a
+hand-written kernel, and counts each launch in ``runtime.trace``'s launch
+registry.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 from ..runtime import trace
 
@@ -141,3 +148,44 @@ def load(name: str, source=None) -> ctypes.CDLL:
                                                                  sources)))
             trace.count("kernel_load")
         return lib
+
+
+class Kernel:
+    """The C launcher ``symbol`` of the library ``library``, declared
+    with the ``argtypes`` of its arguments before the stream, which
+    ``launch`` passes last. Declaring loads nothing: the library loads on
+    the first launch (``load``). The kernel's name, the symbol with
+    ``_launch`` taken out, names it in errors and in the launch
+    registry."""
+
+    __slots__ = ("library", "symbol", "name", "argtypes", "_fn")
+
+    def __init__(self, library: str, symbol: str, argtypes):
+        self.library, self.symbol = library, symbol
+        self.name = symbol.replace("_launch", "")
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self._fn = None
+
+    @property
+    def fn(self):
+        """The ctypes function, its library loaded on first use."""
+        if self._fn is None:
+            fn = getattr(load(self.library), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device, shape, *args) -> None:
+        """One launch on ``device``'s current stream, counted in the
+        launch registry under (name, ``shape``); raises on the launcher's
+        CUDA error."""
+        # the launcher calls the runtime on the current device, and stream
+        # 0 of a device is its legacy default stream: both must be
+        # ``device``'s
+        with torch.cuda.device(device):
+            rc = self.fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {rc}")
+        trace.count_launch(self.name, shape)

@@ -1,4 +1,4 @@
-"""Device selection and per-device constant tables.
+"""Device selection, per-device constant tables and the card's limits.
 
 Every entry point that creates tensors takes ``device``: None means the
 CUDA card, and raises when there is none — the port never drops to the
@@ -7,10 +7,17 @@ CPU unless the caller asks for it with ``device="cpu"``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..runtime import trace
+
+#: shared memory one block may use on sm_90 (227 KB)
+MAX_SMEM = 232_448
+#: SMs of an NVIDIA H100 SXM: the launch plans' card where none is given
+H100_SMS = 132
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,3 +59,15 @@ def device_table(key, device: torch.device, build):
             t = _TABLES[k] = torch.tensor(build(), device=device)
         trace.count("table_build")
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned4(*xs) -> bool:
+    """Every tensor's data starts on a 4-byte boundary (a bfloat16 pair
+    is then one aligned word)."""
+    return all(x is None or x.data_ptr() % 4 == 0 for x in xs)

@@ -184,7 +184,6 @@ def test_no_launch_without_a_card(monkeypatch):
     and no launch counted in the tracing registry."""
     from empower_srslte_tpu_torch.runtime import trace
 
-    monkeypatch.setattr(chest, "LAUNCHES", 0)
     cell = _cell(6, CP.NORM)
     grid = _grid(cell, lead=(2, 2))
     trace.reset()
@@ -198,12 +197,14 @@ def test_no_launch_without_a_card(monkeypatch):
     assert h.shape == (2, 2, 4, cell.nsymb_sf, cell.nof_re)
     torch.testing.assert_close(
         n0, chest.noise_est_pilots(grid, cell, 1), rtol=0, atol=0)
-    assert chest.LAUNCHES == 0
+    assert not trace.launch_shapes("chest_dl")
     assert trace.launch_counts() == {}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
-    monkeypatch.setattr(chest, "LAUNCHES", 0)
+    from empower_srslte_tpu_torch.runtime import trace
+
+    before = trace.launch_counts()
     cell = _cell(6, CP.NORM)
     grid = _grid(cell)
     with pytest.raises(ValueError, match="contiguous complex64"):
@@ -214,4 +215,4 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
                             chest.SMOOTH_3TAP)
     with pytest.raises(ValueError, match="CUDA tensor"):
         chest.chest_dl_cuda(grid, cell, 0, (0,), chest.SMOOTH_3TAP)
-    assert chest.LAUNCHES == 0
+    assert trace.launch_counts() == before

@@ -40,6 +40,8 @@ from empower_srslte_tpu_torch.utils.device import device_table
 from empower_srslte_tpu_torch.utils.sequence import (cinit_pcfich,
                                                      cinit_pdcch)
 
+from tests.torch_fake_launch import fake_launches
+
 RNTI, SF_IDX, BATCH = 0x1234, 3, 2
 #: (PRB, ports, CFI, CP) of the twin cases: every bandwidth, port count
 #: and CFI, and the extended CP
@@ -500,8 +502,6 @@ def test_blind_plan_and_size_table():
 def test_no_launch_without_a_card(monkeypatch):
     """The control stages on the CPU take the plain twins: not one launch,
     and none counted in the tracing registry."""
-    monkeypatch.setattr(pdcch, "LAUNCHES_LLR", 0)
-    monkeypatch.setattr(pdcch, "LAUNCHES_BLIND", 0)
     cell, grid, h, n0, _ = _stimulus(25, 2, 2, CP.NORM)
     trace.reset()
     trace.enable()
@@ -511,7 +511,8 @@ def test_no_launch_without_a_card(monkeypatch):
         pdcch.pdcch_blind_decode(grid[0], h[0], cell, 2, SF_IDX, RNTI, (25,))
     finally:
         trace.disable()
-    assert pdcch.LAUNCHES_LLR == pdcch.LAUNCHES_BLIND == 0
+    assert not trace.launch_shapes("ctrl_llr")
+    assert not trace.launch_shapes("pdcch_blind")
     assert trace.launch_counts() == {}
 
 
@@ -524,9 +525,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
         pdcch.ctrl_llr_cuda(grid, h, cell, SF_IDX)
     with pytest.raises(ValueError, match="CUDA tensor"):
         pdcch.pdcch_blind_cuda(llr, cands, (19,), RNTI)
-    launched = []
     monkeypatch.setattr(pdcch, "_on_card", lambda t: True)
-    monkeypatch.setattr(pdcch, "_launch", lambda *a: launched.append(a[0]))
+    launched = fake_launches(monkeypatch, pdcch.CTRL_LLR, pdcch.PDCCH_BLIND)
     refusals = [
         ("complex64", dict(grid=grid.to(torch.complex128))),
         ("complex64", dict(h=h.real.contiguous())),
@@ -586,17 +586,17 @@ def test_control_ranges_launch_nothing_but_the_two_kernels(tm4_small,
     samples, cfg, plan = tm4_small
     res = ue_dl_tm4_batch(samples, cfg, plan)
     assert (res.cfi == cfg.cfi).all() and (res.dci_hits >= 1).all()
-    launched = []
     monkeypatch.setattr(pdcch, "_on_card", lambda t: True)
-    monkeypatch.setattr(pdcch, "_launch", lambda *a: launched.append(a[0]))
+    launched = fake_launches(monkeypatch, pdcch.CTRL_LLR, pdcch.PDCCH_BLIND)
     ue_dl_tm4_batch(samples, cfg, plan)                # tables built
     launched.clear()
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         ue_dl_tm4_batch(samples, cfg, plan)
         counted = trace.launch_counts()
-    assert launched == ["ctrl_llr", "pdcch_blind"]
-    assert counted == {"pdcch_llr_kernel": 1, "pdcch_blind_kernel": 1}
+    assert [name for name, _dev, _args in launched] == ["ctrl_llr",
+                                                        "pdcch_blind"]
+    assert counted == {"ctrl_llr": 1, "pdcch_blind": 1}
     cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     ranges = [e for e in cpu if e.name in ("ue_dl.pdcch_llr",
                                            "ue_dl.pdcch_blind_search")]

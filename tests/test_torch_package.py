@@ -42,6 +42,34 @@ def test_port_never_imports_jax(path):
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
+def _attributes(path: pathlib.Path):
+    """(name, is a store) of every name and attribute in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Name):
+            yield node.id, isinstance(node.ctx, ast.Store)
+        elif isinstance(node, ast.Attribute):
+            yield node.attr, isinstance(node.ctx, ast.Store)
+
+
+def test_kernels_launch_through_one_declared_launcher():
+    """Only ``utils/cuda_build.py`` (the kernels' ``Kernel``) and
+    ``runtime/`` (the ring buffer) declare a C function's ``argtypes``;
+    neither the port nor its tests keep or read a ``LAUNCHES*`` counter
+    beside the launch registry."""
+    pkg = ROOT / "empower_srslte_tpu_torch"
+    declares = [str(path.relative_to(ROOT)) for path in PORT_FILES
+                if path.is_relative_to(pkg)
+                and path != pkg / "utils" / "cuda_build.py"
+                and not path.is_relative_to(pkg / "runtime")
+                and ("argtypes", True) in set(_attributes(path))]
+    assert declares == []
+    counters = [str(path.relative_to(ROOT)) for path in
+                PORT_FILES + sorted((ROOT / "tests").glob("*torch*.py"))
+                if any(name.lstrip("_").startswith("LAUNCHES")
+                       for name, _store in _attributes(path))]
+    assert counters == []
+
+
 def test_every_module_imports_without_a_card():
     names = [m.name for m in pkgutil.walk_packages(
         empower_srslte_tpu_torch.__path__, "empower_srslte_tpu_torch.")]

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+from empower_srslte_tpu_torch.runtime import trace
 from empower_srslte_tpu_torch.tools import microbench_recursion as mr
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -49,9 +50,9 @@ def test_recursion_plain_matches_pallas(name):
 
 def test_probe_wrapper_on_cpu_counts_no_launch():
     x = mr.probe_input("f32", 16, device="cpu")
-    before = mr.LAUNCHES
+    before = trace.launch_counts()
     assert torch.equal(mr.recursion_probe(x, 4), mr.recursion_plain(x, 4))
-    assert mr.LAUNCHES == before
+    assert trace.launch_counts() == before
     out = mr.run(steps=2, lanes=4, device="cpu")
     assert [r["type"] for r in out] == ["f32", "bf16", "int8"]
     assert all(r["ms"] is None and r["ops"] == 2 * 39 * r["sub"] * 4

@@ -272,7 +272,7 @@ def test_pusch_decode_jit_caches_per_key(uci, with_soft):
         pusch_decode_uci, pusch_decode_uci_jit, pusch_encode,
         pusch_encode_uci)
     from empower_srslte_tpu_torch.models.ue_ul import enb_ul_receive_grid
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii
+    from empower_srslte_tpu_torch.runtime import trace
 
     cell = Cell(nof_prb=25, id=1)
     mod, tbs = ra.mcs_to_tbs(4, 4, dl=False)
@@ -317,4 +317,5 @@ def test_pusch_decode_jit_caches_per_key(uci, with_soft):
     assert torch.equal(got[0], tb) and torch.equal(ref[0], tb)
     for a, b in zip(got[2], ref[2]):
         assert torch.equal(a, b)
-    assert turbo_nii.LAUNCHES == 0 and not turbo_nii.LAUNCHES_BY_SHAPE
+    assert "turbo_nii" not in trace.launch_counts()
+    assert not trace.launch_shapes("turbo_nii")

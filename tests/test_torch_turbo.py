@@ -30,6 +30,7 @@ from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
 from empower_srslte_tpu_torch.ops.fec.turbo_encoder import turbo_encode
 from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
     map_decode_nii, map_decode_nii_plain)
+from empower_srslte_tpu_torch.runtime import trace
 from empower_srslte_tpu_torch.utils.crc import CRC24B
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -91,15 +92,13 @@ def test_nii_kernel_plain_twin_matches_pallas(rng, bounds):
 def test_nii_wrapper_is_plain_twin_on_cpu(rng):
     """On a CPU tensor the wrapper runs the plain twin and counts no
     kernel launch."""
-    from empower_srslte_tpu_torch.ops.fec import turbo_nii
-
     k, l, b = 128, 64, 4
     x = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32))
     args = (x(k, b), x(k, b), x(3, b), x(3, b), x(3, 8, b), x(3, 8, b))
-    before = turbo_nii.LAUNCHES
+    before = trace.launch_counts()
     got = map_decode_nii(*args, l=l)
     ref = map_decode_nii_plain(*args, l=l)
-    assert turbo_nii.LAUNCHES == before
+    assert trace.launch_counts() == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
 

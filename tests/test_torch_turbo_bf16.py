@@ -29,12 +29,12 @@ from empower_srslte_tpu.ops.fec.turbo_decoder_pallas2 import (
 from empower_srslte_tpu_torch.models import sch
 from empower_srslte_tpu_torch.models.sch import (
     DlschPlan, _pick_window, dlsch_decode, dlsch_encode, filler_prior)
-from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win
 from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
 from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
     map_decode_nii, map_decode_nii_plain, nii_plan)
 from empower_srslte_tpu_torch.ops.fec.turbo_win import (
     map_decode_win, map_decode_win_plain, win_plan)
+from empower_srslte_tpu_torch.runtime import trace
 
 BF16 = torch.bfloat16
 
@@ -141,9 +141,9 @@ def test_bf16_wrappers_on_cpu(rng):
                                    * 3).to(BF16)
     args = (x(k, b), x(k, b), x(3, b), x(3, b), x(3, 8, b), x(3, 8, b))
     apr = x(k, b)
-    before = (turbo_nii.LAUNCHES, turbo_nii.LAUNCHES_BF16)
+    before = trace.launch_counts()
     got = map_decode_nii(*args, l=l, apr=apr)
-    assert (turbo_nii.LAUNCHES, turbo_nii.LAUNCHES_BF16) == before
+    assert trace.launch_counts() == before
     assert all(g.dtype == BF16 and g.shape[-1] == b for g in got)
     for j in (0, b - 1):
         one = map_decode_nii_plain(*(a[..., j:j + 1].contiguous()
@@ -155,9 +155,9 @@ def test_bf16_wrappers_on_cpu(rng):
         map_decode_nii(args[0].float(), *args[1:], l=l)
 
     lsa, lp = x(k + 3, b), x(k + 3, b)
-    before = (turbo_win.LAUNCHES, turbo_win.LAUNCHES_BF16)
+    before = trace.launch_counts()
     out = map_decode_win(lsa, lp, k=k, l=l, o=24)
-    assert (turbo_win.LAUNCHES, turbo_win.LAUNCHES_BF16) == before
+    assert trace.launch_counts() == before
     assert out.dtype == BF16 and out.shape == (k, b)
     assert torch.equal(out[:, b - 1:], map_decode_win_plain(
         lsa[:, b - 1:].contiguous(), lp[:, b - 1:].contiguous(), k=k, l=l,

@@ -25,9 +25,10 @@ from empower_srslte_tpu_torch.models.sch import _pick_window
 from empower_srslte_tpu_torch.ops.fec import turbo_nii, turbo_win
 from empower_srslte_tpu_torch.ops.fec.tables import TURBO_CB_SIZES
 from empower_srslte_tpu_torch.ops.fec.turbo_nii import (
-    MAX_SMEM, map_decode_nii_plain, nii_plan)
+    map_decode_nii_plain, nii_plan)
 from empower_srslte_tpu_torch.ops.fec.turbo_win import (
     DEFAULT_OVERLAP, map_decode_win_plain, win_plan)
+from empower_srslte_tpu_torch.utils.device import H100_SMS, MAX_SMEM
 
 
 def _check_segments(plan, l, group):
@@ -204,7 +205,7 @@ def win_schedule_model(lsa, lp, *, k, l, o):
     b = lsa.shape[1]
     n_w = k // l
     n = n_w * b
-    wiring = [torch.as_tensor(a) for a in turbo_win._wiring_np()]
+    wiring = [torch.as_tensor(a) for a in turbo_nii._wiring_np()]
     ns0, ns1, gi0, gi1, ps0, ps1 = wiring
     ls = turbo_win._window_rows(lsa, turbo_win.PAD_LLR, k, l, o)
     lq = turbo_win._window_rows(lp, 0.0, k, l, o)
@@ -467,7 +468,7 @@ def win_split_model(lsa, lp, *, k, l, o, lead=0):
     plan = win_plan(l, o, BF16)
     b = lsa.shape[1]
     n_w = k // l
-    wiring = [torch.as_tensor(a) for a in turbo_win._wiring_np()]
+    wiring = [torch.as_tensor(a) for a in turbo_nii._wiring_np()]
     ns0, ns1, gi0, gi1, ps0, ps1 = wiring
     sl, sq = staged_pairs(lsa, lead), staged_pairs(lp, lead)
     bc = sl.shape[1]
@@ -601,7 +602,7 @@ def test_win_split_model_equals_plain_twin(rng, k, l, o, b):
     assert torch.equal(got, map_decode_win_plain(lsa, lp, k=k, l=l, o=o))
 
 
-@pytest.mark.parametrize("sms", [turbo_nii.H100_SMS, 114])
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
 @pytest.mark.parametrize("kernel", ["nii", "win"])
 def test_bf16_plan_rule(kernel, sms):
     """The bfloat16 plans' fixed rule on the launch's shape: the split

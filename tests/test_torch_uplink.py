@@ -37,7 +37,7 @@ from empower_srslte_tpu.utils.cell import Cell as JCell
 from empower_srslte_tpu_torch import convert
 from empower_srslte_tpu_torch.models import pusch, refsignal_ul as rs, ue_ul
 from empower_srslte_tpu_torch.models import uci
-from empower_srslte_tpu_torch.ops.fec import turbo_win
+from empower_srslte_tpu_torch.runtime import trace
 from empower_srslte_tpu_torch.utils.cell import Cell
 
 from tests.jax_ul_spec import spec_uplink
@@ -201,11 +201,11 @@ def test_pusch_decode_matches_jax(rng, monkeypatch):
     run = jax.jit(lambda g: jpusch.pusch_decode(g, jcfg, jplan,
                                                 noise_est=N0)[:2])
     bits_j, ok_j = run(jgrid)
-    before = turbo_win.LAUNCHES
+    before = trace.launch_counts()
     its = []
     bits, ok, _ = pusch.pusch_decode(grid, cfg, plan, noise_est=N0,
                                      iters_out=its)
-    assert turbo_win.LAUNCHES == before          # CPU: the plain twin
+    assert trace.launch_counts() == before       # CPU: the plain twin
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_j))
     np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_j))
     assert ok.all() and (bits.numpy() == tb).all()

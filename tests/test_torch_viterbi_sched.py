@@ -18,9 +18,9 @@ import torch
 
 from empower_srslte_tpu_torch.ops.fec.convcoder import (
     TRAIN_LEN, conv_encode, unpack_regs, viterbi_decode_plain)
-from empower_srslte_tpu_torch.ops.fec.turbo_nii import MAX_SMEM
 from empower_srslte_tpu_torch.ops.fec.viterbi37 import (
     MAX_K, WARPS, vit_plan)
+from empower_srslte_tpu_torch.utils.device import MAX_SMEM
 
 
 def _warp_bytes(k, halo):
