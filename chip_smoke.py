@@ -15,6 +15,12 @@ shape it launched against the twin of that shape's dtype:
 * the CRS channel and noise estimate kernel against its twin at every
   shape the receive paths give it, and its launches a path call
   (``chest_dl``);
+* the de-rate-matching kernel (the DL-SCH / UL-SCH code blocks straight
+  into the turbo decoder's time-major inputs) against its twin at the
+  receive paths' shapes and at generated ones (K 40-6144, filler bits,
+  repetitions, softbuffers on both LLR lanes, rv 0-3), timed beside its
+  bound and the chain it replaced, and its launches a path call
+  (``sch_derm``); every path phase holds it at the shapes it launched;
 * the control kernels (the PCFICH and the PDCCH LLRs, the blind search)
   against their twins on the main path's control region at 256 and 1
   subframes and on generated regions of 6-100 PRB, 1-4 ports, CFI 1-3,
@@ -117,7 +123,9 @@ batches (``BASELINE_SWEEP``), and puts both on its phase line.
 
 ``--phases`` runs the build and the named phases alone (any of the
 chest kernel's ``chest_dl``, the control kernels' ``pdcch_rx``, the
-downlink paths ``main_path``, ``ue_dl_frame`` and ``cold_boot``, the
+de-rate-matching kernel's ``sch_derm``, the downlink paths
+``main_path``, ``tm2``, ``tm3``, ``pmch``, ``ue_dl_frame`` and
+``cold_boot``, the BLER gate ``bler_gate``, the
 turbo kernel checks ``kernel_turbo``
 and ``kernel_turbo_win``, of
 ``parallel_sp``, ``parallel_batch`` and ``multihost``, the phases that
@@ -216,7 +224,8 @@ BASELINE_SWEEP = {
 #: phase gives the kernel (``hold_shapes``, ``vit_path_check``); the turbo
 #: kernels per metric dtype
 PATH_TWIN: dict = {"turbo_nii": {}, "turbo_nii_bf16": {}, "turbo_win": {},
-                   "turbo_win_bf16": {}, "viterbi37": {}, "pdcch_rx": {}}
+                   "turbo_win_bf16": {}, "viterbi37": {}, "pdcch_rx": {},
+                   "sch_derm": {}}
 
 
 def emit(obj):
@@ -466,8 +475,10 @@ def merge_shapes(*shapes) -> dict:
 
 
 def turbo_shapes(shapes: dict) -> dict:
-    """The turbo kernels' part of a run's launches per shape."""
-    return {k: shapes[k] for k in ("turbo_nii", "turbo_win") if k in shapes}
+    """The turbo decode's kernels' part of a run's launches per shape:
+    the de-rate-matching kernel and the two turbo kernels."""
+    return {k: shapes[k] for k in ("sch_derm", "turbo_nii", "turbo_win")
+            if k in shapes}
 
 
 def check(phase: str, checks: dict):
@@ -1445,6 +1456,208 @@ def viterbi_kernel_check(phase: str, sizes, seed: int, extra=()):
     assert total == 0, f"Viterbi kernel decisions differ: {mism}"
     return dict(max_abs_err=err, mismatched_bits=total, ms=ms,
                 plain_ms=plain_ms, **bound(nbytes, ops))
+
+
+#: the de-rate-matching kernel against its twin where three repetitions
+#: or more add (float32 LLRs): the kernel adds them in ascending order and
+#: the twin's ``sum`` in its own, so the largest difference over the
+#: twin's largest magnitude may be float32 rounding of a few terms in the
+#: softbuffer and float32 inputs, and one bfloat16 step (2^-8 of the top
+#: of the range) in bfloat16 inputs; everywhere else the outputs are equal
+DERM_TOL, DERM_TOL_BF16 = 1e-6, 2.0 ** -8
+
+
+def derm_shape(plan, k: int, rows: int, llr: str = "float32",
+               softbuffer: bool = False, prior: bool = False) -> tuple:
+    """The de-rate-matching kernel's launch shape (its key in the launch
+    registry) for the code blocks of size ``k`` of ``plan`` over ``rows``
+    LLR rows."""
+    cbs = tuple((e, f, off) for _i, e, f, off in plan.k_groups[k])
+    return (k, plan.rv, cbs, rows, llr,
+            dt_name(plan.decoder(k).metric_dtype), softbuffer, prior)
+
+
+def derm_name(shape) -> str:
+    k, rv, cbs, rows, llr, metric, sb, prior = shape
+    es = sorted({e for e, _f, _o in cbs})
+    return (f"k{k}_rv{rv}_c{len(cbs)}_e{es[0]}-{es[-1]}_"
+            f"f{max(f for _e, f, _o in cbs)}_rows{rows}_{llr}_{metric}"
+            + ("_sb" if sb else "") + ("_prior" if prior else ""))
+
+
+def derm_work(shape) -> int:
+    """Compulsory bytes of one de-rate-matching launch: every code block's
+    LLRs read once, the softbuffer written once (and read once where one
+    is given), the decoder's inputs (3(K+4) values a code block) written
+    once."""
+    k, _rv, cbs, rows, llr, metric, sb, _prior = shape
+    size = 1 if llr == "int8" else 4
+    per_cb = 3 * (k + 4) * (size * (2 if sb else 1) + itemsize(metric))
+    return rows * (size * sum(e for e, _f, _o in cbs) + len(cbs) * per_cb)
+
+
+def derm_inputs(g, shape):
+    """Random inputs of one launch at ``shape`` on the card: (llrs,
+    decoder, softbuffer or None, prior or None)."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
+
+    k, _rv, cbs, rows, llr, metric, sb, prior = shape
+    dev = g.device
+    width = max(off + e for e, _f, off in cbs)
+    x = torch.randn((rows, width), generator=g, device=dev) * 4
+    sbt = (torch.randn((rows, len(cbs), 3 * (k + 4)), generator=g,
+                       device=dev) * 4 if sb else None)
+    if llr == "int8":
+        q = lambda t: t.mul(30).round().clamp(-127, 127).to(torch.int8)
+        x = q(x)
+        sbt = None if sbt is None else q(sbt)
+    pr = (torch.rand((rows,), generator=g, device=dev) * 50 + 1
+          if prior else None)
+    return x, TurboDecoder(k=k, dtype=metric), sbt, pr
+
+
+def derm_hold(shape, seed: int, time_twin: bool = False) -> dict:
+    """The de-rate-matching kernel at one launch shape against its plain
+    twin run on the card: every output (the softbuffer, sys1, par1,
+    sys2's tail, par2) equal where the repetitions add in the twin's
+    order (at most two, or integers on the int8 lane), else within
+    ``DERM_TOL`` / ``DERM_TOL_BF16``; timed by CUDA-graph replay beside
+    its bound, and with ``time_twin`` the twin (the chain the kernel
+    replaced) by CUDA-graph replay and by CUDA events as a path calls
+    it."""
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec import rate_matching as rm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, rv, cbs, rows, llr, metric, _sb, _prior = shape
+    x, dec, sb, pr = derm_inputs(g, shape)
+    got = rm.derm_to_decoder_cuda(x, cbs, rv, dec, sb, pr)
+    ref = rm._derm_to_decoder_plain(x, cbs, rv, dec, sb, pr)
+    torch.cuda.synchronize()
+    reps = max(-(-e // (3 * (k + 4) - 2 * f)) for e, f, _o in cbs)
+    names = ("softbuffer", "sys1", "par1", "sys2_tail", "par2")
+    pairs = list(zip(names, (got[0], *got[1][:4]), (ref[0], *ref[1][:4])))
+    equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                for _n, a, b in pairs)
+    err = {n: float((a.float() - b.float()).abs().max())
+           / (float(b.float().abs().max()) or 1.0) for n, a, b in pairs}
+    tol = DERM_TOL_BF16 if metric == "bfloat16" else DERM_TOL
+    within = err["softbuffer"] <= DERM_TOL and all(
+        err[n] <= tol for n in names[1:])
+    exact_required = llr == "int8" or reps <= 2
+    out = {"k": k, "rv": rv, "cbs": len(cbs),
+           "e": sorted({e for e, _f, _o in cbs}),
+           "f": sorted({f for _e, f, _o in cbs}), "rows": rows,
+           "llr": llr, "metric": metric, "softbuffer": sb is not None,
+           "prior": pr is not None, "max_reps": reps,
+           "exact_required": exact_required, "equal": equal,
+           "rel_err": err, "within_tol": within,
+           "held": equal if exact_required else within,
+           "ms": graph_ms(lambda: rm.derm_to_decoder_cuda(
+               x, cbs, rv, dec, sb, pr), reps=20),
+           **bound(derm_work(shape), 0)}
+    out["over_bound"] = out["ms"] / out["bound_ms"]
+    if time_twin:
+        twin = lambda: rm._derm_to_decoder_plain(x, cbs, rv, dec, sb, pr)
+        out["twin_ms_graphed"] = graph_ms(twin, reps=5)
+        out["twin_ms"] = cuda_ms(twin, reps=5)
+    return out
+
+
+def phase_sch_derm():
+    """The de-rate-matching kernel (``csrc/sch_derm.cu``) against its
+    plain twin on the card (``derm_hold``): at the benchmark cell's shape
+    (256 subframes x 2 codewords x 13 code blocks of K 5824) and a
+    subframe's, with the chain it replaced timed beside it, at the main
+    path's and the uplink path's (256 x 7 of K 5824), and at generated
+    shapes that take every instance and
+    branch: K 40 and 6144, K- and K+ with filler bits (the bfloat16
+    prior, and FILLER_LLR under float32 metrics), Msg3's K 280 with two
+    and three repetitions, a softbuffer on both LLR lanes, rv 0-3; then
+    the launches a call of the main path at 256 and 1 subframes and of
+    the uplink path (one a call on each: one K)."""
+    from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
+    from empower_srslte_tpu_torch.models.sch import DlschPlan
+    from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
+    from empower_srslte_tpu_torch.models.ue_ul import ul_uci_stimulus
+
+    st256 = tm4_stimulus(BATCH, device="cuda")
+    st1 = tm4_stimulus(1, device="cuda")
+    ul = ul_uci_stimulus(BATCH, UL_N0, device="cuda")
+    main = st256.plan
+    kmain = main.segm.cb_sizes[0]
+    ul_plan = ul.plan.data_plan
+    k_ul = ul_plan.segm.cb_sizes[0]
+    seg = DlschPlan(tbs=6128, g=9000, qm=4, rv=3)
+    small = DlschPlan(tbs=100, g=480, qm=2)
+    # the benchmark's 20 MHz TM4 codeword (MCS 28: 13 code blocks of
+    # K 5824, E 6642 and 6648), 2 codewords a subframe
+    cell = DlschPlan(tbs=75376, g=86400, qm=6)
+    shapes = {
+        "cell_b256x2": derm_shape(cell, 5824, 2 * BATCH),
+        "cell_tti_b1x2": derm_shape(cell, 5824, 2),
+        "main_path_b256x2": derm_shape(main, kmain, 2 * BATCH),
+        "main_path_b1x2": derm_shape(main, kmain, 2),
+        "uplink_b256": derm_shape(ul_plan, k_ul, BATCH),
+        "k40_rv1": derm_shape(DlschPlan(tbs=16, g=240, qm=2, rv=1), 40, 64),
+        "k6144": derm_shape(DlschPlan(tbs=6120, g=12000, qm=2), 6144, 64),
+        **{f"seg_k{k}_prior": derm_shape(seg, k, 64, prior=True)
+           for k in seg.k_groups},
+        "filler_f32": derm_shape(DlschPlan(tbs=100, g=480, qm=2,
+                                           decoder_impl="xla"), 128, 64),
+        "filler_bf16_prior": derm_shape(small, 128, 64, prior=True),
+        "msg3_two_reps_int8": derm_shape(
+            DlschPlan(tbs=256, g=1152, qm=2, decoder_impl="windowed"), 280,
+            BATCH, llr="int8"),
+        "three_reps": derm_shape(DlschPlan(tbs=256, g=1852, qm=2), 280, 64),
+        "three_reps_bf16": derm_shape(DlschPlan(tbs=1000, g=6400, qm=2),
+                                      1024, 64),
+        "three_reps_int8_sb": derm_shape(DlschPlan(tbs=256, g=1852, qm=2),
+                                         280, 64, llr="int8",
+                                         softbuffer=True),
+        "softbuffer_f32": derm_shape(DlschPlan(tbs=1000, g=2400, qm=4),
+                                     1024, 64, softbuffer=True),
+        **{f"rv{rv}": derm_shape(DlschPlan(tbs=1000, g=1500, qm=2, rv=rv),
+                                 1024, 64) for rv in range(4)},
+    }
+    held = {name: derm_hold(sh, 81 + i,
+                            time_twin=name.startswith("cell_"))
+            for i, (name, sh) in enumerate(shapes.items())}
+
+    def per_call(run):
+        return launches_per_call(run, ["sch_derm"])["sch_derm"]
+
+    launches = {
+        "main_b256": per_call(lambda: ue_dl_tm4_batch(
+            st256.samples, st256.cfg, st256.plan)),
+        "main_b1": per_call(lambda: ue_dl_tm4_batch(st1.samples, st1.cfg,
+                                                    st1.plan)),
+        "uplink_b256": per_call(lambda: run_uplink(ul, UL_N0)),
+    }
+    m = held["cell_b256x2"]
+    checks = {
+        "twin_every_shape": all(v["held"] for v in held.values()),
+        "exact_where_required": all(v["equal"] for v in held.values()
+                                    if v["exact_required"]),
+        "some_shape_not_exact_by_order": any(not v["exact_required"]
+                                             for v in held.values()),
+        "one_launch_a_path_call": all(v == 1 for v in launches.values()),
+    }
+    out = {"phase": "sch_derm", "tol": DERM_TOL, "tol_bf16": DERM_TOL_BF16,
+           "shapes": held, "launches_per_call": launches,
+           "main": {"ms": m["ms"], "bound_ms": m["bound_ms"],
+                    "over_bound": m["over_bound"],
+                    "twin_ms_graphed": m["twin_ms_graphed"],
+                    "twin_ms": m["twin_ms"]},
+           "tti": {k: held["cell_tti_b1x2"][k] for k in (
+               "ms", "bound_ms", "twin_ms_graphed", "twin_ms")},
+           "ptxas": PTXAS.get("sch_derm"), "checks": checks}
+    emit(out)
+    check("sch_derm", checks)
+    return out
 
 
 def phase_main_path():
@@ -2553,18 +2766,28 @@ def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
     launch and the NII kernel at every ``bounds`` it was launched with
     (the name of a shape launched off the default bounds (0, W-1) ends in
     ``_bounds{first}_{last}``): -> {"turbo_nii": {...}, "turbo_win":
-    {...}, "viterbi37": {...}, "pdcch": {...}} per shape, with its
-    launches; the blind-search kernel (``pdcch``, a shape being its DCI
-    sizes, candidates and subframes) on noisy LLRs (``blind_hold``). The
-    phase's checks require every error to be 0 (``turbo_checks``,
-    ``shape_checks``)."""
+    {...}, "viterbi37": {...}, "pdcch": {...}, "sch_derm": {...}} per
+    shape, with its launches; the blind-search kernel (``pdcch``, a shape
+    being its DCI sizes, candidates and subframes) on noisy LLRs
+    (``blind_hold``); the de-rate-matching kernel on random LLRs
+    (``derm_hold``). The phase's checks require every error to be 0, and
+    the de-rate-matching kernel's to be 0 or within its stated tolerance
+    (``turbo_checks``, ``shape_checks``)."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_win import DEFAULT_OVERLAP
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}, "pdcch": {}}
+    out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}, "pdcch": {},
+           "sch_derm": {}}
     i = 0
+    for shape, c in sorted(shapes.get("sch_derm", {}).items(), key=str):
+        name = derm_name(shape)
+        out["sch_derm"][name] = {**derm_hold(shape, seed + i),
+                                 "launches": c}
+        PATH_TWIN["sch_derm"][f"{phase}_{name}"] = \
+            out["sch_derm"][name]["held"]
+        i += 1
     for (k, l, b, dt, first, last), c in sorted(
             shapes.get("turbo_nii", {}).items()):
         bd = None if (first, last) == (0, k // l - 1) else (first, last)
@@ -2638,11 +2861,14 @@ def bounds_kind(bounds, windows: int) -> str:
 
 
 def turbo_checks(shapes: dict) -> dict:
-    """Each turbo kernel held to its twin exactly at every shape a path
-    launched it (``hold_shapes``)."""
+    """Each turbo kernel held to its twin exactly, and the de-rate-matching
+    kernel exactly or within its tolerance (``derm_hold``), at every
+    shape a path launched it (``hold_shapes``)."""
     return {"turbo_twin_exact_every_shape": all(
         v["max_abs_err"] == 0.0 for name in ("turbo_nii", "turbo_win")
-        for v in shapes.get(name, {}).values())}
+        for v in shapes.get(name, {}).values()),
+        "sch_derm_twin_every_shape": all(
+            v["held"] for v in shapes.get("sch_derm", {}).values())}
 
 
 def ms_stats(v) -> dict:
@@ -2731,7 +2957,8 @@ def shape_checks(shapes: dict, launches: dict) -> dict:
     """The on-path kernels launched at a non-empty set of shapes
     (``hold_shapes``; the NII kernel in either dtype; a Viterbi decode on
     the Viterbi kernel or the blind-search kernel), each held to its
-    twin exactly (0.0 error, 0 bits)."""
+    twin exactly (0.0 error, 0 bits); the de-rate-matching kernel exactly
+    or within its tolerance."""
     nii, vit = shapes["turbo_nii"], shapes["viterbi37"]
     blind = shapes.get("pdcch", {})
     return {"turbo_launched_shapes": bool(nii)
@@ -2742,7 +2969,9 @@ def shape_checks(shapes: dict, launches: dict) -> dict:
                                               for v in nii.values()),
             "viterbi_twin_exact_every_shape": all(
                 v["mismatched_bits"] == 0 for v in vit.values())
-            and all(v["exact"] for v in blind.values())}
+            and all(v["exact"] for v in blind.values()),
+            "sch_derm_twin_every_shape": all(
+                v["held"] for v in shapes.get("sch_derm", {}).values())}
 
 
 STACK_PING = b"\x45\x00" + bytes(18) + b"PING-FROM-UE-01"
@@ -3775,7 +4004,12 @@ def main() -> int:
         names = sys.argv[sys.argv.index("--phases") + 1].split(",")
         alone = {"chest_dl": phase_chest_dl,
                  "pdcch_rx": phase_pdcch_rx,
+                 "sch_derm": phase_sch_derm,
                  "main_path": phase_main_path,
+                 "tm2": phase_tm2,
+                 "tm3": phase_tm3,
+                 "pmch": phase_pmch,
+                 "bler_gate": phase_bler_gate,
                  "ue_dl_frame": phase_ue_dl_frame,
                  "cold_boot": phase_cold_boot,
                  "kernel_turbo": turbo_kernel_check,
@@ -3805,6 +4039,7 @@ def main() -> int:
         return 0
     chest_out = phase_chest_dl()
     pdcch_out = phase_pdcch_rx()
+    derm_out = phase_sch_derm()
     turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
@@ -3944,6 +4179,14 @@ def main() -> int:
          "exact_by_path_shape": PATH_TWIN["pdcch_rx"],
          **{k: pdcch_out[k] for k in ("shapes", "launches_per_call",
                                       "ptxas")},
+         "library_ms": None},
+        {"name": "sch_derm", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/sch_derm.cu",
+         "replaces": None, "launches": launches["sch_derm"],
+         "launches_by_path": per_path("sch_derm"),
+         "held_by_path_shape": PATH_TWIN["sch_derm"],
+         **{k: derm_out[k] for k in ("shapes", "launches_per_call",
+                                      "main", "tti", "ptxas")},
          "library_ms": None},
         {"name": "recursion_probe", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",

@@ -7,11 +7,12 @@ with HARQ soft combining -> iterative turbo decode with CRC early stop ->
 reassembly -> TB CRC, sch.c:307-422).
 
 A frozen ``DlschPlan`` captures every static dimension (segmentation,
-per-CB K/E/F, RV). Decoding is one path at every batch size: code blocks
-are grouped by (K, E, F) for de-rate-matching and every same-K group is
-decoded as ONE batched turbo call over all leading dims x code blocks
-(the reference decodes CBs serially with a per-CB early stop; here the
-early stop waits for the whole batch).
+per-CB K/E/F, RV). Decoding is one path at every batch size: the code
+blocks of each K are de-rate-matched straight into the turbo decoder's
+inputs (``derm_to_decoder``: one kernel launch on the card) and decoded
+as ONE batched turbo call over all leading dims x code blocks (the
+reference decodes CBs serially with a per-CB early stop; here the early
+stop waits for the whole batch).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.fec.cbsegm import CbSegm, cbsegm
-from ..ops.fec.rate_matching import RateMatchTurbo
+from ..ops.fec.rate_matching import RateMatchTurbo, derm_to_decoder
 from ..ops.fec.turbo_decoder import TurboDecoder
 from ..ops.fec.turbo_encoder import turbo_encode
 from ..runtime import trace
@@ -86,6 +87,15 @@ class DlschPlan:
             off += e
         assert off == self.g, (off, self.g)
         return tuple(out)
+
+    @functools.cached_property
+    def k_groups(self) -> dict:
+        """{K: ((CB index, e, f, offset), ...)}: the code blocks of each
+        size, in order (K- before K+)."""
+        out: dict = {}
+        for idx, (k, e, f, off) in enumerate(self.cb_plans):
+            out.setdefault(k, []).append((idx, e, f, off))
+        return {k: tuple(v) for k, v in out.items()}
 
     def rm(self, k: int, f: int) -> RateMatchTurbo:
         return RateMatchTurbo(k, f=f)
@@ -152,10 +162,11 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
 
     Mirrors decode_tb / decode_tb_cb (sch.c:307-437): per-CB
     de-rate-match with HARQ combining into ``softbuffers`` (list of
-    per-CB tensors [..., 3*(K+4)], or None), one batched turbo decode
-    per K, CB CRC checks, reassembly, TB CRC. ``iters_out`` (a list)
-    receives each turbo call's iteration count. The three steps run in
-    the profiler ranges ``dlsch.derm``, ``dlsch.turbo_decode`` and
+    per-CB tensors [..., 3*(K+4)], or None) straight into the turbo
+    decoder's inputs (``derm_to_decoder``, one call per K), one batched
+    turbo decode per K, CB CRC checks, reassembly, TB CRC. ``iters_out``
+    (a list) receives each turbo call's iteration count. The three steps
+    run in the profiler ranges ``dlsch.derm``, ``dlsch.turbo_decode`` and
     ``dlsch.crc_reassembly``. The filler bits' prior is ``filler_prior``.
     """
     segm = plan.segm
@@ -163,45 +174,33 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
 
     with trace.span("dlsch.derm"):
         prior = filler_prior(llrs, plan)
-        groups: dict = {}
-        for idx, (k, e, f, off) in enumerate(plan.cb_plans):
-            groups.setdefault((k, e, f), []).append((idx, off))
-
-        derm: dict = {}
-        for (k, e, f), members in groups.items():
-            seg = torch.stack([llrs[..., off:off + e] for _, off in members],
-                              dim=-2)                      # [..., n_cb, E]
-            sb = (torch.stack([softbuffers[idx] for idx, _ in members],
+        fed = {}
+        for k, members in plan.k_groups.items():
+            sb = (torch.stack([softbuffers[idx] for idx, *_ in members],
                               dim=-2)
                   if softbuffers is not None else None)
-            d_llr, ns = plan.rm(k, f).rx(seg, plan.rv, softbuffer=sb,
-                                         filler=prior)
-            derm.setdefault(k, []).append((f, members, d_llr, ns))
+            fed[k] = derm_to_decoder(
+                llrs, tuple((e, f, off) for _idx, e, f, off in members),
+                plan.rv, plan.decoder(k), softbuffer=sb, prior=prior)
 
     with trace.span("dlsch.turbo_decode"):
-        decoded = {}
-        for k, items in derm.items():
-            d_all = (torch.cat([d for _f, _m, d, _n in items], dim=-3)
-                     if len(items) > 1 else items[0][2])
-            decoded[k], _ = plan.decoder(k).decode(d_all, crc=stop_crc,
-                                                   iters_out=iters_out)
+        decoded = {k: plan.decoder(k).decode_prepared(
+                       *inputs, crc=stop_crc, iters_out=iters_out)[0]
+                   for k, (_soft, inputs) in fed.items()}
 
     with trace.span("dlsch.crc_reassembly"):
         new_soft = [None] * segm.c
         cb_bits = [None] * segm.c
         cb_ok = []
-        for k, items in derm.items():
-            slot = 0
-            for f, members, _d, ns in items:
-                for j, (idx, _off) in enumerate(members):
-                    new_soft[idx] = ns[..., j, :]
-                    b = decoded[k][..., slot, :]
-                    slot += 1
-                    if segm.c > 1:
-                        cb_ok.append(CRC24B.check(b))
-                        cb_bits[idx] = b[..., f:k - 24]
-                    else:
-                        cb_bits[idx] = b[..., f:]
+        for k, members in plan.k_groups.items():
+            for j, (idx, _e, f, _off) in enumerate(members):
+                new_soft[idx] = fed[k][0][..., j, :]
+                b = decoded[k][..., j, :]
+                if segm.c > 1:
+                    cb_ok.append(CRC24B.check(b))
+                    cb_bits[idx] = b[..., f:k - 24]
+                else:
+                    cb_bits[idx] = b[..., f:]
 
         full = torch.cat(cb_bits, dim=-1)                  # [..., tbs + 24]
         tb_ok = CRC24A.check(full)

@@ -401,9 +401,52 @@ class TurboDecoder:
                     break
         return llr, n_it
 
+    def prepare(self, d_llr):
+        """d_llr[..., 3, K+4] -> the decoder's inputs (sys1_tm, par1_tm,
+        sys2_tail_tm, par2_tm, lead): the input (float32, bfloat16 or an
+        int8 lane's LLRs, exact in bfloat16) cast to ``metric_dtype``,
+        split into the constituents' streams (``_split_streams``) and
+        made time-major: sys1/par1/par2 [K+3, B], sys2's tail [3, B],
+        B = prod(lead) code blocks, ``lead`` = d_llr's leading dims.
+        ``rate_matching.derm_to_decoder`` gives the same from the LLRs."""
+        d_llr = d_llr.to(self.metric_dtype)
+        sys1, par1, sys2_tail, par2 = self._split_streams(d_llr)
+        lead = sys1.shape[:-1]
+        b = int(np.prod(lead)) if lead else 1
+        tm = lambda x: x.reshape(b, x.shape[-1]).t().contiguous()
+        return tm(sys1), tm(par1), tm(sys2_tail), tm(par2), lead
+
+    def decode_prepared(self, sys1_tm, par1_tm, sys2_tail_tm, par2_tm, lead,
+                        crc=None, iters_out: list | None = None,
+                        map_decode=None):
+        """Decode the prepared inputs (``prepare``) -> (bits[*lead, K]
+        int8, llr[*lead, K]), the LLRs in ``metric_dtype``.
+        ``iters_out`` (a list) receives the iteration count.
+        ``map_decode`` replaces the constituent kernel wrapper of ``impl``
+        (with its plain twin, to compare the two)."""
+        k = self.k
+        if self.impl == "xla" or (self.impl == "windowed"
+                                  and self.window is not None):
+            default = map_decode_win if self.impl == "windowed" \
+                else map_decode_xla
+            llr, n_it = self.decode_win(
+                sys1_tm, par1_tm, sys2_tail_tm, par2_tm, crc=crc,
+                map_decode=map_decode or default)
+        else:
+            llr_int, n_it = self.decode_tm(
+                sys1_tm[:k], par1_tm[:k], par2_tm[:k], sys1_tm[k:],
+                par1_tm[k:], sys2_tail_tm, par2_tm[k:], crc=crc,
+                map_decode=map_decode or map_decode_nii)
+            llr = llr_int[_perm("pinv", k, sys1_tm.device)]
+        if iters_out is not None:
+            iters_out.append(n_it)
+        llr = llr.t().reshape(*lead, k)
+        return (llr < 0).to(torch.int8), llr
+
     def decode(self, d_llr, crc=None, iters_out: list | None = None,
                map_decode=None):
-        """Decode d_llr[..., 3, K+4] -> (bits[..., K] int8, llr[..., K]).
+        """Decode d_llr[..., 3, K+4] -> (bits[..., K] int8, llr[..., K]):
+        ``decode_prepared(*prepare(d_llr))``.
 
         Leading dims are batch. The input (float32, bfloat16 or an int8
         lane's LLRs, exact in bfloat16) is cast to ``metric_dtype``, and
@@ -411,27 +454,6 @@ class TurboDecoder:
         iteration count. ``map_decode`` replaces the constituent kernel
         wrapper of ``impl`` (with its plain twin, to compare the two).
         """
-        k = self.k
-        d_llr = d_llr.to(self.metric_dtype)
-        sys1, par1, sys2_tail, par2 = self._split_streams(d_llr)
-        lead = sys1.shape[:-1]
-        b = int(np.prod(lead)) if lead else 1
-        tm = lambda x: x.reshape(b, x.shape[-1]).t().contiguous()
-        sys1_tm, par1_tm, par2_tm = tm(sys1), tm(par1), tm(par2)
-        if self.impl == "xla" or (self.impl == "windowed"
-                                  and self.window is not None):
-            default = map_decode_win if self.impl == "windowed" \
-                else map_decode_xla
-            llr, n_it = self.decode_win(
-                sys1_tm, par1_tm, tm(sys2_tail), par2_tm, crc=crc,
-                map_decode=map_decode or default)
-        else:
-            llr_int, n_it = self.decode_tm(
-                sys1_tm[:k], par1_tm[:k], par2_tm[:k], sys1_tm[k:],
-                par1_tm[k:], tm(sys2_tail), par2_tm[k:], crc=crc,
-                map_decode=map_decode or map_decode_nii)
-            llr = llr_int[_perm("pinv", k, d_llr.device)]
-        if iters_out is not None:
-            iters_out.append(n_it)
-        llr = llr.t().reshape(*lead, k)
-        return (llr < 0).to(torch.int8), llr
+        return self.decode_prepared(*self.prepare(d_llr), crc=crc,
+                                    iters_out=iters_out,
+                                    map_decode=map_decode)

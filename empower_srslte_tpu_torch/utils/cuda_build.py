@@ -41,7 +41,8 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
 #: the receivers' CUDA kernels: the first ``load`` of one of them builds
 #: each of them not built yet, all compilers started together
-KERNELS = ("chest_dl", "pdcch_rx", "turbo_nii", "turbo_win", "viterbi37")
+KERNELS = ("chest_dl", "pdcch_rx", "sch_derm", "turbo_nii", "turbo_win",
+           "viterbi37")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

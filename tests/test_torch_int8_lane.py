@@ -106,16 +106,18 @@ def test_int8_rate_matching_and_harq_saturation(rng, k, f, e):
     assert f32[0].dtype == torch.float32
 
 
-def _spy_decode(monkeypatch, cls, seen: list):
-    """Record the (bits, LLRs) of every ``cls.decode`` call."""
-    real = cls.decode
+def _spy_decode(monkeypatch, cls, seen: list, method: str = "decode"):
+    """Record the (bits, LLRs) of every ``cls.<method>`` call (the port's
+    DL-SCH decode calls ``decode_prepared`` on the de-rate-matched
+    inputs)."""
+    real = getattr(cls, method)
 
     def spy(self, *a, **kw):
         out = real(self, *a, **kw)
         seen.append((self, out[1]))
         return out
 
-    monkeypatch.setattr(cls, "decode", spy)
+    monkeypatch.setattr(cls, method, spy)
 
 
 def test_pdsch_int8_lane_matches_jax(rng, monkeypatch):
@@ -163,7 +165,7 @@ def test_pdsch_int8_lane_matches_jax(rng, monkeypatch):
 
     monkeypatch.setattr(pdsch, "dlsch_decode", port_capture)
     port_llr: list = []
-    _spy_decode(monkeypatch, TurboDecoder, port_llr)
+    _spy_decode(monkeypatch, TurboDecoder, port_llr, "decode_prepared")
     bits, ok, soft = pdsch.pdsch_decode(torch.as_tensor(y),
                                         torch.as_tensor(h), cfg, plan,
                                         noise_est=float(n0))
