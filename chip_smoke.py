@@ -26,6 +26,11 @@ shape it launched against the twin of that shape's dtype:
   subframes and on generated regions of 6-100 PRB, 1-4 ports, CFI 1-3,
   the extended CP and an SNR where most candidates are noise, timed
   beside their bounds, and their launches a path call (``pdcch_rx``);
+* the eNB's downlink transmitter ``enb_dl_tx_batch`` at the benchmark
+  cell's shape (256 subframes of the 20 MHz 2x2 TM4 grant at MCS 28 with
+  both grants' DCIs and a HARQ indicator), held to the plain reference
+  ``phybench/references/dl_tx.py`` on 4 subframes, with its launches
+  (``enb_dl_tx``; no hand-written kernel);
 * the PDSCH in TM2 on 4 ports (SFBC-FSTD) on the float32 and the int8
   LLR lanes and in TM3 (CDD, 2 codewords), genie channel (NII kernel);
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
@@ -1699,6 +1704,63 @@ def phase_main_path():
           "turbo_shapes": turbo, "peak_mem_gb": peak, "checks": checks})
     check("main path", checks)
     return launches, turbo
+
+
+def phase_enb_dl_tx():
+    """The eNB's downlink transmitter (``enb_dl_tx_batch``) at the
+    benchmark cell's shape (``phybench/configs/enb_dl_tm4_20mhz.json``):
+    BATCH subframes of the 20 MHz 2x2 TM4 grant at MCS 28 with the
+    format-1 and format-0 DCIs and a HARQ indicator, through the cell's
+    driver. Every call's samples equal the first's; on 4 subframes the
+    samples are held to ``phybench/references/dl_tx.py`` (their gap over
+    the reference's largest magnitude under 1e-5, no RE decided apart).
+    Its launches from the launch registry (no hand-written kernel runs on
+    this path) and, from one call under ``torch.profiler``, the kernels a
+    call launches."""
+    import json
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from phybench.drivers.enb_dl_tx_batch import Driver
+
+    conf = json.loads((ROOT / "phybench" / "configs"
+                       / "enb_dl_tm4_20mhz.json").read_text())
+    traffic = {"subframes_per_call": BATCH, "pool_subframes": BATCH,
+               "draw_subframes": BATCH, "check_calls": 1,
+               "check_subframes": 4}
+    drv = Driver(conf, traffic, 61, "cuda")
+    res, launches, ms_first, ms, peak, _ = counted_run(lambda: drv.call(0))
+    drv.tally(0, res)
+    del res
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        drv.tally(0, drv.call(0))
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    t0 = time.perf_counter()
+    readings = drv.check()
+    ref_s = time.perf_counter() - t0
+    checks = {
+        "gap_samples_under_1e-5": readings["gap.samples"] < 1e-5,
+        "no_re_decided_apart": readings["diff.re"] == 0,
+        "replay_equal": readings["replay"] == 0,
+        "every_call_equal_the_first": all(bool(e.all())
+                                          for e, *_ in drv.log),
+        "no_hand_written_kernel": sum(launches.values()) == 0,
+    }
+    emit({"phase": "enb_dl_tx", "batch": BATCH, "nof_prb": conf["nof_prb"],
+          "mcs": conf["mcs"], "tbs": conf["tbs"], "codewords": 2,
+          "ms_per_batch": ms, "ms_counted_run": ms_first,
+          "mbps": BATCH * 2 * conf["tbs"] / (ms * 1e-3) / 1e6,
+          "launches": dict(launches), "kernels_per_call": kernels,
+          "peak_mem_gb": peak, "reference_s": round(ref_s, 2),
+          "readings": readings, "checks": checks})
+    check("enb_dl_tx", checks)
+    return launches
 
 
 def win_inputs(g, k: int, b: int, dtype="float32"):
@@ -4006,6 +4068,7 @@ def main() -> int:
                  "pdcch_rx": phase_pdcch_rx,
                  "sch_derm": phase_sch_derm,
                  "main_path": phase_main_path,
+                 "enb_dl_tx": phase_enb_dl_tx,
                  "tm2": phase_tm2,
                  "tm3": phase_tm3,
                  "pmch": phase_pmch,
@@ -4054,6 +4117,7 @@ def main() -> int:
     rec_launches, rec, rates = recursion_kernel_check()
     probe_bf16 = next(r["tops"] for r in rates if r["type"] == "bf16")
     launches, main_shapes = phase_main_path()
+    phase_enb_dl_tx()
     ul_launches, vit_ul, ul_shapes = phase_uplink()
     phase_uplink_midsnr()
     tm2, tm2_shapes = phase_tm2()

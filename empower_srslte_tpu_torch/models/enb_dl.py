@@ -5,6 +5,11 @@ CRS placed (put_base, enb_dl.c:323-388), the control and shared channels
 added by their own modules, then iFFT to time-domain samples (gen_signal,
 enb_dl.c:389). Batched: every function takes/returns leading batch dims.
 
+``enb_dl_tx_batch`` is the eNB's batched downlink transmitter: a batch of
+subframes of one grant, from TBs to the antenna ports' samples, through
+``enb_dl_compose``, the one composer, which ``enb_dl_subframe`` runs at
+batch 1.
+
 ``tm4_stimulus`` builds the main path's receive samples: a batch of
 20 MHz 2x2 TM4 two-codeword subframes with PCFICH, one DCI and PDSCH,
 through a per-subframe 2x2 channel and AWGN — the same construction and
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.ofdm import ofdm_tx_sf
+from ..runtime import trace
 from ..utils.cell import Cell
 from ..utils.device import device_table, resolve_device
 from . import ra
@@ -191,30 +197,69 @@ def tm4_stimulus(batch: int, *, device=None) -> Tm4Stimulus:
     return Tm4Stimulus(cfg, plan, samples, tb_t, tb2_t)
 
 
-def enb_dl_subframe(cell: Cell, sf_idx: int, cfi: int, *, dcis=(),
-                    phichs=(), pdschs=(), device=None):
-    """One subframe's per-port grid [P, nsymb, nre] (enb_dl.c put_base,
-    put_pcfich, put_pdcch_dl, put_phich, put_pdsch): CRS, the CFI, each
-    DCI of ``dcis`` as (bits, rnti, cce, L), each PHICH of ``phichs`` as
-    (ack, group, seq) and each PDSCH of ``pdschs`` as (tb_bits [tbs],
-    PdschConfig, DlschPlan) on the ports its scheme uses."""
+def enb_dl_compose(cell: Cell, sf_idx: int, cfi: int, batch: int, *,
+                   dcis=(), phichs=(), pdschs=(), device=None):
+    """``batch`` subframes' per-port grids [batch, P, nsymb, nre], in
+    enb_dl.c's order (put_base, put_pcfich, put_phich, put_pdcch_dl /
+    put_pdcch_ul, put_pdsch): CRS, the CFI, each HI of ``phichs`` as
+    (ack, group, seq) and each DCI of ``dcis`` as (bits, rnti, cce, L),
+    the same in every subframe, in the range ``enb_dl.control_tx``; then
+    each PDSCH of ``pdschs`` as (tb [batch, tbs], PdschConfig, DlschPlan,
+    tb2 [batch, tbs] or None), written onto the ports its scheme uses
+    (``pdsch_encode``'s ``dlsch.*`` and ``pdsch.map`` ranges)."""
     from .pcfich import pcfich_put
     from .pdcch import pdcch_encode
     from .pdsch import pdsch_encode
     from .phich import phich_put
 
-    grid = pcfich_put(enb_dl_base_grid(cell, sf_idx, device=device), cfi,
-                      cell, sf_idx)
-    for bits, rnti, cce, l in dcis:
-        grid = grid + pdcch_encode(torch.as_tensor(bits, device=grid.device),
-                                   rnti, cce, l, cell, cfi, sf_idx)
-    for ack, group, seq in phichs:
-        grid = phich_put(grid, ack, cell, sf_idx, group, seq)
-    for tb, cfg, plan in pdschs:
-        ports = pdsch_encode(tb[None], cfg, plan)[0]
-        grid = torch.cat([grid[:ports.shape[0]] + ports,
-                          grid[ports.shape[0]:]])
+    with trace.span("enb_dl.control_tx"):
+        grid = pcfich_put(enb_dl_base_grid(cell, sf_idx, (1,), device),
+                          cfi, cell, sf_idx)
+        for ack, group, seq in phichs:
+            grid = phich_put(grid, ack, cell, sf_idx, group, seq)
+        for bits, rnti, cce, l in dcis:
+            grid = grid + pdcch_encode(
+                torch.as_tensor(bits, device=grid.device), rnti, cce, l,
+                cell, cfi, sf_idx)
+        grid = grid.expand(batch, -1, -1, -1).contiguous()
+    for tb, cfg, plan, tb2 in pdschs:
+        pdsch_encode(tb, cfg, plan, tb2, None if tb2 is None else plan,
+                     grid=grid)
     return grid
+
+
+def enb_dl_tx_batch(tb, cfg, plan, *, tb2=None, dcis=(), phichs=()):
+    """The eNB's downlink transmitter over a batch of subframes of one
+    grant: tb (and tb2, the second codeword's) [B, tbs] 0/1 -> the antenna
+    ports' samples [B, ports, sf_len] complex64.
+
+    ``cfg`` (PdschConfig) gives the cell, subframe, CFI and the PDSCH's
+    scheme, ``plan`` (DlschPlan) each codeword's DL-SCH; ``dcis`` (bits,
+    rnti, cce, L) and ``phichs`` (ack, group, seq) are one a call, the
+    same in every subframe. The call runs ``enb_dl_compose`` then
+    ``enb_dl_gen_signal`` in the range ``enb_dl.tx_batch`` (its self time
+    is the transmitter's glue); its stages in ``enb_dl.control_tx``,
+    ``dlsch.crc_attach``, ``dlsch.turbo_encode``, ``dlsch.rate_match``,
+    ``pdsch.map`` and ``enb_dl.ofdm_tx``."""
+    with trace.root("enb_dl.tx_batch", tb.device):
+        grid = enb_dl_compose(cfg.cell, cfg.sf_idx, cfg.cfi, tb.shape[0],
+                              dcis=dcis, phichs=phichs,
+                              pdschs=[(tb, cfg, plan, tb2)],
+                              device=tb.device)
+        with trace.span("enb_dl.ofdm_tx"):
+            return enb_dl_gen_signal(grid, cfg.cell)
+
+
+def enb_dl_subframe(cell: Cell, sf_idx: int, cfi: int, *, dcis=(),
+                    phichs=(), pdschs=(), device=None):
+    """One subframe's per-port grid [P, nsymb, nre]: ``enb_dl_compose`` at
+    batch 1, each PDSCH of ``pdschs`` as (tb_bits [tbs], PdschConfig,
+    DlschPlan) of one codeword."""
+    dev = resolve_device(device)
+    return enb_dl_compose(
+        cell, sf_idx, cfi, 1, dcis=dcis, phichs=phichs,
+        pdschs=[(torch.as_tensor(tb, device=dev)[None], cfg, plan, None)
+                for tb, cfg, plan in pdschs], device=dev)[0]
 
 
 @dataclass

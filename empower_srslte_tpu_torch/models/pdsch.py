@@ -138,38 +138,49 @@ class PdschConfig:
 
 
 def pdsch_encode(tb_bits, cfg: PdschConfig, plan: DlschPlan, tb_bits2=None,
-                 plan2: DlschPlan | None = None):
+                 plan2: DlschPlan | None = None, *, grid=None):
     """tb_bits[..., tbs] -> per-port grid [..., ports, nsymb, nre] complex64.
 
     DL-SCH encode -> scramble -> modulate -> layer map -> precode -> RE
-    placement (srslte_pdsch_encode, pdsch.c:1048).
+    placement (srslte_pdsch_encode, pdsch.c:1048). Two codewords of one
+    plan encode as ONE ``dlsch_encode`` with a leading codeword axis
+    (its ``dlsch.*`` ranges); the rest runs in the range ``pdsch.map``.
+    With ``grid`` [..., P, nsymb, nre] (P at least the scheme's ports)
+    the PDSCH's REs are written into it in place and it is returned.
     """
-    cws = []
     pairs = [(tb_bits, plan)] + ([(tb_bits2, plan2)]
                                  if tb_bits2 is not None else [])
-    for cw, (bits, pl) in enumerate(pairs):
-        coded = dlsch_encode(bits, pl)
-        cws.append(modulate(scramble_bits(coded, cfg.cinit(cw)), cfg.mod))
-    if cfg.mimo is MimoType.SINGLE:
-        ports = cws[0][..., None, :]                       # [..., 1, M]
-    elif cfg.mimo is MimoType.DIVERSITY:
-        if cfg.cell.nof_ports == 4:
-            ports = precode_sfbc_fstd(layermap(cws, 4))    # [..., 4, M]
-        else:
-            ports = precode_sfbc(layermap(cws, 2))         # [..., 2, M]
-    elif cfg.mimo is MimoType.SPATIAL_MUX:
-        ports = precode_mux_2x2(
-            layermap(cws, cfg.nof_layers, cfg.nof_codewords), cfg.pmi)
+    if len(pairs) == 2 and plan == plan2 and tb_bits.shape == tb_bits2.shape:
+        coded = list(dlsch_encode([tb_bits, tb_bits2], plan))
     else:
-        ports = precode_cdd_2layer(
-            layermap(cws, cfg.nof_layers, cfg.nof_codewords))
-    n_ports = ports.shape[-2]
-    lead = ports.shape[:-2]
-    cell = cfg.cell
-    idx = cfg.re_index_tensor(ports.device)[:ports.shape[-1]]
-    grid = ports.new_zeros((*lead, n_ports, cell.nsymb_sf * cell.nof_re))
-    grid[..., idx] = ports
-    return grid.reshape(*lead, n_ports, cell.nsymb_sf, cell.nof_re)
+        coded = [dlsch_encode(bits, pl) for bits, pl in pairs]
+    with trace.span("pdsch.map"):
+        cws = [modulate(scramble_bits(c, cfg.cinit(cw)), cfg.mod)
+               for cw, c in enumerate(coded)]
+        if cfg.mimo is MimoType.SINGLE:
+            ports = cws[0][..., None, :]                   # [..., 1, M]
+        elif cfg.mimo is MimoType.DIVERSITY:
+            if cfg.cell.nof_ports == 4:
+                ports = precode_sfbc_fstd(layermap(cws, 4))  # [..., 4, M]
+            else:
+                ports = precode_sfbc(layermap(cws, 2))     # [..., 2, M]
+        elif cfg.mimo is MimoType.SPATIAL_MUX:
+            ports = precode_mux_2x2(
+                layermap(cws, cfg.nof_layers, cfg.nof_codewords), cfg.pmi)
+        else:
+            ports = precode_cdd_2layer(
+                layermap(cws, cfg.nof_layers, cfg.nof_codewords))
+        n_ports = ports.shape[-2]
+        cell = cfg.cell
+        idx = cfg.re_index_tensor(ports.device)[:ports.shape[-1]]
+        if grid is not None:
+            flat = grid.view(*grid.shape[:-2], -1)
+            flat[..., :n_ports, idx] = ports
+            return grid
+        lead = ports.shape[:-2]
+        out = ports.new_zeros((*lead, n_ports, cell.nsymb_sf * cell.nof_re))
+        out[..., idx] = ports
+        return out.reshape(*lead, n_ports, cell.nsymb_sf, cell.nof_re)
 
 
 # --- decode (UE side) -------------------------------------------------------

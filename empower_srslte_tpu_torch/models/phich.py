@@ -1,11 +1,14 @@
-"""PHICH: hybrid-ARQ indicator channel (36.211 6.9).
+"""PHICH: hybrid-ARQ indicator channel (36.211 6.9, 36.212 5.3.5).
 
-Capability parity with lib/src/phy/phch/phich.c: BPSK ACK/NACK spread by
-length-4 orthogonal sequences (8 sequences, normal CP), repeated over 3
-REGs of symbol 0, group/sequence addressing, scrambling. Normal PHICH
-duration only (the reference's default). A cell of 2 or more ports sends
-2-port SFBC on ports 0 and 1, as the reference package does (36.211
-6.9.2 would use the 4-port scheme on 4 ports).
+Capability parity with lib/src/phy/phch/phich.c: the HI (1 = ACK) coded
+as three equal bits (36.212 5.3.5), each BPSK-modulated (36.211 7.1.1:
+bit b -> (1 - 2b)(1 + j)/sqrt(2)), spread by one of the 8 length-4
+orthogonal sequences (normal CP) and scrambled with c_init =
+(floor(n_s / 2) + 1)(2 N_ID + 1) 2^9 + N_ID (6.9.1), over the group's 3
+REGs of symbol 0. Normal PHICH duration only (the reference's default).
+A cell of 2 or more ports sends 2-port SFBC on ports 0 and 1, as the
+reference package does (36.211 6.9.2 would use the 4-port scheme on 4
+ports).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from ..ops.equalizer import eq_sfbc, precode_sfbc
 from ..utils.cell import Cell
 from ..utils.device import device_table
-from ..utils.sequence import cinit_pdcch, gold_sequence
+from ..utils.sequence import cinit_pcfich, gold_sequence
 from .regs import nof_phich_groups, phich_regs, symbol_regs
 
 #: Orthogonal sequences, normal CP (36.211 Table 6.9.1-2).
@@ -29,6 +32,8 @@ _W = np.array([
 ], dtype=np.complex64)
 
 NSF = 4
+#: the BPSK symbol of HI bit 0 (NACK); bit 1 (ACK) is its negative
+_BPSK0 = (1 + 1j) / np.sqrt(2)
 
 
 def phich_resource(cell: Cell, prb_start: int, n_dmrs: int = 0,
@@ -53,7 +58,8 @@ def _group_re_indices(cell: Cell, ng: float, group: int) -> np.ndarray:
 
 
 def _scramble_seq(cell: Cell, sf_idx: int) -> np.ndarray:
-    c = gold_sequence(cinit_pdcch(2 * sf_idx, cell.id), 12)
+    """1 - 2 c(i), i < 12 (36.211 6.9.1: the PCFICH's c_init form)."""
+    c = gold_sequence(cinit_pcfich(2 * sf_idx, cell.id), 12)
     return (1.0 - 2.0 * c).astype(np.float32)
 
 
@@ -64,10 +70,10 @@ def _group_idx(cell: Cell, ng: float, group: int, device) -> torch.Tensor:
 
 def phich_put(grid, ack: int, cell: Cell, sf_idx: int, group: int = 0,
               seq_idx: int = 0, ng: float = 1.0):
-    """Add one ACK(1)/NACK(0) indicator to grid [..., P, nsymb, nre]:
+    """Add one HI, ACK (1) or NACK (0), to grid [..., P, nsymb, nre]:
     single port, or 2-port SFBC on ports 0 and 1. Returns a new grid."""
-    bpsk = 1.0 if ack else -1.0
-    z = np.tile(_W[seq_idx], 3) * bpsk * _scramble_seq(cell, sf_idx)
+    z = np.tile(_W[seq_idx], 3) * _scramble_seq(cell, sf_idx) * (
+        -_BPSK0 if ack else _BPSK0)
     zt = torch.as_tensor(z.astype(np.complex64), device=grid.device)
     if cell.nof_ports >= 2:
         port_syms = precode_sfbc(torch.stack([zt[0::2], zt[1::2]]))
@@ -82,7 +88,9 @@ def phich_put(grid, ack: int, cell: Cell, sf_idx: int, group: int = 0,
 
 def phich_decode(grid, h, cell: Cell, sf_idx: int, group: int = 0,
                  seq_idx: int = 0, ng: float = 1.0, noise_est=0.0):
-    """Decode one indicator: -> (ack [...] bool, metric [...]).
+    """Decode one HI: -> (ack [...] bool, metric [...]), the metric the
+    despread symbol's projection on the ACK symbol -(1 + j)/sqrt(2)
+    (positive <=> ACK).
 
     grid [..., nsymb, nre]; ``h``: [..., nsymb, nre] single-port or
     [..., P, nsymb, nre] (SFBC on ports 0 and 1 when P >= 2)."""
@@ -102,5 +110,6 @@ def phich_decode(grid, h, cell: Cell, sf_idx: int, group: int = 0,
                        lambda: _scramble_seq(cell, sf_idx))
     w = device_table(("phich_w", seq_idx), grid.device,
                      lambda: np.tile(np.conj(_W[seq_idx]), 3))
-    corr = torch.sum(x * scr * w, dim=-1).real / 12.0
-    return corr > 0, corr
+    corr = torch.sum(x * scr * w, dim=-1) / 12.0
+    metric = -(corr.real + corr.imag) / float(np.sqrt(2))
+    return metric > 0, metric

@@ -7,12 +7,15 @@ with HARQ soft combining -> iterative turbo decode with CRC early stop ->
 reassembly -> TB CRC, sch.c:307-422).
 
 A frozen ``DlschPlan`` captures every static dimension (segmentation,
-per-CB K/E/F, RV). Decoding is one path at every batch size: the code
-blocks of each K are de-rate-matched straight into the turbo decoder's
-inputs (``derm_to_decoder``: one kernel launch on the card) and decoded
-as ONE batched turbo call over all leading dims x code blocks (the
-reference decodes CBs serially with a per-CB early stop; here the early
-stop waits for the whole batch).
+per-CB K/E/F, RV). Encoding takes the code blocks of each K together:
+one gather segments them, one turbo encode and one rate-matching gather
+per K, over all leading dims (the reference encodes CBs serially).
+Decoding is one path at every batch size: the code blocks of each K are
+de-rate-matched straight into the turbo decoder's inputs
+(``derm_to_decoder``: one kernel launch on the card) and decoded as ONE
+batched turbo call over all leading dims x code blocks (the reference
+decodes CBs serially with a per-CB early stop; here the early stop waits
+for the whole batch).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops.fec.cbsegm import CbSegm, cbsegm
@@ -28,6 +32,7 @@ from ..ops.fec.turbo_decoder import TurboDecoder
 from ..ops.fec.turbo_encoder import turbo_encode
 from ..runtime import trace
 from ..utils.crc import CRC24A, CRC24B
+from ..utils.device import device_table
 
 
 def _cb_e_sizes(g: int, c: int, qm: int, n_layers: int) -> tuple[int, ...]:
@@ -125,35 +130,68 @@ def filler_prior(llrs: torch.Tensor, plan: DlschPlan):
     return c_f * llrs.abs().to(torch.float32).mean(-1)
 
 
-def dlsch_encode(tb_bits: torch.Tensor, plan: DlschPlan) -> torch.Tensor:
-    """Encode tb_bits[..., tbs] -> codeword bits [..., G] int8
-    (encode_tb_off, sch.c:188-298)."""
+def _segment_table(plan: DlschPlan, k: int) -> np.ndarray:
+    """[code blocks of size k, k - 24 (k when C is 1)] int64: each
+    block's payload as positions in [0] ++ TB ++ CRC24A, 0 for its
+    leading filler bits (36.212 5.1.2)."""
     segm = plan.segm
-    lead = tb_bits.shape[:-1]
-    dev = tb_bits.device
-    tb_crc = CRC24A.compute(tb_bits).to(torch.int8)
-    full = torch.cat([tb_bits.to(torch.int8), tb_crc], dim=-1)
-
-    # segmentation: K- blocks first, filler zeros lead the first block
-    pieces = []
-    pos = 0
-    for i, k in enumerate(segm.cb_sizes):
-        f = segm.f if i == 0 else 0
-        payload = k - f - (24 if segm.c > 1 else 0)
-        cb = full[..., pos:pos + payload]
+    rows, pos = [], 0
+    for kk, _e, f, _off in plan.cb_plans:
+        payload = kk - f - (24 if segm.c > 1 else 0)
+        if kk == k:
+            rows.append(np.concatenate([np.zeros(f, np.int64),
+                                        np.arange(pos, pos + payload) + 1]))
         pos += payload
-        if f:
-            cb = torch.cat([torch.zeros((*lead, f), dtype=torch.int8,
-                                        device=dev), cb], dim=-1)
-        if segm.c > 1:
-            cb = torch.cat([cb, CRC24B.compute(cb).to(torch.int8)], dim=-1)
-        pieces.append(cb)
-    assert pos == plan.tbs + 24
+    return np.stack(rows)
 
-    out = []
-    for (k, e, f, _), cb in zip(plan.cb_plans, pieces):
-        out.append(plan.rm(k, f).tx(turbo_encode(cb), plan.rv, e))
-    return torch.cat(out, dim=-1)
+
+def _rm_table(plan: DlschPlan, k: int) -> np.ndarray:
+    """The bit selection of the code blocks of size k (36.212 5.1.4.1.2)
+    as positions in their d [blocks, 3, K+4] flattened: [sum of E]."""
+    members = plan.k_groups[k]
+    return np.concatenate([
+        j * 3 * (k + 4) + plan.rm(k, f).tx_indices(plan.rv, e)
+        for j, (_idx, e, f, _off) in enumerate(members)]).astype(np.int64)
+
+
+def dlsch_encode(tb_bits, plan: DlschPlan) -> torch.Tensor:
+    """Encode tb_bits[..., tbs] -> codeword bits [..., G] int8
+    (encode_tb_off, sch.c:188-298); a list of such tensors (codewords of
+    one plan) is stacked on a new leading axis. The code blocks of each K
+    go together: the CRCs and segmentation (one gather a K) in the range
+    ``dlsch.crc_attach``, one turbo encode a K in ``dlsch.turbo_encode``,
+    one bit-selection gather a K in ``dlsch.rate_match``. The K- blocks
+    precede the K+ ones, so the groups' outputs in turn are the codeword's
+    blocks in natural order."""
+    segm = plan.segm
+    with trace.span("dlsch.crc_attach"):
+        if isinstance(tb_bits, (list, tuple)):
+            tb_bits = torch.stack(tb_bits)
+        lead = tb_bits.shape[:-1]
+        dev = tb_bits.device
+        tb_crc = CRC24A.compute(tb_bits).to(torch.int8)
+        padded = torch.cat([torch.zeros((*lead, 1), dtype=torch.int8,
+                                        device=dev),
+                            tb_bits.to(torch.int8), tb_crc], dim=-1)
+        blocks = {}
+        for k in plan.k_groups:
+            cb = padded[..., device_table(("dlsch_segment", plan, k), dev,
+                                          lambda k=k: _segment_table(plan,
+                                                                     k))]
+            if segm.c > 1:
+                cb = torch.cat([cb, CRC24B.compute(cb).to(torch.int8)],
+                               dim=-1)
+            blocks[k] = cb                                 # [..., n, k]
+
+    with trace.span("dlsch.turbo_encode"):
+        coded = {k: turbo_encode(cb) for k, cb in blocks.items()}
+
+    with trace.span("dlsch.rate_match"):
+        out = [d.reshape(*lead, -1)[..., device_table(
+                   ("dlsch_rm", plan, k), dev,
+                   lambda k=k: _rm_table(plan, k))]
+               for k, d in coded.items()]
+        return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
 
 
 def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,

@@ -6,6 +6,10 @@ pair.
 
 Both receivers decode the same time samples, made by the JAX package's
 transmitter; the port's composer must build the same grids (to 1e-6).
+The port's PHICH follows TS 36.211 6.9, where the JAX package's departs
+from it, so JAX's ``phich_put`` and ``phich_decode`` are replaced by the
+specification's (``tests/jax_dl_spec.py``) in every test here; every other
+JAX stage is compared as it is.
 The JAX ``ue_dl_decode`` decodes with its XLA turbo decoder on the CPU,
 the port with its NII twin. Result fields (CFI, DCI, CCE, CRC, PHICH bit,
 the bits of a passing decode) must be equal, and equal to what was sent.
@@ -35,6 +39,8 @@ from empower_srslte_tpu_torch.models import enb_dl, phich
 from empower_srslte_tpu_torch.models.ue_dl import ue_dl_decode
 from empower_srslte_tpu_torch.ops.equalizer import MimoType
 
+from tests.jax_dl_spec import spec_downlink
+
 SF_IDX, CFI, RNTI, SI_RNTI, MCS = 1, 3, 0x1234, 0xFFFF, 9
 #: flat per-port gains of the one rx antenna's channel
 GAINS = np.array([0.9 + 0.3j, -0.4 + 0.8j, 0.7 - 0.6j, 0.2 + 0.9j],
@@ -42,6 +48,13 @@ GAINS = np.array([0.9 + 0.3j, -0.4 + 0.8j, 0.7 - 0.6j, 0.2 + 0.9j],
 #: per-transmission SNR of the HARQ pair: MCS 9 on SFBC-FSTD fails alone
 #: and decodes combined, on both packages' decoders
 SNR_HARQ = 1.5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _spec_downlink():
+    """The JAX package's PHICH held to TS 36.211."""
+    with spec_downlink():
+        yield
 
 
 def _cplx(rng, *shape):

@@ -27,7 +27,11 @@ and delivers the packet: the same events every TTI, and the same IQ.
 The port's PUSCH DMRS and SC-FDMA follow TS 36.211 5.5.2.1.1 and 5.6,
 where the JAX package's depart from it, so the JAX pairs run with those
 stages replaced by the specification's (``tests/jax_ul_spec.py``): the
-UL IQ is compared with every other JAX stage as it is.
+UL IQ is compared with every other JAX stage as it is. The port's PHICH
+follows TS 36.211 6.9, where the JAX package's departs from it, so the
+JAX pairs run with its ``phich_put`` and ``phich_decode`` replaced by the
+specification's too (``tests/jax_dl_spec.py``): the DL IQ carries the
+eNB's HARQ indicators, and the JAX UE reads them.
 """
 
 import os
@@ -50,6 +54,7 @@ from empower_srslte_tpu_torch.tools.stack_scenarios import pong
 from empower_srslte_tpu_torch.upper import security as tsec
 from empower_srslte_tpu_torch.utils.cell import Cell as TCell
 
+from tests.jax_dl_spec import spec_downlink
 from tests.jax_ul_spec import spec_uplink
 
 K = bytes.fromhex("465b5ce8b199b49faa5f0a2ee238a6bc")
@@ -68,8 +73,9 @@ IQ_RTOL_OF_PEAK = 1e-4
 
 @pytest.fixture(scope="module", autouse=True)
 def _spec_uplink():
-    """The JAX stack's PUSCH DMRS and SC-FDMA pair held to TS 36.211."""
-    with spec_uplink():
+    """The JAX stack's PUSCH DMRS and SC-FDMA pair, and its PHICH, held to
+    TS 36.211."""
+    with spec_uplink(), spec_downlink():
         yield
 
 
