@@ -26,11 +26,16 @@ shape it launched against the twin of that shape's dtype:
   subframes and on generated regions of 6-100 PRB, 1-4 ports, CFI 1-3,
   the extended CP and an SNR where most candidates are noise, timed
   beside their bounds, and their launches a path call (``pdcch_rx``);
+* the turbo encoder kernel against its twin, bit for bit, at all 188 K
+  of 36.212 Table 5.1.3-3, on int64 and bool inputs with leading dims,
+  and at the transmitter cell's shape (2 codewords x 256 subframes x 13
+  code blocks of K 5824), timed beside its bound and the byte walk it
+  replaced, and its launches an ``enb_dl_tx_batch`` call (``turbo_enc``);
 * the eNB's downlink transmitter ``enb_dl_tx_batch`` at the benchmark
   cell's shape (256 subframes of the 20 MHz 2x2 TM4 grant at MCS 28 with
   both grants' DCIs and a HARQ indicator), held to the plain reference
   ``phybench/references/dl_tx.py`` on 4 subframes, with its launches
-  (``enb_dl_tx``; no hand-written kernel);
+  (``enb_dl_tx``; the turbo encoder kernel, once a call);
 * the PDSCH in TM2 on 4 ports (SFBC-FSTD) on the float32 and the int8
   LLR lanes and in TM3 (CDD, 2 codewords), genie channel (NII kernel);
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
@@ -128,7 +133,8 @@ batches (``BASELINE_SWEEP``), and puts both on its phase line.
 
 ``--phases`` runs the build and the named phases alone (any of the
 chest kernel's ``chest_dl``, the control kernels' ``pdcch_rx``, the
-de-rate-matching kernel's ``sch_derm``, the downlink paths
+de-rate-matching kernel's ``sch_derm``, the turbo encoder kernel's
+``turbo_enc``, the transmitter's ``enb_dl_tx``, the downlink paths
 ``main_path``, ``tm2``, ``tm3``, ``pmch``, ``ue_dl_frame`` and
 ``cold_boot``, the BLER gate ``bler_gate``, the
 turbo kernel checks ``kernel_turbo``
@@ -1665,6 +1671,94 @@ def phase_sch_derm():
     return out
 
 
+def phase_turbo_enc():
+    """The turbo encoder kernel (``csrc/turbo_enc.cu``) against its plain
+    twin run on the card, d equal bit for bit: at every K of 36.212 Table
+    5.1.3-3 on five code blocks (random, all ones, all zeros; three blocks
+    a launch take a half-filled last block), on int64 and bool inputs with
+    leading dims, and at the transmitter cell's shape (2 codewords x 256
+    subframes x 13 code blocks of K 5824) and a subframe's; there timed by
+    CUDA-graph replay beside its bound (the bits read and d written once)
+    and the twin (the byte walk it replaced) by CUDA events as a call
+    makes it. Then the launches of an ``enb_dl_tx_batch`` call at the
+    cell's shape: one, over every code block of the call (one K)."""
+    import json
+
+    import torch
+
+    from empower_srslte_tpu_torch.ops.fec import turbo_encoder as te
+    from empower_srslte_tpu_torch.ops.fec.tables import TURBO_CB_SIZES
+    from empower_srslte_tpu_torch.runtime import trace
+    from phybench.drivers.enb_dl_tx_batch import Driver
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    def differ(u) -> int:
+        got, ref = te.turbo_encode(u), te._turbo_encode_plain(u)
+        same = got.dtype == ref.dtype and got.shape == ref.shape
+        return int((got != ref).sum()) if same else -1
+
+    every_k = {}
+    for k in TURBO_CB_SIZES:
+        u = bits(5, k)
+        u[1], u[2] = 1, 0
+        every_k[k] = [differ(u), differ(u[:3])]
+    dtypes = {"int64": differ(bits(2, 3, 1024).to(torch.int64)),
+              "bool": differ(bits(3, 1, 2, 6144).bool()),
+              "int8_lead": differ(bits(2, 2, 3, 40))}
+    k_cell = 5824
+    shapes = {"cell_b256x2": 2 * BATCH * 13, "cell_tti_b1x2": 2 * 13}
+    timed = {}
+    for name, rows in shapes.items():
+        u = bits(rows, k_cell)
+        nbytes = rows * (k_cell + 3 * (k_cell + te.TAIL))
+        timed[name] = {"rows": rows, "k": k_cell, "mismatched": differ(u),
+                       "ms": graph_ms(lambda: te.turbo_encode(u), reps=20),
+                       **bound(nbytes, 0),
+                       "twin_ms": cuda_ms(lambda: te._turbo_encode_plain(u),
+                                          reps=2)}
+        timed[name]["over_bound"] = timed[name]["ms"] / timed[name]["bound_ms"]
+        timed[name]["twin_over_kernel"] = (timed[name]["twin_ms"]
+                                           / timed[name]["ms"])
+    conf = json.loads((ROOT / "phybench" / "configs"
+                       / "enb_dl_tm4_20mhz.json").read_text())
+    traffic = {"subframes_per_call": BATCH, "pool_subframes": BATCH,
+               "draw_subframes": BATCH, "check_calls": 1,
+               "check_subframes": 4}
+    drv = Driver(conf, traffic, 61, "cuda")
+    per_call = launches_per_call(lambda: drv.call(0), ["turbo_enc"])
+    open_counts()
+    drv.call(0)
+    call_shapes = trace.launch_shapes("turbo_enc")
+    cbs = 2 * BATCH * conf["code_blocks"]["count"]
+    checks = {
+        "twin_every_k": all(v == [0, 0] for v in every_k.values()),
+        "twin_every_dtype": all(v == 0 for v in dtypes.values()),
+        "twin_cell_shapes": all(v["mismatched"] == 0
+                                for v in timed.values()),
+        "one_launch_a_tx_call": per_call["turbo_enc"] == 1,
+        "every_code_block_in_the_launch": call_shapes
+        == {(conf["code_blocks"]["k"], cbs): 1},
+    }
+    m = timed["cell_b256x2"]
+    out = {"phase": "turbo_enc", "ks": len(every_k),
+           "mismatched_by_k": {k: v for k, v in every_k.items()
+                               if v != [0, 0]},
+           "mismatched_by_dtype": dtypes, "shapes": timed,
+           "launches_per_tx_call": per_call["turbo_enc"],
+           "tx_call_shapes": {str(k): v for k, v in call_shapes.items()},
+           "main": {k: m[k] for k in ("ms", "bound_ms", "over_bound",
+                                      "twin_ms")},
+           "ptxas": PTXAS.get("turbo_enc"), "checks": checks}
+    emit(out)
+    check("turbo_enc", checks)
+    return out
+
+
 def phase_main_path():
     """The main path: TM4 transmitter (plain PyTorch) -> receiver."""
     import torch
@@ -1714,9 +1808,9 @@ def phase_enb_dl_tx():
     driver. Every call's samples equal the first's; on 4 subframes the
     samples are held to ``phybench/references/dl_tx.py`` (their gap over
     the reference's largest magnitude under 1e-5, no RE decided apart).
-    Its launches from the launch registry (no hand-written kernel runs on
-    this path) and, from one call under ``torch.profiler``, the kernels a
-    call launches."""
+    Its launches from the launch registry (the turbo encoder kernel, once
+    a call: one K) and, from one call under ``torch.profiler``, the
+    kernels a call launches."""
     import json
 
     import torch
@@ -1750,7 +1844,7 @@ def phase_enb_dl_tx():
         "replay_equal": readings["replay"] == 0,
         "every_call_equal_the_first": all(bool(e.all())
                                           for e, *_ in drv.log),
-        "no_hand_written_kernel": sum(launches.values()) == 0,
+        "one_turbo_enc_launch_alone": dict(launches) == {"turbo_enc": 1},
     }
     emit({"phase": "enb_dl_tx", "batch": BATCH, "nof_prb": conf["nof_prb"],
           "mcs": conf["mcs"], "tbs": conf["tbs"], "codewords": 2,
@@ -3499,34 +3593,31 @@ def card_meshes():
 
 def main_path_tti_code_blocks():
     """One TTI of the main path as its turbo decoder receives it: a
-    subframe of ``tm4_stimulus`` through ``ue_dl_tm4_batch`` with a plan
-    whose decoders record their input (a subclass defined here, as
-    ``tools/rx_bler_sweep.py float32_plan``), -> (d_llr [20, 3, K+4]
-    float32: 2 codewords x 10 code blocks of K 5760, K)."""
-    import dataclasses
-
+    subframe of ``tm4_stimulus`` through ``ue_dl_tm4_batch`` with
+    ``models/sch.py``'s ``derm_to_decoder`` recorded (its first result,
+    each code block's de-rate-matched LLRs, which the decoder's inputs
+    are but for the filler bits' prior), -> (d_llr [20, 3, K+4] float32:
+    2 codewords x 10 code blocks of K 5760, K)."""
     import torch
 
+    from empower_srslte_tpu_torch.models import sch
     from empower_srslte_tpu_torch.models.enb_dl import tm4_stimulus
-    from empower_srslte_tpu_torch.models.sch import DlschPlan
     from empower_srslte_tpu_torch.models.ue_dl import ue_dl_tm4_batch
-    from empower_srslte_tpu_torch.ops.fec.turbo_decoder import TurboDecoder
 
     seen = []
+    derm = sch.derm_to_decoder
 
-    class Recorded(TurboDecoder):
-        def decode(self, d_llr, *args, **kw):
-            seen.append(d_llr)
-            return super().decode(d_llr, *args, **kw)
-
-    class RecordedPlan(DlschPlan):
-        def decoder(self, k):
-            return Recorded(**dataclasses.asdict(super().decoder(k)))
+    def recorded(*args, **kw):
+        soft, prepared = derm(*args, **kw)
+        seen.append(soft)
+        return soft, prepared
 
     st = tm4_stimulus(1, device="cuda")
-    plan = RecordedPlan(**{f.name: getattr(st.plan, f.name)
-                           for f in dataclasses.fields(st.plan)})
-    res = ue_dl_tm4_batch(st.samples, st.cfg, plan)
+    sch.derm_to_decoder = recorded
+    try:
+        res = ue_dl_tm4_batch(st.samples, st.cfg, st.plan)
+    finally:
+        sch.derm_to_decoder = derm
     assert all(bool(o.all()) for o in res.crc_ok), "main-path TTI failed"
     k = st.plan.segm.cb_sizes[0]
     d_llr = torch.cat([d.reshape(-1, 3, k + 4) for d in seen])
@@ -4067,6 +4158,7 @@ def main() -> int:
         alone = {"chest_dl": phase_chest_dl,
                  "pdcch_rx": phase_pdcch_rx,
                  "sch_derm": phase_sch_derm,
+                 "turbo_enc": phase_turbo_enc,
                  "main_path": phase_main_path,
                  "enb_dl_tx": phase_enb_dl_tx,
                  "tm2": phase_tm2,
@@ -4103,6 +4195,7 @@ def main() -> int:
     chest_out = phase_chest_dl()
     pdcch_out = phase_pdcch_rx()
     derm_out = phase_sch_derm()
+    enc_out = phase_turbo_enc()
     turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
@@ -4117,7 +4210,7 @@ def main() -> int:
     rec_launches, rec, rates = recursion_kernel_check()
     probe_bf16 = next(r["tops"] for r in rates if r["type"] == "bf16")
     launches, main_shapes = phase_main_path()
-    phase_enb_dl_tx()
+    tx_launches = phase_enb_dl_tx()
     ul_launches, vit_ul, ul_shapes = phase_uplink()
     phase_uplink_midsnr()
     tm2, tm2_shapes = phase_tm2()
@@ -4148,7 +4241,8 @@ def main() -> int:
     rx_launches, rx_shapes = phase_rx_bler_gate()
     scaling_launches = phase_scaling_sweep()
     shaped = {**stack, **apps}
-    by_path = {"main_path": launches, "uplink_path": ul_launches, **tm2,
+    by_path = {"main_path": launches, "enb_dl_tx": tx_launches,
+               "uplink_path": ul_launches, **tm2,
                "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
                "uplink_msg3": msg3,
                "cold_boot": cold, "pbch_batch": pbch,
@@ -4251,6 +4345,13 @@ def main() -> int:
          "held_by_path_shape": PATH_TWIN["sch_derm"],
          **{k: derm_out[k] for k in ("shapes", "launches_per_call",
                                       "main", "tti", "ptxas")},
+         "library_ms": None},
+        {"name": "turbo_enc", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/turbo_enc.cu",
+         "replaces": None, "launches": tx_launches["turbo_enc"],
+         "launches_by_path": per_path("turbo_enc"),
+         **{k: enc_out[k] for k in ("shapes", "mismatched_by_k",
+                                    "mismatched_by_dtype", "main", "ptxas")},
          "library_ms": None},
         {"name": "recursion_probe", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",

@@ -81,6 +81,12 @@ def cb_size_ceil(x: int) -> int:
     raise ValueError(f"x={x} exceeds max CB size {MAX_CB_SIZE}")
 
 
+def qpp_coefficients(k: int) -> tuple[int, int]:
+    """(f1, f2) of K's QPP interleaver; raises if K is not a valid size."""
+    idx = cb_size_index(k)
+    return _F1[idx], _F2[idx]
+
+
 @functools.lru_cache(maxsize=256)
 def qpp_interleaver(k: int) -> np.ndarray:
     """QPP permutation pi[i] = (f1*i + f2*i^2) mod K as int32[K].
@@ -88,8 +94,7 @@ def qpp_interleaver(k: int) -> np.ndarray:
     Output relation (36.212 5.1.3.2.3): c'_i = c_{pi(i)} — i.e. position i
     of the interleaved sequence reads from pi(i) of the original.
     """
-    idx = cb_size_index(k)
-    f1, f2 = _F1[idx], _F2[idx]
+    f1, f2 = qpp_coefficients(k)
     i = np.arange(k, dtype=np.int64)
     return ((f1 * i + f2 * i * i) % k).astype(np.int32)
 

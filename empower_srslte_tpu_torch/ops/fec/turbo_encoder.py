@@ -3,9 +3,13 @@
 Capability parity with lib/src/phy/fec/turbocoder.c (srslte_tcod_encode).
 Constituent code: G(D) = [1, g1(D)/g0(D)] with g0 = 1 + D^2 + D^3 (feedback)
 and g1 = 1 + D + D^3. The trellis tables here are shared with the
-max-log-MAP decoder. The encoder serves the eNB transmitter; it steps
-through the trellis a byte at a time (8 input bits per table lookup) on
-the tensors' device.
+max-log-MAP decoder. The encoder serves the eNB transmitter, the UE's
+UL-SCH and the PMCH: on a CUDA tensor every code block of one size is one
+launch of ``csrc/turbo_enc.cu`` (both constituents, the QPP interleaver,
+the terminations and the tail permutation; the trellis taken a 32-bit
+word at a time, see the source), and on the CPU its plain twin
+``_turbo_encode_plain`` steps through the trellis a byte at a time (8
+input bits per table lookup).
 
 Output layout: three streams d0 (systematic), d1 (parity 1), d2 (parity 2),
 each of length K + 4 including the 36.212 5.1.3.2.2 tail-bit permutation.
@@ -13,18 +17,26 @@ each of length K + 4 including the 36.212 5.1.3.2.2 tail-bit permutation.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from ...utils.cuda_build import Kernel
 from ...utils.device import device_table
-from .tables import qpp_interleaver
+from .tables import qpp_coefficients, qpp_interleaver
 
 #: Number of trellis states (2^3 registers).
 NOF_STATES = 8
 #: Tail bits per stream appended by trellis termination.
 TAIL = 4
+
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+#: the encoder's launcher (csrc/turbo_enc.cu): the code blocks' bits, d,
+#: rows, K, f1, f2. A launch's shape in the launch registry is (K, rows)
+TURBO_ENC = Kernel("turbo_enc", "turbo_enc_launch",
+                   [_P, _P, _I32, _I32, _I32, _I32])
 
 
 class TurboTrellis:
@@ -122,16 +134,36 @@ def _rsc_encode(u: torch.Tensor):
     return parity, torch.stack(xt, -1), torch.stack(zt, -1)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernel (a CUDA tensor) or the twin."""
+    return t.is_cuda
+
+
 def turbo_encode(u: torch.Tensor) -> torch.Tensor:
-    """Encode u [..., K] (0/1) -> d [..., 3, K+4] int8 (36.212 5.1.3.2).
+    """Encode u [..., K] (0/1, any integer dtype or bool) -> d [..., 3, K+4]
+    int8 (36.212 5.1.3.2).
 
     Stream tail layout per 36.212 5.1.3.2.2:
       d0: x_0..x_{K-1}, x_K,  z_{K+1}, x'_K,  z'_{K+1}
       d1: z_0..z_{K-1}, z_K,  x_{K+2}, z'_K,  x'_{K+2}
       d2: z'_0..z'_{K-1}, x_{K+1}, z_{K+2}, x'_{K+1}, z'_{K+2}
-    """
+
+    On a CUDA tensor one launch of ``csrc/turbo_enc.cu``
+    (``turbo_encode_cuda``); on the CPU the plain twin
+    ``_turbo_encode_plain``. Raises ValueError for a K that is not a size
+    of 36.212 Table 5.1.3-3."""
+    qpp_coefficients(u.shape[-1])    # raises off the table (every K % 8 == 0)
+    if _on_card(u):
+        return turbo_encode_cuda(u)
+    return _turbo_encode_plain(u)
+
+
+def _turbo_encode_plain(u: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain twin: both constituents in one byte-a-step
+    trellis walk (``_rsc_encode``) over the natural and the interleaved
+    input, then the tail permutation (``turbo_encode``'s arguments and
+    result)."""
     *lead, k = u.shape
-    assert k % 8 == 0, k
     u = u.reshape(-1, k).to(torch.int64)
     b = u.shape[0]
     pi = device_table(("qpp", k), u.device,
@@ -147,3 +179,25 @@ def turbo_encode(u: torch.Tensor) -> torch.Tensor:
     d2 = torch.cat([z2, x1t[:, 1:2], z1t[:, 2:3], x2t[:, 1:2], z2t[:, 2:3]], -1)
     d = torch.stack([d0, d1, d2], dim=-2).to(torch.int8)
     return d.reshape(*lead, 3, k + TAIL)
+
+
+def turbo_encode_cuda(u: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/turbo_enc.cu`` for every code block of ``u``
+    (``turbo_encode``'s arguments and result, K already checked). The
+    bits go in as they are when they are contiguous int8; other dtypes
+    are cast."""
+    if not _on_card(u):
+        raise ValueError("turbo_encode_cuda takes a CUDA tensor")
+    *lead, k = u.shape
+    rows = int(np.prod(lead)) if lead else 1
+    d = torch.empty((*lead, 3, k + TAIL), dtype=torch.int8, device=u.device)
+    if rows == 0:
+        return d
+    x = u if u.dtype == torch.int8 else u.to(torch.int8)
+    x = x.contiguous()
+    if x.data_ptr() % 8:
+        x = x.clone()                  # the kernel loads 8 bytes at a time
+    f1, f2 = qpp_coefficients(k)
+    TURBO_ENC.launch(u.device, (k, rows), x.data_ptr(), d.data_ptr(), rows,
+                     k, f1, f2)
+    return d

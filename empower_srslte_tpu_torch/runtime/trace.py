@@ -30,6 +30,7 @@ blocks, dtype name, first, last), ``turbo_win`` / ``turbo_win_bf16`` (K,
 window, code blocks, dtype name), ``viterbi37`` (K, halo, code words),
 ``chest_dl`` (grids, ports, PRB), ``ctrl_llr`` (subframes, ports,
 region REs), ``pdcch_blind`` (DCI sizes, candidates, subframes),
+``turbo_enc`` (K, code blocks),
 ``recursion_f32`` / ``recursion_bf16`` / ``recursion_i8`` (words per
 state, steps). ``reset()`` clears both registries.
 

@@ -12,8 +12,8 @@ import torch
 
 from empower_srslte_tpu_torch.models import pdcch
 from empower_srslte_tpu_torch.ops import chest
-from empower_srslte_tpu_torch.ops.fec import (rate_matching, turbo_nii,
-                                               turbo_win, viterbi37)
+from empower_srslte_tpu_torch.ops.fec import (rate_matching, turbo_encoder,
+                                               turbo_nii, turbo_win, viterbi37)
 from empower_srslte_tpu_torch.runtime import trace
 from empower_srslte_tpu_torch.tools import microbench_recursion as mr
 from empower_srslte_tpu_torch.utils import cuda_build
@@ -25,7 +25,7 @@ from tests.torch_fake_launch import STREAM, fake_launches
 DECLARED = [*turbo_nii.NII_KERNELS.values(), *turbo_win.WIN_KERNELS.values(),
             viterbi37.VITERBI37, chest.CHEST_DL, pdcch.CTRL_LLR,
             pdcch.PDCCH_BLIND, rate_matching.SCH_DERM,
-            *(t[3] for t in mr.TYPES)]
+            turbo_encoder.TURBO_ENC, *(t[3] for t in mr.TYPES)]
 
 
 @pytest.fixture
@@ -39,7 +39,7 @@ def test_the_port_declares_its_eleven_launchers_once():
     assert sorted(k.name for k in DECLARED) == sorted([
         "turbo_nii", "turbo_nii_bf16", "turbo_win", "turbo_win_bf16",
         "viterbi37", "chest_dl", "ctrl_llr", "pdcch_blind", "sch_derm",
-        "recursion_f32", "recursion_bf16", "recursion_i8"])
+        "turbo_enc", "recursion_f32", "recursion_bf16", "recursion_i8"])
     assert len({k.symbol for k in DECLARED}) == len(DECLARED)
     for k in DECLARED:
         assert k.argtypes[-1] is ctypes.c_void_p      # the stream
