@@ -236,7 +236,7 @@ BASELINE_SWEEP = {
 #: kernels per metric dtype
 PATH_TWIN: dict = {"turbo_nii": {}, "turbo_nii_bf16": {}, "turbo_win": {},
                    "turbo_win_bf16": {}, "viterbi37": {}, "pdcch_rx": {},
-                   "sch_derm": {}}
+                   "sch_derm": {}, "chest_dl": {}}
 
 
 def emit(obj):
@@ -1163,14 +1163,17 @@ def phase_pdcch_rx():
     """The control kernels (``csrc/pdcch_rx.cu``) against their plain
     twins: the main path's own control region (``ue_dl_tm4_batch``'s
     grid and channel of rx 0 at 256 and 1 subframes, 100 PRB, 2 ports,
-    CFI 1), then on generated regions at 6 and 25 PRB, 1, 2 and 4
-    ports, CFI 1-3, the extended CP, and at an SNR where most candidates
-    are noise; then the launches each receiver path makes a call."""
+    CFI 1), the TM2 path's (``ue_dl_tm2_batch``'s at 256 subframes, 100
+    PRB, 4 ports on SFBC-FSTD, CFI 1), then on generated regions at 6 and
+    25 PRB, 1, 2 and 4 ports, CFI 1-3, the extended CP, and at an SNR
+    where most candidates are noise; then the launches each receiver path
+    makes a call."""
     import torch
 
     from empower_srslte_tpu_torch.models import dci as dci_mod
     from empower_srslte_tpu_torch.models import enb_dl, pdcch, regs
     from empower_srslte_tpu_torch.models.ue_dl import (ue_dl_decode,
+                                                       ue_dl_tm2_batch,
                                                        ue_dl_tm4_batch)
     from empower_srslte_tpu_torch.ops.chest import chest_dl_ports
     from empower_srslte_tpu_torch.ops.equalizer import MimoType
@@ -1207,11 +1210,26 @@ def phase_pdcch_rx():
         shapes.append(ctrl_shape(tag, cell, grid, h, noise, cfi, sizes,
                                  cands, want_cfi=cfi if snr > 0 else None))
 
+    # the 4-port TM2 path's own region: SFBC-FSTD (36.211 6.8.4)
+    _conf, sent, cfg, plan = tm2_batch_stimulus(BATCH)
+    grid = ofdm_rx_sf(sent["samples"], cfg.cell)
+    h, noise = chest_dl_ports(grid, cfg.cell, cfg.sf_idx, (0, 1, 2, 3))
+    n0 = torch.clamp(noise[:, 0, 0], min=1e-7)
+    cands = pdcch.ue_search_candidates(
+        cfg.rnti, cfg.sf_idx, regs.pdcch_nof_cces(cfg.cell, cfg.cfi))
+    sizes = tuple(sorted({dci_mod.format1_size(cfg.cell.nof_prb),
+                          dci_mod.format0_1a_size(cfg.cell.nof_prb)}))
+    shapes.append(ctrl_shape("tm2_4p_b256", cfg.cell, grid[:, 0], h[:, 0],
+                             n0, cfg.cfi, sizes, cands, cfg.sf_idx,
+                             cfg.rnti, want_cfi=cfg.cfi))
+    del grid, h
+
     fr = enb_dl.tm2_frame_stimulus(device="cuda")
     paths = {
         "tm4_b256": lambda: ue_dl_tm4_batch(st256.samples, st256.cfg,
                                             st256.plan),
         "tm4_b1": lambda: ue_dl_tm4_batch(st1.samples, st1.cfg, st1.plan),
+        "tm2_b256": lambda: ue_dl_tm2_batch(sent["samples"], cfg, plan),
         "ue_dl_decode": lambda: ue_dl_decode(
             fr.samples[1], fr.cell, 1, fr.rnti, mimo=MimoType.DIVERSITY),
     }
@@ -1232,7 +1250,7 @@ def phase_pdcch_rx():
         "dci_found_every_subframe": bool((res.dci_hits >= 1).all()),
         "one_launch_each_a_batch_call": all(
             launches[p] == {"ctrl_llr": 1, "pdcch_blind": 1}
-            for p in ("tm4_b256", "tm4_b1")),
+            for p in ("tm4_b256", "tm4_b1", "tm2_b256")),
         "ue_dl_decode_launches": launches["ue_dl_decode"]
         == {"ctrl_llr": 2, "pdcch_blind": 1},
     }
@@ -1774,6 +1792,7 @@ def phase_main_path():
     res, launches, ms_first, ms, peak, shapes = counted_run(
         lambda: ue_dl_tm4_batch(st.samples, st.cfg, st.plan))
     turbo = hold_shapes("main_path", turbo_shapes(shapes), seed=51)
+    graphed = chain_checks("ue_dl.tm4_batch", st.samples, st.cfg, st.plan)
     b1, b2 = res.tb_bits
     ok1, ok2 = res.crc_ok
     checks = {
@@ -1785,6 +1804,7 @@ def phase_main_path():
         "no_turbo_f32_launch": launches["turbo_nii"] == 0,
         "pdcch_kernels_one_launch_each": launches["ctrl_llr"] == 1
         and launches["pdcch_blind"] == 1,
+        **graphed,
         **turbo_checks(turbo),
     }
     tbs = st.plan.tbs
@@ -1798,6 +1818,138 @@ def phase_main_path():
           "turbo_shapes": turbo, "peak_mem_gb": peak, "checks": checks})
     check("main path", checks)
     return launches, turbo
+
+
+def chain_checks(root: str, samples, cfg, plan) -> dict:
+    """A batched receiver's call replayed from its chain of CUDA graphs
+    against the same stages run eagerly on the same subframes, answers
+    and de-rate-matched LLRs (the hook on ``pdsch_decode``) bit for bit;
+    and a replay on the subframes in reverse order, whose answers must be
+    the first replay's in reverse."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import ue_dl
+    from empower_srslte_tpu_torch.runtime import graphs
+    from phybench.observe import tapped
+
+    soft: list = []
+
+    def keep(_args, _kwargs, result):
+        per_cw = result[2] if cfg.nof_codewords == 2 else (result[2],)
+        soft.append(torch.stack([torch.stack(list(s), dim=-2)
+                                 for s in per_cw]))
+
+    with tapped([(ue_dl, "pdsch_decode", keep)]):
+        res = ue_dl._ue_dl_batch(root, samples, cfg, plan)
+        eager = ue_dl._ue_dl_batch(root, samples, cfg, plan,
+                                   stages=graphs.EAGER)
+    flipped = ue_dl._ue_dl_batch(root, samples.flip(0), cfg, plan)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    rev = lambda a: tuple(x.flip(0) for x in a)
+    return {
+        "graphs_equal_eager": bool(
+            same(res.tb_bits, eager.tb_bits) and same(res.crc_ok, eager.crc_ok)
+            and torch.equal(res.cfi, eager.cfi)
+            and torch.equal(res.dci_hits, eager.dci_hits)
+            and torch.equal(soft[0], soft[1])),
+        "graphs_follow_their_input": bool(
+            same(flipped.tb_bits, rev(res.tb_bits))
+            and same(flipped.crc_ok, rev(res.crc_ok))
+            and torch.equal(flipped.cfi, res.cfi.flip(0))
+            and torch.equal(flipped.dci_hits, res.dci_hits.flip(0))),
+    }
+
+
+def tm2_batch_stimulus(n: int, seed: int = 2**31 + 26):
+    """``n`` subframes of the benchmark's 4-port TM2 cell
+    (``phybench/configs/dl_tm2_20mhz_4port.json``: 100 PRB, 4 CRS ports,
+    2 rx, MCS 28, one codeword) from its transmitter
+    (``phybench/inputs/dl_tm2.py``) on the card at 30 dB: -> (the
+    configuration, the transmitter's dict, the port's PdschConfig and
+    plan)."""
+    import torch
+
+    from phybench.drivers.ue_dl_tm2_batch import port_plan
+    from phybench.inputs import dl_tm2 as tx
+
+    conf = json.loads((ROOT / "phybench" / "configs"
+                       / "dl_tm2_20mhz_4port.json").read_text())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sent = tx.transmit(conf, {"snr_db": 30.0}, n, g, "cuda")
+    return conf, sent, *port_plan(conf)
+
+
+def phase_dl_tm2_batch():
+    """The batched transmit-diversity receiver ``ue_dl_tm2_batch`` at 100
+    PRB on 4 ports and 2 rx, on the benchmark cell's waveform: the
+    launches, the time and the answers of a 256-subframe call; every
+    kernel held to its twin at the shapes it launched (``hold_shapes``,
+    the control LLR and CRS estimate kernels included); and the call's
+    de-rate-matched LLRs (the benchmark's hook, ``pdsch_decode``'s third
+    result) and answers on 4 subframes against the plain reference
+    ``phybench/references/dl_tm2.py``."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import ue_dl
+    from phybench.compare import gap, tb_diff
+    from phybench.observe import tapped
+    from phybench.references import dl_tm2
+
+    conf, sent, cfg, plan = tm2_batch_stimulus(BATCH)
+    samples = sent["samples"]
+    sink: dict = {}
+
+    def keep(_args, _kwargs, result):
+        sink["soft"] = torch.stack(list(result[2]), dim=-2)
+
+    res, launches, ms_first, ms, peak, shapes = counted_run(
+        lambda: ue_dl.ue_dl_tm2_batch(samples, cfg, plan))
+    with tapped([(ue_dl, "pdsch_decode", keep)]):
+        again = ue_dl.ue_dl_tm2_batch(samples, cfg, plan)
+    graphed = chain_checks("ue_dl.tm2_batch", samples, cfg, plan)
+    held = hold_shapes("dl_tm2_batch", {
+        **turbo_shapes(shapes), **{k: shapes[k] for k in (
+            "pdcch_blind", "ctrl_llr", "chest_dl") if k in shapes}},
+        seed=26, cell=cfg.cell, cfi=cfg.cfi, sf_idx=cfg.sf_idx)
+    rows = 4
+    t0 = time.perf_counter()
+    want = dl_tm2.receive(samples[:rows].cpu().numpy(), conf)
+    ref_s = time.perf_counter() - t0
+    limit = json.loads((ROOT / "phybench" / "limits"
+                        / "dl_tm2_4p_b256.json").read_text())["gap.soft"]
+    soft_gap = gap(sink["soft"][None, :rows].float().cpu().numpy(),
+                   want["soft"])
+    diff = tb_diff(res.crc_ok[0][None, :rows].cpu().numpy(),
+                   res.tb_bits[0][None, :rows].cpu().numpy(),
+                   want["crc"], want["bits"])
+    checks = {
+        "crc_ok": bool(res.crc_ok[0].all()),
+        "bits_equal": bool(torch.equal(res.tb_bits[0], sent["tb"])),
+        "cfi_found": bool((res.cfi == cfg.cfi).all()),
+        "dci_found": bool((res.dci_hits >= 1).all()),
+        "gap_soft_within_limit": soft_gap <= limit,
+        "answers_equal_reference": diff == 0,
+        "replay_equal": bool(torch.equal(again.tb_bits[0], res.tb_bits[0])
+                             and torch.equal(again.crc_ok[0],
+                                             res.crc_ok[0])),
+        "turbo_bf16_launched": launches["turbo_nii_bf16"] > 0,
+        "no_turbo_f32_launch": launches["turbo_nii"] == 0,
+        "one_chest_and_control_launch_each": launches["chest_dl"] == 1
+        and launches["ctrl_llr"] == 1 and launches["pdcch_blind"] == 1,
+        "e_split_n_l_2": list(plan.e_sizes) == conf["code_blocks"]["e"],
+        **graphed,
+        **turbo_checks(held),
+    }
+    emit({"phase": "dl_tm2_batch", "batch": BATCH, "nof_prb": 100,
+          "ports": 4, "rx": 2, "mcs": conf["mcs"], "tbs": plan.tbs,
+          "codewords": 1, "ms_per_batch": ms, "ms_counted_run": ms_first,
+          "mbps": BATCH * plan.tbs / (ms * 1e-3) / 1e6,
+          "turbo_iterations": res.iterations, "launches": launches,
+          "gap_soft": soft_gap, "gap_soft_limit": limit, "diff_tb": diff,
+          "reference_rows": rows, "reference_s": ref_s,
+          "held_shapes": held, "peak_mem_gb": peak, "checks": checks})
+    check("dl_tm2_batch", checks)
+    return launches, held
 
 
 def phase_enb_dl_tx():
@@ -2916,27 +3068,52 @@ def launches_per_call(run, kernels) -> dict:
     return launches_since(before, kernels)
 
 
-def hold_shapes(phase: str, shapes: dict, seed: int) -> dict:
+def hold_shapes(phase: str, shapes: dict, seed: int, cell=None,
+                cfi: int = 1, sf_idx: int = 1) -> dict:
     """Each kernel held to its twin, and timed, at every shape a phase
     launched it (``read_counts``), the turbo kernels in the dtype of the
     launch and the NII kernel at every ``bounds`` it was launched with
     (the name of a shape launched off the default bounds (0, W-1) ends in
     ``_bounds{first}_{last}``): -> {"turbo_nii": {...}, "turbo_win":
-    {...}, "viterbi37": {...}, "pdcch": {...}, "sch_derm": {...}} per
-    shape, with its launches; the blind-search kernel (``pdcch``, a shape
-    being its DCI sizes, candidates and subframes) on noisy LLRs
-    (``blind_hold``); the de-rate-matching kernel on random LLRs
-    (``derm_hold``). The phase's checks require every error to be 0, and
-    the de-rate-matching kernel's to be 0 or within its stated tolerance
-    (``turbo_checks``, ``shape_checks``)."""
+    {...}, "viterbi37": {...}, "pdcch": {...}, "sch_derm": {...},
+    "ctrl_llr": {...}, "chest_dl": {...}} per shape, with its launches;
+    the blind-search kernel (``pdcch``, a shape being its DCI sizes,
+    candidates and subframes) on noisy LLRs (``blind_hold``); the
+    de-rate-matching kernel on random LLRs (``derm_hold``); given the
+    phase's ``cell`` (and its CFI and subframe), the control LLR kernel
+    (``ctrl_hold``) and the CRS estimate kernel (``chest_shape``) on
+    random grids and channels of that cell. The phase's checks require
+    every error to be 0, the de-rate-matching kernel's to be 0 or within
+    its stated tolerance, and the control and estimate kernels' within
+    theirs (``turbo_checks``, ``shape_checks``)."""
     import torch
 
     from empower_srslte_tpu_torch.ops.fec.turbo_win import DEFAULT_OVERLAP
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}, "pdcch": {},
-           "sch_derm": {}}
+           "sch_derm": {}, "ctrl_llr": {}, "chest_dl": {}}
     i = 0
+    for (n, ports, n_re), c in sorted(shapes.get("ctrl_llr", {}).items()):
+        if cell is None:
+            break
+        name = f"sf{n}_p{ports}_re{n_re}"
+        out["ctrl_llr"][name] = {**ctrl_hold(cell, cfi, sf_idx, n, ports,
+                                             seed + i), "launches": c}
+        PATH_TWIN["pdcch_rx"][f"{phase}_ctrl_{name}"] = \
+            out["ctrl_llr"][name]["held"]
+        i += 1
+    for (n, ports, prb), c in sorted(shapes.get("chest_dl", {}).items()):
+        if cell is None:
+            break
+        name = f"grids{n}_p{ports}_prb{prb}"
+        v = chest_shape(g, cell, sf_idx, tuple(range(ports)), (n,))
+        v["held"] = (v["h_err_cpu_twin"] <= CHEST_TOL
+                     and v["h_err"] <= CHEST_TOL_CARD
+                     and max(v["noise_rel_err_cpu_twin"], v["noise_rel_err"],
+                             v["noise_only_rel_err"]) <= CHEST_TOL)
+        out["chest_dl"][name] = {**v, "launches": c}
+        PATH_TWIN["chest_dl"][f"{phase}_{name}"] = v["held"]
     for shape, c in sorted(shapes.get("sch_derm", {}).items(), key=str):
         name = derm_name(shape)
         out["sch_derm"][name] = {**derm_hold(shape, seed + i),
@@ -3006,6 +3183,39 @@ def blind_hold(sizes, cands, n: int, seed: int) -> dict:
                 reps=10)}
 
 
+def ctrl_hold(cell, cfi: int, sf_idx: int, n: int, ports: int,
+              seed: int) -> dict:
+    """The control LLR kernel at one launch shape, ``n`` subframes of
+    ``cell``'s region with a ``ports``-port channel, on random grids and
+    channels: its CFI and LLRs against the plain twin run on the CPU
+    (``PDCCH_LLR_TOL``), timed by CUDA-graph replay."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import pcfich, pdcch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device="cuda"),
+                             torch.randn(shape, generator=g, device="cuda"))
+
+    grid = cplx(n, cell.nsymb_sf, cell.nof_re)
+    h = cplx(n, ports, cell.nsymb_sf, cell.nof_re)
+    noise = 0.01 + torch.rand(n, generator=g, device="cuda")
+    cfi_hat, _corr, llr = pdcch.ctrl_llr_cuda(grid, h, cell, sf_idx, noise,
+                                              region=(cfi, 1.0))
+    gc, hc, nc = grid.cpu(), h.cpu(), noise.cpu()[:, None]
+    t_cfi, _ = pcfich._pcfich_decode_plain(gc, hc, cell, sf_idx, nc)
+    t_llr = pdcch._pdcch_extract_llr_plain(gc, hc, cell, cfi, sf_idx, nc)
+    err = float((llr.cpu() - t_llr).abs().max() / t_llr.abs().max())
+    same = bool(torch.equal(cfi_hat.cpu(), t_cfi))
+    return {"subframes": n, "ports": ports, "n_re": llr.shape[-1] // 2,
+            "cfi_equal_twin": same, "llr_err": err,
+            "held": same and err <= PDCCH_LLR_TOL,
+            "ms": graph_ms(lambda: pdcch.ctrl_llr_cuda(
+                grid, h, cell, sf_idx, noise, region=(cfi, 1.0)), reps=20)}
+
+
 def bounds_kind(bounds, windows: int) -> str:
     """The NII launch's trellis slice: "whole" (0, W-1), a trellis-sharded
     decode's "first" (0, -1), "interior" (-1, -1) or "last" (-1, W-1)
@@ -3024,7 +3234,10 @@ def turbo_checks(shapes: dict) -> dict:
         v["max_abs_err"] == 0.0 for name in ("turbo_nii", "turbo_win")
         for v in shapes.get(name, {}).values()),
         "sch_derm_twin_every_shape": all(
-            v["held"] for v in shapes.get("sch_derm", {}).values())}
+            v["held"] for v in shapes.get("sch_derm", {}).values()),
+        "ctrl_llr_and_chest_twin_every_shape": all(
+            v["held"] for name in ("ctrl_llr", "chest_dl")
+            for v in shapes.get(name, {}).values())}
 
 
 def ms_stats(v) -> dict:
@@ -4160,6 +4373,7 @@ def main() -> int:
                  "sch_derm": phase_sch_derm,
                  "turbo_enc": phase_turbo_enc,
                  "main_path": phase_main_path,
+                 "dl_tm2_batch": phase_dl_tm2_batch,
                  "enb_dl_tx": phase_enb_dl_tx,
                  "tm2": phase_tm2,
                  "tm3": phase_tm3,
@@ -4210,6 +4424,7 @@ def main() -> int:
     rec_launches, rec, rates = recursion_kernel_check()
     probe_bf16 = next(r["tops"] for r in rates if r["type"] == "bf16")
     launches, main_shapes = phase_main_path()
+    tm2b_launches, tm2b_shapes = phase_dl_tm2_batch()
     tx_launches = phase_enb_dl_tx()
     ul_launches, vit_ul, ul_shapes = phase_uplink()
     phase_uplink_midsnr()
@@ -4241,7 +4456,8 @@ def main() -> int:
     rx_launches, rx_shapes = phase_rx_bler_gate()
     scaling_launches = phase_scaling_sweep()
     shaped = {**stack, **apps}
-    by_path = {"main_path": launches, "enb_dl_tx": tx_launches,
+    by_path = {"main_path": launches, "dl_tm2_batch": tm2b_launches,
+               "enb_dl_tx": tx_launches,
                "uplink_path": ul_launches, **tm2,
                "tm3_path": tm3, "ue_dl_frame": frame, "uplink_int8": ul8,
                "uplink_msg3": msg3,
@@ -4254,7 +4470,8 @@ def main() -> int:
                   for path, by in pair.items() for prec, v in by.items()},
                "bler_gate": gate_launches, "rx_bler_gate": rx_launches,
                "scaling_sweep": scaling_launches}
-    path_shapes = {"main_path": main_shapes, "uplink_path": ul_shapes,
+    path_shapes = {"main_path": main_shapes, "dl_tm2_batch": tm2b_shapes,
+                   "uplink_path": ul_shapes,
                    **tm2_shapes, "tm3_path": tm3_shapes,
                    "ue_dl_frame": frame_shapes, "uplink_int8": ul8_shapes,
                    "uplink_msg3": msg3_shapes, "cold_boot": cold_shapes,
@@ -4322,6 +4539,7 @@ def main() -> int:
          "source": "empower_srslte_tpu_torch/csrc/chest_dl.cu",
          "replaces": None, "launches": launches["chest_dl"],
          "launches_by_path": per_path("chest_dl"),
+         "held_by_path_shape": PATH_TWIN["chest_dl"],
          **{k: chest_out[k] for k in ("shapes", "launches_per_call",
                                       "ptxas")},
          "library_ms": None},

@@ -31,7 +31,9 @@
 // for 2, SFBC-FSTD for 4), demaps QPSK, descrambles with the precomputed
 // signs, correlates against the 3 codewords and keeps the first maximum.
 // All threads then take the PDCCH region's REs in quadruplet order, one
-// RE pair a thread (the SFBC pair; MRC on port 0 for a 1-port channel),
+// RE pair a thread (the SFBC pair; on 4 ports the SFBC-FSTD pair, ports 0
+// and 2 for a quadruplet's first pair, 1 and 3 for its second; MRC on
+// port 0 for a 1-port channel),
 // weight each LLR by the pair's CSI, descramble, and store the pair's 4
 // LLRs as one 16-byte store. Nothing else is read or written.
 //
@@ -187,9 +189,17 @@ __global__ void __launch_bounds__(CTRL_THREADS) ctrl_llr_kernel(
     const float2 ye = g[ke], yo = g[ko];
     float4 v;
     if (a.ports >= 2) {
+      // SFBC on ports 0-1; SFBC-FSTD on 4 ports (36.211 6.8.4): the
+      // quadruplet's first pair on ports 0 and 2, its second on 1 and 3
+      const float2* ha = h0;
+      const float2* hb = h1;
+      if (a.ports == 4) {
+        ha = h0 + (q & 1) * a.h_pstride;
+        hb = ha + 2 * a.h_pstride;
+      }
       float csi;
-      const float2 x0 = sfbc(ye, yo, h0[ke], h1[ke], false, &csi);
-      const float2 x1 = sfbc(ye, yo, h0[ke], h1[ke], true, &csi);
+      const float2 x0 = sfbc(ye, yo, ha[ke], hb[ke], false, &csi);
+      const float2 x1 = sfbc(ye, yo, ha[ke], hb[ke], true, &csi);
       v = make_float4(x0.x * csi, x0.y * csi, x1.x * csi, x1.y * csi);
     } else {
       const float2 he = h0[ke], ho = h0[ko];

@@ -8,8 +8,8 @@ blind decode of the frame phase (SFN mod 4) and port count.
 
 The blind decode stacks its 4 frame-phase hypotheses into one Viterbi
 batch (one kernel launch per call on the card); the 3 port masks are
-checked on each hypothesis' decision. Like the JAX package, a 4-port
-cell's PBCH is 2-port SFBC on ports 0 and 1 (36.211 specifies SFBC-FSTD).
+checked on each hypothesis' decision. Transmit diversity as 36.211
+6.6.3 asks: SFBC on a 2-port cell, SFBC-FSTD on a 4-port one.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.equalizer import eq_sfbc, precode_sfbc
+from ..ops.equalizer import combine_diversity, precode_diversity
 from ..ops.fec.convcoder import conv_encode, viterbi_decode
 from ..ops.fec.rm_conv import rm_conv_rx, rm_conv_tx
 from ..ops.modem import Mod, demod_soft, modulate
@@ -107,8 +107,8 @@ def pbch_encode_period(mib_bits: torch.Tensor, cell: Cell) -> torch.Tensor:
 def pbch_put(grid: torch.Tensor, mib_bits: torch.Tensor, cell: Cell,
              sfn: int) -> torch.Tensor:
     """Insert this frame's PBCH quarter into subframe-0 grids
-    [..., P, nsymb, nre] -> new grid: single port, or 2-port SFBC on
-    ports 0 and 1 for 2 and 4 ports (srslte_pbch_encode layer map and
+    [..., P, nsymb, nre] -> new grid: the one port, SFBC on 2 ports,
+    SFBC-FSTD on 4 (36.211 6.6.3; srslte_pbch_encode's layer map and
     diversity precoding)."""
     coded = pbch_encode_period(mib_bits, cell)
     q = sfn % 4
@@ -116,13 +116,7 @@ def pbch_put(grid: torch.Tensor, mib_bits: torch.Tensor, cell: Cell,
     idx = _re_index_tensor(cell, grid.device)
     out = grid.clone()
     flat = out.view(*grid.shape[:-2], -1)
-    if cell.nof_ports >= 2:
-        ps = precode_sfbc(torch.stack([syms[..., 0::2], syms[..., 1::2]],
-                                      dim=-2))               # [..., 2, 240]
-        flat[..., 0, idx] = ps[..., 0, :]
-        flat[..., 1, idx] = ps[..., 1, :]
-    else:
-        flat[..., 0, idx] = syms
+    flat[..., :cell.nof_ports, idx] = precode_diversity(syms, cell.nof_ports)
     return out
 
 
@@ -131,8 +125,8 @@ def pbch_decode(grid: torch.Tensor, h: torch.Tensor, cell: Cell,
     """Blind PBCH decode from subframe-0 grids (srslte_pbch_decode).
 
     grid [..., nsymb, nre] (one rx antenna); h the port-0 channel of the
-    same shape, or [..., P, nsymb, nre] per port (2-port SFBC combining
-    when P >= 2), at any bandwidth >= 6 PRB (the PBCH sits on the central
+    same shape, or [..., P, nsymb, nre] per port (SFBC on 2 ports,
+    SFBC-FSTD on 4), at any bandwidth >= 6 PRB (the PBCH sits on the central
     72 subcarriers). Tries the 4 frame phases x 3 port masks; returns
     (mib_bits [..., 24] int8, sfn_mod4 [...], nof_ports [...], ok [...])
     of the first hypothesis whose CRC passes, phase-major as the JAX
@@ -140,22 +134,10 @@ def pbch_decode(grid: torch.Tensor, h: torch.Tensor, cell: Cell,
     """
     idx = _re_index_tensor(cell, grid.device)
     y = grid.reshape(*grid.shape[:-2], -1)[..., idx]
-    if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:
-        hf = h.reshape(*h.shape[:-2], -1)
-        h0 = hf[..., 0, :][..., idx]
-        h1 = hf[..., 1, :][..., idx]
-        x, csi = eq_sfbc(y[..., None, :], h0[..., None, :],
-                         h1[..., None, :])
-        llr480 = demod_soft(x, Mod.QPSK) * torch.repeat_interleave(
-            csi, 2, dim=-1)
-    else:
-        if h.dim() == grid.dim() + 1:
-            h = h[..., 0, :, :]
-        hh = h.reshape(*h.shape[:-2], -1)[..., idx]
-        x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
-                                             min=1e-12)
-        llr480 = demod_soft(x, Mod.QPSK) * torch.repeat_interleave(
-            hh.abs(), 2, dim=-1) ** 2
+    hh = h.reshape(*h.shape[:-2], -1)[..., idx]
+    x, csi = combine_diversity(y, hh, noise_est)
+    llr480 = demod_soft(x, Mod.QPSK) * torch.repeat_interleave(csi, 2,
+                                                               dim=-1)
 
     lead = llr480.shape[:-1]
     # the 4 frame phases as one batch [4, ..., 1920], phase-major

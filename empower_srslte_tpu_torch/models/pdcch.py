@@ -30,12 +30,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.equalizer import eq_sfbc, precode_sfbc
+from ..ops.equalizer import combine_diversity, precode_diversity
 from ..ops.fec.convcoder import TRAIN_LEN, conv_encode, viterbi_decode
 from ..ops.fec.rm_conv import _circle, rm_conv_rx, rm_conv_tx
 from ..ops.modem import Mod, demod_soft, modulate
 from ..ops.scrambling import descramble_llrs
 from ..runtime import trace
+from ..runtime.graphs import EAGER
 from ..utils.bits import uint_to_bits
 from ..utils.cell import Cell
 from ..utils.crc import CRC16
@@ -109,9 +110,9 @@ def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
                  cfi: int, sf_idx: int, ng: float = 1.0):
     """One DCI -> grid contribution [..., P, nsymb, nre]. The region
     scrambling sequence offset follows the CCE position so independent
-    PDCCHs compose additively. A cell of 2 or more ports gets 2-port SFBC
-    on ports 0 and 1 with ports 2 and 3 left empty, as the reference
-    package transmits it (36.211 6.8.4 would use SFBC-FSTD on 4 ports)."""
+    PDCCHs compose additively. Transmit diversity as 36.211 6.8.4 asks:
+    SFBC on a 2-port cell, SFBC-FSTD on a 4-port one (6.3.3.3, 6.3.4.3;
+    a CCE is 9 quadruplets, so each quadruplet is one SFBC-FSTD group)."""
     dev = dci_bits.device
     e = l * BITS_PER_CCE
     crc = CRC16.compute(dci_bits).to(torch.int8)
@@ -126,15 +127,12 @@ def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
 
     idx = _region_idx(cell, cfi, ng, dev)[cce * RE_PER_CCE:(cce + l) * RE_PER_CCE]
     lead = syms.shape[:-1]
-    if cell.nof_ports >= 2:
-        ports = precode_sfbc(torch.stack([syms[..., 0::2], syms[..., 1::2]],
-                                         dim=-2))
-    else:
-        ports = syms[..., None, :]
+    ports = precode_diversity(syms, cell.nof_ports)
     grid = torch.zeros((*lead, cell.nof_ports, cell.nsymb_sf * cell.nof_re),
                        dtype=torch.complex64, device=dev)
-    grid[..., :ports.shape[-2], idx] = ports
+    grid[..., idx] = ports
     return grid.reshape(*lead, cell.nof_ports, cell.nsymb_sf, cell.nof_re)
+
 
 
 def pdcch_extract_llr(grid, h, cell: Cell, cfi: int, sf_idx: int,
@@ -142,8 +140,9 @@ def pdcch_extract_llr(grid, h, cell: Cell, cfi: int, sf_idx: int,
     """Equalize + demap + descramble the whole region once
     (srslte_pdcch_extract_llr_multi): -> llr [..., n_regs*8].
 
-    ``h``: [..., nsymb, nre] single-port or [..., P, nsymb, nre]; a
-    cell of 2 or more ports takes the SFBC branch on ports 0 and 1. On
+    ``h``: [..., nsymb, nre] single-port or [..., P, nsymb, nre],
+    combined by ``combine_diversity`` (SFBC on 2 ports, SFBC-FSTD on 4,
+    36.211 6.8.4). On
     the card one kernel launch (``ctrl_llr_cuda``), on the CPU the plain
     twin."""
     if _on_card(grid):
@@ -158,20 +157,9 @@ def _pdcch_extract_llr_plain(grid, h, cell: Cell, cfi: int, sf_idx: int,
     """``pdcch_extract_llr`` in plain PyTorch (the kernel's twin)."""
     idx = _region_idx(cell, cfi, ng, grid.device)
     y = grid.reshape(*grid.shape[:-2], -1)[..., idx]
-    if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:
-        hf = h.reshape(*h.shape[:-2], -1)
-        h0 = hf[..., 0, :][..., idx]
-        h1 = hf[..., 1, :][..., idx]
-        x, csi = eq_sfbc(y[..., None, :], h0[..., None, :], h1[..., None, :])
-        llr = demod_soft(x, Mod.QPSK) * torch.repeat_interleave(csi, 2, -1)
-    else:
-        if h.dim() == grid.dim() + 1:
-            h = h[..., 0, :, :]
-        hh = h.reshape(*h.shape[:-2], -1)[..., idx]
-        x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
-                                             min=1e-12)
-        llr = demod_soft(x, Mod.QPSK) \
-            * torch.repeat_interleave(hh.abs() ** 2, 2, -1)
+    hh = h.reshape(*h.shape[:-2], -1)[..., idx]
+    x, csi = combine_diversity(y, hh, noise_est)
+    llr = demod_soft(x, Mod.QPSK) * torch.repeat_interleave(csi, 2, -1)
     return descramble_llrs(llr, cinit_pdcch(2 * sf_idx, cell.id))
 
 
@@ -266,7 +254,7 @@ def pdcch_blind_decode(grid, h, cell: Cell, cfi: int, sf_idx: int,
 
 
 def control_rx(grid0, h0, cell: Cell, cfi: int, sf_idx: int, rnti: int,
-               sizes: tuple, noise_est):
+               sizes: tuple, noise_est, stages=EAGER):
     """The batched receiver's control stages: grid0 [..., nsymb, nre] (one
     rx antenna), h0 [..., P, nsymb, nre], noise_est [...] (or a float) ->
     (cfi_hat [...] from the PCFICH, n_det [...] int64: the candidates
@@ -275,15 +263,15 @@ def control_rx(grid0, h0, cell: Cell, cfi: int, sf_idx: int, rnti: int,
 
     The PCFICH and the region's LLRs run in the range ``ue_dl.pdcch_llr``,
     the blind search in ``ue_dl.pdcch_blind_search``: on the card one
-    launch each (``ctrl_llr_cuda``, ``pdcch_blind_cuda``) and no host
-    sync; on the CPU the plain twins."""
+    launch each (``ctrl_llr_cuda``, ``pdcch_blind_cuda``), two stages of
+    ``stages`` (``runtime.graphs``), and no host sync; on the CPU the
+    plain twins."""
     cands = ue_search_candidates(rnti, sf_idx, pdcch_nof_cces(cell, cfi))
     if _on_card(grid0):
-        with trace.span("ue_dl.pdcch_llr"):
-            cfi_hat, _, llr = ctrl_llr_cuda(grid0, h0, cell, sf_idx,
-                                            noise_est, region=(cfi, 1.0))
-        with trace.span("ue_dl.pdcch_blind_search"):
-            n_det = pdcch_blind_cuda(llr, cands, tuple(sizes), rnti)[2]
+        cfi_hat, _, llr = stages("ue_dl.pdcch_llr", ctrl_llr_cuda, grid0, h0,
+                                 cell, sf_idx, noise_est, region=(cfi, 1.0))
+        n_det = stages("ue_dl.pdcch_blind_search", pdcch_blind_cuda, llr,
+                       cands, tuple(sizes), rnti)[2]
         return cfi_hat, n_det
     noise = (noise_est[..., None] if isinstance(noise_est, torch.Tensor)
              else noise_est)

@@ -26,6 +26,7 @@ from ..ops.equalizer import (MimoType, effective_channel_cdd,
 from ..ops.modem import Mod, demod_soft, modulate, quantize_llr_int8
 from ..ops.scrambling import descramble_llrs, scramble_bits
 from ..runtime import trace
+from ..runtime.graphs import EAGER
 from ..utils.cell import Cell
 from ..utils.device import device_table
 from ..utils.sequence import cinit_pdsch
@@ -124,10 +125,22 @@ class PdschConfig:
         """Codeword bits carried (per codeword)."""
         return self.nof_symbols * self.mod.bits_per_symbol
 
+    @property
+    def split_layers(self) -> int:
+        """N_L of a codeword's E split (36.212 5.1.4.1.2): 2 for transmit
+        diversity and for one codeword on two layers, else 1."""
+        if self.mimo is MimoType.DIVERSITY:
+            return 2
+        if self.mimo is not MimoType.SINGLE and self.nof_codewords == 1 \
+                and self.nof_layers == 2:
+            return 2
+        return 1
+
     def plan(self, tbs: int, rv: int = 0, max_iterations: int = 5,
              decoder_impl: str = "nii") -> DlschPlan:
         return DlschPlan(tbs=tbs, g=self.g, qm=self.mod.bits_per_symbol,
-                         rv=rv, max_iterations=max_iterations,
+                         rv=rv, n_layers=self.split_layers,
+                         max_iterations=max_iterations,
                          decoder_impl=decoder_impl)
 
     def cinit(self, codeword: int = 0) -> int:
@@ -193,56 +206,66 @@ def pdsch_extract(grid, cfg: PdschConfig):
     return flat[..., cfg.re_index_tensor(grid.device)]
 
 
+def _pdsch_llrs(grid, h, cfg: PdschConfig, noise_est) -> tuple:
+    """The equalised, CSI-weighted and descrambled LLRs of each codeword
+    [..., G] (``pdsch_decode``'s stage ``pdsch.eq_demod``)."""
+    y = pdsch_extract(grid, cfg)                          # [..., A, M]
+    m = cfg.nof_symbols
+    if cfg.mimo is MimoType.SINGLE:
+        hh = pdsch_extract(h[..., :, 0, :, :], cfg)
+        x, csi = eq_single(y, hh, noise_est)
+        cw_syms = [x[..., :m]]
+        csis = [csi[..., :m]]
+    elif cfg.mimo is MimoType.DIVERSITY:
+        n_p = 4 if cfg.cell.nof_ports == 4 else 2
+        hp = [pdsch_extract(h[..., :, p, :, :], cfg)[..., :m]
+              for p in range(n_p)]
+        eq = eq_sfbc_fstd if n_p == 4 else eq_sfbc
+        x, csi = eq(y[..., :m], *hp)
+        cw_syms, csis = [x], [csi]
+    else:
+        hp = torch.stack([pdsch_extract(h[..., :, p, :, :], cfg)
+                          for p in range(2)], dim=-2)      # [..., A, 2, M]
+        if y.shape[-2] == 1:
+            # one rx antenna: the 2x2 solve reads rx row min(r, A - 1),
+            # as the JAX package's clamped static index does
+            y = y.expand(*y.shape[:-2], 2, y.shape[-1])
+            hp = hp.expand(*hp.shape[:-3], 2, *hp.shape[-2:])
+        x, csi = eq_mux_2x2(                              # [..., 2, M]
+            y, effective_channel_mux(hp, cfg.pmi)
+            if cfg.mimo is MimoType.SPATIAL_MUX
+            else effective_channel_cdd(hp), noise_est)
+        cw_syms = layerdemap(x, cfg.nof_codewords)
+        csis = layerdemap(csi, cfg.nof_codewords)
+
+    cw_llrs = []
+    for cw, (syms, csi) in enumerate(zip(cw_syms, csis)):
+        # CSI-weighted max-log LLRs (csi_correction, pdsch.c:676-776)
+        llr = demod_soft(syms, cfg.mod)
+        llr = llr * torch.repeat_interleave(
+            csi, cfg.mod.bits_per_symbol, dim=-1)
+        if cfg.llr_int8:
+            llr = quantize_llr_int8(llr, cfg.mod)
+        cw_llrs.append(descramble_llrs(llr, cfg.cinit(cw)))
+    return tuple(cw_llrs)
+
+
 def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
                  softbuffers=None, plan2: DlschPlan | None = None,
-                 softbuffers2=None, iters_out: list | None = None):
+                 softbuffers2=None, iters_out: list | None = None,
+                 stages=EAGER):
     """Full PDSCH decode (srslte_pdsch_decode, pdsch.c:837-1007).
 
     grid: [..., A, nsymb, nre] received resource grids per rx antenna
     h:    [..., A, P, nsymb, nre] channel estimates per (rx, tx port)
     Returns (tb_bits, crc_ok, softbuffers) — tuples per codeword when a
     second plan is given. Diversity needs the RE pairs (quads with 4 ports)
-    of ``cfg.nof_symbols``; CDD's D(i) cycles by extraction index.
+    of ``cfg.nof_symbols``; CDD's D(i) cycles by extraction index. The
+    equaliser and demapper run as the stage ``pdsch.eq_demod`` of
+    ``stages`` (``runtime.graphs``), and so do the DL-SCH decode's CRCs
+    and reassembly (``dlsch_decode``).
     """
-    with trace.span("pdsch.eq_demod"):
-        y = pdsch_extract(grid, cfg)                      # [..., A, M]
-        m = cfg.nof_symbols
-        if cfg.mimo is MimoType.SINGLE:
-            hh = pdsch_extract(h[..., :, 0, :, :], cfg)
-            x, csi = eq_single(y, hh, noise_est)
-            cw_syms = [x[..., :m]]
-            csis = [csi[..., :m]]
-        elif cfg.mimo is MimoType.DIVERSITY:
-            n_p = 4 if cfg.cell.nof_ports == 4 else 2
-            hp = [pdsch_extract(h[..., :, p, :, :], cfg)[..., :m]
-                  for p in range(n_p)]
-            eq = eq_sfbc_fstd if n_p == 4 else eq_sfbc
-            x, csi = eq(y[..., :m], *hp)
-            cw_syms, csis = [x], [csi]
-        else:
-            hp = torch.stack([pdsch_extract(h[..., :, p, :, :], cfg)
-                              for p in range(2)], dim=-2)  # [..., A, 2, M]
-            if y.shape[-2] == 1:
-                # one rx antenna: the 2x2 solve reads rx row min(r, A - 1),
-                # as the JAX package's clamped static index does
-                y = y.expand(*y.shape[:-2], 2, y.shape[-1])
-                hp = hp.expand(*hp.shape[:-3], 2, *hp.shape[-2:])
-            x, csi = eq_mux_2x2(                          # [..., 2, M]
-                y, effective_channel_mux(hp, cfg.pmi)
-                if cfg.mimo is MimoType.SPATIAL_MUX
-                else effective_channel_cdd(hp), noise_est)
-            cw_syms = layerdemap(x, cfg.nof_codewords)
-            csis = layerdemap(csi, cfg.nof_codewords)
-
-        cw_llrs = []
-        for cw, (syms, csi) in enumerate(zip(cw_syms, csis)):
-            # CSI-weighted max-log LLRs (csi_correction, pdsch.c:676-776)
-            llr = demod_soft(syms, cfg.mod)
-            llr = llr * torch.repeat_interleave(
-                csi, cfg.mod.bits_per_symbol, dim=-1)
-            if cfg.llr_int8:
-                llr = quantize_llr_int8(llr, cfg.mod)
-            cw_llrs.append(descramble_llrs(llr, cfg.cinit(cw)))
+    cw_llrs = stages("pdsch.eq_demod", _pdsch_llrs, grid, h, cfg, noise_est)
 
     plans = [plan] + ([plan2] if plan2 is not None else [])
 
@@ -251,13 +274,13 @@ def pdsch_decode(grid, h, cfg: PdschConfig, plan: DlschPlan, noise_est=0.0,
     if (len(plans) == 2 and plans[0] == plans[1]
             and softbuffers is None and softbuffers2 is None):
         bits, ok, soft = dlsch_decode(torch.stack(cw_llrs, dim=0), plan,
-                                      iters_out=iters_out)
+                                      iters_out=iters_out, stages=stages)
         outs = [(bits[0], ok[0], [s[0] for s in soft]),
                 (bits[1], ok[1], [s[1] for s in soft])]
     else:
         all_soft = [softbuffers, softbuffers2]
         outs = [dlsch_decode(llr, pl, softbuffers=all_soft[cw],
-                             iters_out=iters_out)
+                             iters_out=iters_out, stages=stages)
                 for cw, (llr, pl) in enumerate(zip(cw_llrs, plans))]
     if plan2 is None:
         return outs[0]

@@ -6,9 +6,10 @@ bit b -> (1 - 2b)(1 + j)/sqrt(2)), spread by one of the 8 length-4
 orthogonal sequences (normal CP) and scrambled with c_init =
 (floor(n_s / 2) + 1)(2 N_ID + 1) 2^9 + N_ID (6.9.1), over the group's 3
 REGs of symbol 0. Normal PHICH duration only (the reference's default).
-A cell of 2 or more ports sends 2-port SFBC on ports 0 and 1, as the
-reference package does (36.211 6.9.2 would use the 4-port scheme on 4
-ports).
+Transmit diversity as 36.211 6.9.2 asks: SFBC on a 2-port cell; on a
+4-port one SFBC-FSTD per quadruplet, whose port pairs alternate with
+(i + n_group) mod 2 (ports 0, 2 then 1, 3 where it is even, 1, 3 then 0,
+2 where it is odd, i the quadruplet's REG in the group).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.equalizer import eq_sfbc, precode_sfbc
+from ..ops.equalizer import combine_diversity, precode_diversity
 from ..utils.cell import Cell
 from ..utils.device import device_table
 from ..utils.sequence import cinit_pcfich, gold_sequence
@@ -68,21 +69,32 @@ def _group_idx(cell: Cell, ng: float, group: int, device) -> torch.Tensor:
                         lambda: _group_re_indices(cell, ng, group))
 
 
+def _fstd_alternate(ports: torch.Tensor, group: int) -> torch.Tensor:
+    """[..., 4, 12] by port: the quadruplets i with (i + group) odd take
+    ports 1, 0, 3, 2 in place of 0, 1, 2, 3 (36.211 6.9.2). Its own
+    inverse, and the same for a 4-port channel as for the symbols."""
+    quads = ports.reshape(*ports.shape[:-1], 3, 4)         # [..., 4, 3, 4]
+    odd = torch.tensor([[(i + group) % 2 == 1] for i in range(3)],
+                       device=ports.device)
+    return torch.where(odd, quads[..., [1, 0, 3, 2], :, :],
+                       quads).reshape(ports.shape)
+
+
 def phich_put(grid, ack: int, cell: Cell, sf_idx: int, group: int = 0,
               seq_idx: int = 0, ng: float = 1.0):
-    """Add one HI, ACK (1) or NACK (0), to grid [..., P, nsymb, nre]:
-    single port, or 2-port SFBC on ports 0 and 1. Returns a new grid."""
+    """Add one HI, ACK (1) or NACK (0), to grid [..., P, nsymb, nre]: the
+    one port, SFBC on 2 ports, SFBC-FSTD on 4 with the port pairs of
+    36.211 6.9.2. Returns a new grid."""
     z = np.tile(_W[seq_idx], 3) * _scramble_seq(cell, sf_idx) * (
         -_BPSK0 if ack else _BPSK0)
     zt = torch.as_tensor(z.astype(np.complex64), device=grid.device)
-    if cell.nof_ports >= 2:
-        port_syms = precode_sfbc(torch.stack([zt[0::2], zt[1::2]]))
-    else:
-        port_syms = zt[None]
+    port_syms = precode_diversity(zt, cell.nof_ports)
+    if cell.nof_ports == 4:
+        port_syms = _fstd_alternate(port_syms, group)
     idx = _group_idx(cell, ng, group, grid.device)
     out = grid.clone()
     flat = out.view(*grid.shape[:-2], -1)
-    flat[..., :port_syms.shape[0], idx] += port_syms.to(grid.dtype)
+    flat[..., :cell.nof_ports, idx] += port_syms.to(grid.dtype)
     return out
 
 
@@ -93,19 +105,14 @@ def phich_decode(grid, h, cell: Cell, sf_idx: int, group: int = 0,
     (positive <=> ACK).
 
     grid [..., nsymb, nre]; ``h``: [..., nsymb, nre] single-port or
-    [..., P, nsymb, nre] (SFBC on ports 0 and 1 when P >= 2)."""
+    [..., P, nsymb, nre] (SFBC on 2 ports, SFBC-FSTD on 4, as
+    ``phich_put`` sends them)."""
     idx = _group_idx(cell, ng, group, grid.device)
     y = grid[..., 0, :][..., idx]
-    if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:
-        h0 = h[..., 0, 0, :][..., idx]
-        h1 = h[..., 1, 0, :][..., idx]
-        x, _ = eq_sfbc(y[..., None, :], h0[..., None, :], h1[..., None, :])
-    else:
-        if h.dim() == grid.dim() + 1:
-            h = h[..., 0, :, :]
-        hh = h[..., 0, :][..., idx]
-        x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
-                                             min=1e-12)
+    hh = h[..., 0, :][..., idx]                  # [..., 12] or [..., P, 12]
+    if hh.dim() == y.dim() + 1 and hh.shape[-2] == 4:
+        hh = _fstd_alternate(hh, group)
+    x, _ = combine_diversity(y, hh, noise_est)
     scr = device_table(("phich_scr", cell.id, sf_idx), grid.device,
                        lambda: _scramble_seq(cell, sf_idx))
     w = device_table(("phich_w", seq_idx), grid.device,

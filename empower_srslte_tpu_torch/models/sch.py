@@ -31,6 +31,7 @@ from ..ops.fec.rate_matching import RateMatchTurbo, derm_to_decoder
 from ..ops.fec.turbo_decoder import TurboDecoder
 from ..ops.fec.turbo_encoder import turbo_encode
 from ..runtime import trace
+from ..runtime.graphs import EAGER
 from ..utils.crc import CRC24A, CRC24B
 from ..utils.device import device_table
 
@@ -194,18 +195,43 @@ def dlsch_encode(tb_bits, plan: DlschPlan) -> torch.Tensor:
         return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
 
 
+def _crc_reassembly(plan: DlschPlan, *decoded) -> tuple:
+    """The turbo decoder's hard bits, one tensor [..., C_k, K] a K in
+    ``plan.k_groups``' order -> (TB bits [..., tbs], crc_ok [...]: the TB
+    CRC24A and every code block's CRC24B passed)."""
+    segm = plan.segm
+    cb_bits = [None] * segm.c
+    tb_ok = None
+    for (k, members), dec in zip(plan.k_groups.items(), decoded):
+        if segm.c > 1:
+            # every code block of this K in one check: [..., C_k]
+            ok = CRC24B.check(dec).all(dim=-1)
+            tb_ok = ok if tb_ok is None else tb_ok & ok
+        for j, (idx, _e, f, _off) in enumerate(members):
+            b = dec[..., j, :]
+            cb_bits[idx] = b[..., f:k - 24] if segm.c > 1 else b[..., f:]
+
+    full = torch.cat(cb_bits, dim=-1)                      # [..., tbs + 24]
+    # the all-zero word is a valid turbo codeword whose CRC trivially
+    # passes; a decoder collapsing to it must not report success
+    ok = CRC24A.check(full) & torch.any(full != 0, dim=-1)
+    return full[..., :plan.tbs], ok if tb_ok is None else ok & tb_ok
+
+
 def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
-                 iters_out: list | None = None):
+                 iters_out: list | None = None, stages=EAGER):
     """Decode llrs[..., G] -> (tb_bits[..., tbs], crc_ok[...], softbuffers).
 
     Mirrors decode_tb / decode_tb_cb (sch.c:307-437): per-CB
     de-rate-match with HARQ combining into ``softbuffers`` (list of
     per-CB tensors [..., 3*(K+4)], or None) straight into the turbo
     decoder's inputs (``derm_to_decoder``, one call per K), one batched
-    turbo decode per K, CB CRC checks, reassembly, TB CRC. ``iters_out``
-    (a list) receives each turbo call's iteration count. The three steps
-    run in the profiler ranges ``dlsch.derm``, ``dlsch.turbo_decode`` and
-    ``dlsch.crc_reassembly``. The filler bits' prior is ``filler_prior``.
+    turbo decode per K, one CRC check of the code blocks of each K,
+    reassembly, TB CRC. ``iters_out`` (a list) receives each turbo call's
+    iteration count. The three steps run in the profiler ranges
+    ``dlsch.derm``, ``dlsch.turbo_decode`` and ``dlsch.crc_reassembly``,
+    the last as a stage of ``stages`` (``runtime.graphs``). The filler
+    bits' prior is ``filler_prior``.
     """
     segm = plan.segm
     stop_crc = (CRC24B if segm.c > 1 else CRC24A) if plan.early_stop else None
@@ -222,29 +248,14 @@ def dlsch_decode(llrs: torch.Tensor, plan: DlschPlan, softbuffers=None,
                 plan.rv, plan.decoder(k), softbuffer=sb, prior=prior)
 
     with trace.span("dlsch.turbo_decode"):
-        decoded = {k: plan.decoder(k).decode_prepared(
+        decoded = [plan.decoder(k).decode_prepared(
                        *inputs, crc=stop_crc, iters_out=iters_out)[0]
-                   for k, (_soft, inputs) in fed.items()}
+                   for k, (_soft, inputs) in fed.items()]
 
-    with trace.span("dlsch.crc_reassembly"):
-        new_soft = [None] * segm.c
-        cb_bits = [None] * segm.c
-        cb_ok = []
-        for k, members in plan.k_groups.items():
-            for j, (idx, _e, f, _off) in enumerate(members):
-                new_soft[idx] = fed[k][0][..., j, :]
-                b = decoded[k][..., j, :]
-                if segm.c > 1:
-                    cb_ok.append(CRC24B.check(b))
-                    cb_bits[idx] = b[..., f:k - 24]
-                else:
-                    cb_bits[idx] = b[..., f:]
-
-        full = torch.cat(cb_bits, dim=-1)                  # [..., tbs + 24]
-        tb_ok = CRC24A.check(full)
-        # the all-zero word is a valid turbo codeword whose CRC trivially
-        # passes; a decoder collapsing to it must not report success
-        tb_ok = tb_ok & torch.any(full != 0, dim=-1)
-        for ok in cb_ok:
-            tb_ok = tb_ok & ok
-    return full[..., :plan.tbs], tb_ok, new_soft
+    bits, ok = stages("dlsch.crc_reassembly", _crc_reassembly, plan,
+                      *decoded)
+    new_soft = [None] * segm.c
+    for k, members in plan.k_groups.items():
+        for j, (idx, *_rest) in enumerate(members):
+            new_soft[idx] = fed[k][0][..., j, :]
+    return stages.keep(bits), stages.keep(ok), new_soft

@@ -14,7 +14,9 @@ decoded transport blocks.
   the chain of the JAX package's full-chain benchmark (bench.py
   ``bench_uedl(mimo=True)``): every stage runs once over the whole batch
   of subframes, with both DCI sizes blind-searched in one Viterbi batch
-  each and both codewords in one turbo batch.
+  each and both codewords in one turbo batch; ``ue_dl_tm2_batch`` is
+  the same body on transmit diversity over 2 or 4 ports. On the card
+  its fixed-shape stages replay from CUDA graphs (``runtime.graphs``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..ops.chest import chest_dl_ports
 from ..ops.equalizer import MimoType
 from ..ops.modem import Mod
 from ..ops.ofdm import ofdm_rx_sf
-from ..runtime import trace
+from ..runtime import graphs, trace
 from ..utils.cell import Cell
 from ..utils.device import as_samples
 from . import dci as dci_mod
@@ -254,17 +256,78 @@ def ue_mib_decode(samples, cell_id: int, *, device=None) -> dict | None:
 
 
 @dataclass
-class Tm4BatchResult:
-    """Per-subframe outcome of ``ue_dl_tm4_batch``."""
+class DlBatchResult:
+    """Per-subframe outcome of a batched downlink receiver call
+    (``ue_dl_tm4_batch``, ``ue_dl_tm2_batch``)."""
 
     cfi: torch.Tensor            # [B] decoded CFI
     dci_hits: torch.Tensor       # [B] CRC16-RNTI passes over both sizes
-    tb_bits: tuple               # ([B, tbs] int8, [B, tbs] int8)
-    crc_ok: tuple                # ([B] bool, [B] bool)
+    tb_bits: tuple               # per codeword [B, tbs] int8
+    crc_ok: tuple                # per codeword [B] bool
     iterations: list             # turbo iteration count per turbo call
 
 
-def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
+#: the name the TM4 entry's callers know its result by
+Tm4BatchResult = DlBatchResult
+
+
+#: the batched receivers' stage chains on the card, by configuration,
+#: plan and batch (``runtime.graphs.Stages``)
+_CHAINS: dict = {}
+
+
+def _chain(samples, cfg: PdschConfig, plan):
+    """The stages of a batched call on ``samples``: on the card the chain
+    of its configuration, plan and batch (captured on its first call),
+    else ``EAGER``."""
+    if samples.device.type != "cuda":
+        return graphs.EAGER
+    key = (cfg, plan, samples.shape, samples.dtype, samples.device)
+    return _CHAINS.setdefault(key, graphs.Stages()).start()
+
+
+def _chest_noise(grid, cell: Cell, sf_idx: int):
+    """-> (h [B, rx, port, S, K] of every CRS port, the rx-0, port-0
+    noise estimate [B])."""
+    h, noise = chest_dl_ports(grid, cell, sf_idx,
+                              tuple(range(cell.nof_ports)))
+    return h, torch.clamp(noise[:, 0, 0], min=1e-7)
+
+
+def _ue_dl_batch(root: str, samples, cfg: PdschConfig, plan,
+                 stages=None) -> DlBatchResult:
+    """The batched receiver's one body, under the root range ``root``:
+    every stage once over the batch, on the configuration's ports
+    (``cfg.cell.nof_ports``) and codewords (``cfg.nof_codewords``, the
+    two in one DL-SCH decode). The stages before the first host read and
+    the DL-SCH's CRCs and reassembly run through ``stages`` (by default
+    ``_chain``'s: on the card replayed from CUDA graphs)."""
+    if stages is None:
+        stages = _chain(samples, cfg, plan)
+    with trace.root(root, samples.device):
+        cell, sf_idx, cfi = cfg.cell, cfg.sf_idx, cfg.cfi
+        grid = stages("ue_dl.ofdm_rx", ofdm_rx_sf, samples,
+                      cell)                                # [B, rx, S, K]
+        h, n0 = stages("ue_dl.chest_noise", _chest_noise, grid, cell, sf_idx)
+        # rx 0's PCFICH and PDCCH (ranges ue_dl.pdcch_llr and
+        # ue_dl.pdcch_blind_search: one kernel launch each on the card)
+        cfi_hat, n_det = control_rx(
+            grid[:, 0], h[:, 0], cell, cfi, sf_idx, cfg.rnti,
+            tuple(sorted({dci_mod.format1_size(cell.nof_prb),
+                          dci_mod.format0_1a_size(cell.nof_prb)})), n0,
+            stages=stages)
+        iters: list = []
+        two = cfg.nof_codewords == 2
+        bits, ok, _ = pdsch_decode(
+            grid, h, cfg, plan, noise_est=n0[:, None],
+            plan2=plan if two else None, iters_out=iters, stages=stages)
+        if not two:
+            bits, ok = (bits,), (ok,)
+        return DlBatchResult(stages.keep(cfi_hat), stages.keep(n_det),
+                             tuple(bits), tuple(ok), iters)
+
+
+def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> DlBatchResult:
     """The no-genie 2x2 TM4 receiver over a batch of subframes.
 
     samples [B, rx=2, sf_len] complex64 -> OFDM FFT -> CRS channel
@@ -284,22 +347,15 @@ def ue_dl_tm4_batch(samples, cfg: PdschConfig, plan) -> Tm4BatchResult:
     ``runtime.trace``: ``profile_main_path`` and the benchmark read them
     from one ``torch.profiler`` trace.
     """
-    with trace.root("ue_dl.tm4_batch", samples.device):
-        cell, sf_idx, cfi = cfg.cell, cfg.sf_idx, cfg.cfi
-        with trace.span("ue_dl.ofdm_rx"):
-            grid = ofdm_rx_sf(samples, cell)               # [B, rx, S, K]
-        with trace.span("ue_dl.chest_noise"):
-            h, noise = chest_dl_ports(grid, cell, sf_idx, (0, 1))
-            # h [B, rx, port, S, K]; the rx-0, port-0 noise
-            n0 = torch.clamp(noise[:, 0, 0], min=1e-7)
-        # rx 0's PCFICH and PDCCH (ranges ue_dl.pdcch_llr and
-        # ue_dl.pdcch_blind_search: one kernel launch each on the card)
-        cfi_hat, n_det = control_rx(
-            grid[:, 0], h[:, 0], cell, cfi, sf_idx, cfg.rnti,
-            tuple(sorted({dci_mod.format1_size(cell.nof_prb),
-                          dci_mod.format0_1a_size(cell.nof_prb)})), n0)
-        iters: list = []
-        (b1, b2), (ok1, ok2), _ = pdsch_decode(
-            grid, h, cfg, plan, noise_est=n0[:, None], plan2=plan,
-            iters_out=iters)
-        return Tm4BatchResult(cfi_hat, n_det, (b1, b2), (ok1, ok2), iters)
+    return _ue_dl_batch("ue_dl.tm4_batch", samples, cfg, plan)
+
+
+def ue_dl_tm2_batch(samples, cfg: PdschConfig, plan) -> DlBatchResult:
+    """The no-genie transmit-diversity (TM2) receiver over a batch of
+    subframes: ``ue_dl_tm4_batch``'s stages on the cell's 2 or 4 ports
+    and one codeword, combined by SFBC or SFBC-FSTD (``cfg.mimo``
+    ``DIVERSITY``; 36.211 6.3.4.3), its E split on N_L 2 (36.212
+    5.1.4.1.2). The whole call runs in the root range ``ue_dl.tm2_batch``
+    and its stages in the ranges ``ue_dl_tm4_batch`` names.
+    """
+    return _ue_dl_batch("ue_dl.tm2_batch", samples, cfg, plan)

@@ -200,6 +200,34 @@ def precode_sfbc_fstd(layers):
         inter4(z, z, -torch.conj(x3), torch.conj(x2)) * s], dim=-2)
 
 
+def precode_diversity(syms, nof_ports: int):
+    """A control channel's symbols [..., M] on ``nof_ports`` ports
+    [..., P, M] (36.211 6.3.3.3, 6.3.4.3): the one port as they are, SFBC
+    on 2 ports, SFBC-FSTD on 4 (M a multiple of 4)."""
+    if nof_ports == 1:
+        return syms[..., None, :]
+    if nof_ports == 2:
+        return precode_sfbc(layermap([syms], 2))
+    return precode_sfbc_fstd(layermap([syms], 4))
+
+
+def combine_diversity(y, h, noise_est=0.0):
+    """The inverse of ``precode_diversity`` at one rx antenna: y [..., M]
+    and h [..., M] (one port) or [..., P, M] -> (x [..., M], csi [..., M]):
+    MRC over max(|h|^2 + noise, 1e-12) with csi |h|^2 on one port,
+    ``eq_sfbc`` on ports 0 and 1 of a 2-port channel, ``eq_sfbc_fstd`` on
+    a 4-port one."""
+    if h.dim() == y.dim() or h.shape[-2] == 1:
+        hh = h if h.dim() == y.dim() else h[..., 0, :]
+        x = y * torch.conj(hh) / torch.clamp(hh.abs() ** 2 + noise_est,
+                                             min=1e-12)
+        return x, hh.abs() ** 2
+    ports = [h[..., p, None, :] for p in range(h.shape[-2])]
+    if len(ports) == 4:
+        return eq_sfbc_fstd(y[..., None, :], *ports)
+    return eq_sfbc(y[..., None, :], ports[0], ports[1])
+
+
 def codebook_2x2(pmi: int) -> np.ndarray:
     """36.211 Table 6.3.4.2.3-1 codebook, 2 antenna ports, 2 layers (TM4)."""
     if pmi == 0:

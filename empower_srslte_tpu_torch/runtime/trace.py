@@ -32,7 +32,10 @@ window, code blocks, dtype name), ``viterbi37`` (K, halo, code words),
 region REs), ``pdcch_blind`` (DCI sizes, candidates, subframes),
 ``turbo_enc`` (K, code blocks),
 ``recursion_f32`` / ``recursion_bf16`` / ``recursion_i8`` (words per
-state, steps). ``reset()`` clears both registries.
+state, steps). ``reset()`` clears both registries. A CUDA graph's capture
+(``runtime.graphs``) records launches without making them: it counts
+them aside (``launches_aside``), and each replay counts them
+(``count_launches``).
 
 Tracing off, ``span`` and ``root`` check one flag and return a shared
 empty context manager, and no first use is counted.
@@ -53,6 +56,8 @@ _enabled = False
 _OFF = contextlib.nullcontext()
 _COUNTS: collections.Counter = collections.Counter()
 _LAUNCH_REGISTRY: collections.Counter = collections.Counter()
+#: counters that take launches in the registry's place, innermost last
+_ASIDE: list = []
 
 
 def enable() -> None:
@@ -95,7 +100,24 @@ def count_launch(kernel: str, shape) -> None:
     """Count one launch of the hand-written kernel ``kernel`` at
     ``shape``, tracing or not (kept out of ``counts()``, which holds first
     uses alone)."""
-    _LAUNCH_REGISTRY[kernel, shape] += 1
+    (_ASIDE[-1] if _ASIDE else _LAUNCH_REGISTRY)[kernel, shape] += 1
+
+
+@contextlib.contextmanager
+def launches_aside():
+    """Within, launches are counted in the yielded Counter ({(kernel,
+    shape): launches}) and not in the registry."""
+    aside: collections.Counter = collections.Counter()
+    _ASIDE.append(aside)
+    try:
+        yield aside
+    finally:
+        _ASIDE.pop()
+
+
+def count_launches(launches: collections.Counter) -> None:
+    """Count ``launches`` ({(kernel, shape): launches}) in the registry."""
+    _LAUNCH_REGISTRY.update(launches)
 
 
 def launch_counts() -> dict:

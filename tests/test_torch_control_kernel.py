@@ -115,13 +115,16 @@ def _parent_pcfich_decode(grid, h, cell, sf_idx, noise_est=0.0):
 
 def _parent_pdcch_extract_llr(grid, h, cell, cfi, sf_idx, noise_est=0.0,
                               ng=1.0):
+    """As it was, but on 4 ports: SFBC-FSTD (TS 36.211 6.8.4), where the
+    code before the kernels took SFBC on ports 0 and 1."""
     idx = pdcch._region_idx(cell, cfi, ng, grid.device)
     y = grid.reshape(*grid.shape[:-2], -1)[..., idx]
     if h.dim() == grid.dim() + 1 and h.shape[-3] >= 2:
         hf = h.reshape(*h.shape[:-2], -1)
-        h0 = hf[..., 0, :][..., idx]
-        h1 = hf[..., 1, :][..., idx]
-        x, csi = eq_sfbc(y[..., None, :], h0[..., None, :], h1[..., None, :])
+        hp = [hf[..., p, :][..., idx][..., None, :]
+              for p in range(h.shape[-3])]
+        eq = eq_sfbc_fstd if len(hp) == 4 else eq_sfbc
+        x, csi = eq(y[..., None, :], *hp)
         llr = demod_soft(x, Mod.QPSK) * torch.repeat_interleave(csi, 2, -1)
     else:
         if h.dim() == grid.dim() + 1:
@@ -240,8 +243,14 @@ def emulate_ctrl(grid, h, cell, sf_idx, noise, cfi):
     ke, ko = re[0::2], re[1::2]
     ye, yo = _ri(g[:, ke]), _ri(g[:, ko])
     if ports >= 2:
-        x0, csi = _sfbc(ye, yo, _ri(hf[:, 0, ke]), _ri(hf[:, 1, ke]), False)
-        x1, _ = _sfbc(ye, yo, _ri(hf[:, 0, ke]), _ri(hf[:, 1, ke]), True)
+        # SFBC-FSTD on 4 ports: a quadruplet's first pair on ports 0 and
+        # 2, its second on 1 and 3
+        q = np.arange(len(ke))
+        pa = q & 1 if ports == 4 else np.zeros(len(ke), int)
+        pb = pa + 2 if ports == 4 else np.ones(len(ke), int)
+        ha, hb = _ri(hf[:, pa, ke]), _ri(hf[:, pb, ke])
+        x0, csi = _sfbc(ye, yo, ha, hb, False)
+        x1, _ = _sfbc(ye, yo, ha, hb, True)
         v = [x0[0] * csi, x0[1] * csi, x1[0] * csi, x1[1] * csi]
     else:
         he, ho = _ri(hf[:, 0, ke]), _ri(hf[:, 0, ko])

@@ -243,6 +243,16 @@ def test_pdsch_encode_decode_matches_jax(rng, name):
 
 
 def test_four_port_pcfich_and_pdcch_match_jax(rng):
+    """The PCFICH, and the PDCCH on SFBC-FSTD (TS 36.211 6.8.4), against
+    JAX's with its 4-port PDCCH replaced by the specification's
+    (``tests/jax_dl_spec.py``: JAX sends SFBC on ports 0 and 1)."""
+    from tests.jax_dl_spec import spec_downlink
+
+    with spec_downlink():
+        _four_port_control(rng)
+
+
+def _four_port_control(rng):
     jcell = JCell(nof_prb=6, nof_ports=4, id=1)
     cell = Cell(nof_prb=6, nof_ports=4, id=1)
     n_cce = pdcch_nof_cces(jcell, CFI)

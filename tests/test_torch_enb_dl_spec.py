@@ -226,11 +226,35 @@ def test_dlsch_encode_per_k_is_the_per_block_encode(tbs, g, qm, rv):
 
 @pytest.mark.parametrize("name", [c[0] for c in cases.SUBFRAMES])
 def test_composer_unchanged_but_at_the_phich(before, name):
+    """On 1 and 2 ports the grids are as before but at the PHICH's REs.
+    On 4 ports the control region's PDCCHs and PHICH take SFBC-FSTD (36.211
+    6.8.4, 6.9.2), where they took SFBC on ports 0 and 1: the PDSCH's
+    symbols are as before and the control region is the reference's."""
     cell, sf, cfi, dcis, phichs, pdschs = cases.subframe(name)
     got = enb_dl.enb_dl_subframe(cell, sf, cfi, dcis=dcis, phichs=phichs,
                                  pdschs=pdschs, device="cpu").numpy()
     bare = enb_dl.enb_dl_subframe(cell, sf, cfi, dcis=dcis, pdschs=pdschs,
                                   device="cpu").numpy()
+    if cell.nof_ports == 4:
+        from phybench.references import dl_tm2
+
+        conf = {"nof_prb": cell.nof_prb, "cell_id": cell.id, "sf_idx": sf,
+                "cfi": cfi, "rnti": cases.RNTI}
+        pdcchs = [(bits, level, cce) for bits, _rnti, cce, level in dcis]
+        for grid, old, his in ((got, before["grid_" + name], phichs),
+                               (bare, before["nophich_" + name], [])):
+            ctrl = dl_tm2.control_region(conf, pdcchs, his).numpy()
+            n = ctrl.shape[1]
+            assert np.array_equal(grid[:, n:], old[:, n:])
+            crs = np.zeros(ctrl.shape, bool)
+            for p in range(4):
+                syms, offs, _v = dl_tm2.crs(cell.id, cell.nof_prb, sf, p)
+                for sym, off in zip(syms, offs):
+                    if sym < n:
+                        crs[p, sym, off::6] = True
+            want = np.where(crs, old[:, :n], 0) + ctrl
+            assert np.abs(grid[:, :n] - want).max() < 1e-6
+        return
     assert np.array_equal(bare, before["nophich_" + name])
     at = np.zeros(got.shape, bool)
     at[:min(2, cell.nof_ports), 0,
@@ -305,7 +329,7 @@ def test_every_launch_of_a_call_is_in_one_stage_range():
     assert outside == set(), outside
 
 
-# --- departures off this cell's path, pinned until their repair ------------
+# --- departures off this cell's path, and a repaired one -----------------
 
 
 @pytest.mark.parametrize("prb", [6, 25, 100])
@@ -333,25 +357,26 @@ def test_pcfich_regs_depart_at_cell_ids_divisible_by_three(prb):
 
 def test_dlsch_e_split_takes_one_layer_where_36212_takes_two():
     """36.212 5.1.4.1.2 splits G into the code blocks' E in units of N_L
-    Q_m with N_L 2 for a TB on two layers or on transmit diversity;
-    ``PdschConfig.plan`` leaves ``DlschPlan.n_layers`` at 1, so where
-    G / (2 Q_m) is not a multiple of C the blocks' E differ from the
-    specification's (both ends of the port agree). The cell's two
-    codewords map one layer each and split as 36.212 does. Pinned here
-    until the repair (ROADMAP section 1), which changes this test."""
+    Q_m with N_L 2 for a TB on two layers or on transmit diversity. The
+    port took N_L 1 on transmit diversity, so this grant's blocks got
+    other E than the specification's; ``PdschConfig.plan`` now gives
+    ``DlschPlan.n_layers`` 2 there, and the same grant splits as 36.212
+    does (N_L 1 would not). The cell's two codewords map one layer each
+    and split with N_L 1."""
     cell = Cell(nof_prb=25, nof_ports=4, id=1)
     mod, tbs = ra.mcs_to_tbs(23, 25)
     cfg = PdschConfig(cell=cell, sf_idx=1, cfi=1, mod=mod,
                       mimo=MimoType.DIVERSITY, nof_layers=4)
     plan = cfg.plan(tbs)
     c = plan.segm.c
-    assert plan.n_layers == 1
-    assert list(plan.e_sizes) == spec.e_sizes(plan.g, c, plan.qm, 1)
-    assert list(plan.e_sizes) != spec.e_sizes(plan.g, c, plan.qm, 2)
+    assert plan.n_layers == 2
+    assert list(plan.e_sizes) == spec.e_sizes(plan.g, c, plan.qm, 2)
+    assert list(plan.e_sizes) != spec.e_sizes(plan.g, c, plan.qm, 1)
     cell = Cell(nof_prb=100, nof_ports=2, id=1)
     mod, tbs = ra.mcs_to_tbs(28, 100)
     plan2 = PdschConfig(cell=cell, sf_idx=1, cfi=1, mod=mod,
                         mimo=MimoType.SPATIAL_MUX, nof_layers=2,
                         nof_codewords=2).plan(tbs)
+    assert plan2.n_layers == 1
     assert list(plan2.e_sizes) == spec.e_sizes(plan2.g, plan2.segm.c,
                                                plan2.qm, 1)

@@ -6,8 +6,10 @@ pair.
 
 Both receivers decode the same time samples, made by the JAX package's
 transmitter; the port's composer must build the same grids (to 1e-6).
-The port's PHICH follows TS 36.211 6.9, where the JAX package's departs
-from it, so JAX's ``phich_put`` and ``phich_decode`` are replaced by the
+The port's PHICH follows TS 36.211 6.9, its 4-port PDCCH 6.8.4 and its
+DL-SCH's E split 36.212 5.1.4.1.2, where the JAX package's depart from
+them, so JAX's ``phich_put``, ``phich_decode``, 4-port ``pdcch_encode``
+and ``pdcch_extract_llr`` and its plans' N_L are replaced by the
 specification's (``tests/jax_dl_spec.py``) in every test here; every other
 JAX stage is compared as it is.
 The JAX ``ue_dl_decode`` decodes with its XLA turbo decoder on the CPU,
@@ -22,12 +24,12 @@ import torch
 import jax.numpy as jnp
 
 from empower_srslte_tpu.models import dci as jdci
+from empower_srslte_tpu.models import pdcch as jpdcch
 from empower_srslte_tpu.models import phich as jphich
 from empower_srslte_tpu.models import ra as jra
 from empower_srslte_tpu.models.enb_dl import (enb_dl_base_grid,
                                               enb_dl_gen_signal)
 from empower_srslte_tpu.models.pcfich import pcfich_put
-from empower_srslte_tpu.models.pdcch import pdcch_encode
 from empower_srslte_tpu.models.pdsch import PdschConfig, pdsch_encode
 from empower_srslte_tpu.models.ue_dl import ue_dl_decode as jax_ue_dl_decode
 from empower_srslte_tpu.ops.equalizer import MimoType as JMimo
@@ -52,7 +54,8 @@ SNR_HARQ = 1.5
 
 @pytest.fixture(scope="module", autouse=True)
 def _spec_downlink():
-    """The JAX package's PHICH held to TS 36.211."""
+    """The JAX package's PHICH, 4-port PDCCH and E split held to TS
+    36.211/36.212."""
     with spec_downlink():
         yield
 
@@ -93,8 +96,8 @@ def _jax_subframe(jcell, *, dcis, pdschs, phichs=()):
     """The JAX package's composition of one subframe [P, nsymb, nre]."""
     grid = pcfich_put(enb_dl_base_grid(jcell, SF_IDX), CFI, jcell, SF_IDX)
     for bits, rnti, cce, l in dcis:
-        grid = grid + pdcch_encode(jnp.asarray(bits), rnti, cce, l, jcell,
-                                   CFI, SF_IDX)
+        grid = grid + jpdcch.pdcch_encode(jnp.asarray(bits), rnti, cce, l,
+                                          jcell, CFI, SF_IDX)
     for ack, group, seq in phichs:
         grid = jphich.phich_put(grid, ack, jcell, SF_IDX, group, seq)
     for tb, cfg, plan in pdschs:
