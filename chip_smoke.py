@@ -31,11 +31,21 @@ shape it launched against the twin of that shape's dtype:
   and at the transmitter cell's shape (2 codewords x 256 subframes x 13
   code blocks of K 5824), timed beside its bound and the byte walk it
   replaced, and its launches an ``enb_dl_tx_batch`` call (``turbo_enc``);
+* the PDCCH transmit kernel against its twin, the grid bit for bit, at
+  6-100 PRB, 1, 2 and 4 ports, CFI 1-3, L 1-8, 1-11 DCIs, random,
+  all-zero and all-one payloads and leading dims; its launches an
+  ``enb_dl_tx_batch`` call, the control range under
+  ``torch.cuda.set_sync_debug_mode("error")``, a changed DCI changing
+  the samples, the control range's chain of CUDA graphs equal to the
+  eager composer (with control values that change every call, one chain
+  for all of them, and with no DCI or HI), and the kernel alone at the
+  transmitter cell's shape (``pdcch_tx``);
 * the eNB's downlink transmitter ``enb_dl_tx_batch`` at the benchmark
   cell's shape (256 subframes of the 20 MHz 2x2 TM4 grant at MCS 28 with
   both grants' DCIs and a HARQ indicator), held to the plain reference
   ``phybench/references/dl_tx.py`` on 4 subframes, with its launches
-  (``enb_dl_tx``; the turbo encoder kernel, once a call);
+  (``enb_dl_tx``; the turbo encoder and PDCCH kernels, once a call each,
+  the PDCCH kernel held to its twin at the shapes it launched);
 * the PDSCH in TM2 on 4 ports (SFBC-FSTD) on the float32 and the int8
   LLR lanes and in TM3 (CDD, 2 codewords), genie channel (NII kernel);
 * the per-subframe no-genie receiver ``ue_dl_decode`` over a radio frame
@@ -134,7 +144,8 @@ batches (``BASELINE_SWEEP``), and puts both on its phase line.
 ``--phases`` runs the build and the named phases alone (any of the
 chest kernel's ``chest_dl``, the control kernels' ``pdcch_rx``, the
 de-rate-matching kernel's ``sch_derm``, the turbo encoder kernel's
-``turbo_enc``, the transmitter's ``enb_dl_tx``, the downlink paths
+``turbo_enc``, the PDCCH transmit kernel's ``pdcch_tx``, the
+transmitter's ``enb_dl_tx``, the downlink paths
 ``main_path``, ``tm2``, ``tm3``, ``pmch``, ``ue_dl_frame`` and
 ``cold_boot``, the BLER gate ``bler_gate``, the
 turbo kernel checks ``kernel_turbo``
@@ -236,7 +247,7 @@ BASELINE_SWEEP = {
 #: kernels per metric dtype
 PATH_TWIN: dict = {"turbo_nii": {}, "turbo_nii_bf16": {}, "turbo_win": {},
                    "turbo_win_bf16": {}, "viterbi37": {}, "pdcch_rx": {},
-                   "sch_derm": {}, "chest_dl": {}}
+                   "sch_derm": {}, "chest_dl": {}, "pdcch_tx": {}}
 
 
 def emit(obj):
@@ -1777,6 +1788,338 @@ def phase_turbo_enc():
     return out
 
 
+def tx_dcis(g, cell, cfi: int, count: int, levels, sizes, kind="random",
+            lead=(), rntis=(0x1234, 0xFFFF, 0x003D)) -> list:
+    """Up to ``count`` DCIs (bits int8 [*lead, size] on the card, rnti,
+    cce, L) on disjoint CCEs of the region of ``cell`` and ``cfi``: each
+    at the first aligned CCE free for the next level of ``levels``
+    (cycled) that fits; sizes and RNTIs cycled; payloads random, all zero
+    or all one (``kind``)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import regs
+
+    n_cce = regs.pdcch_nof_cces(cell, cfi)
+    used, out = set(), []
+    for i in range(4 * count):
+        if len(out) == count:
+            break
+        l = levels[i % len(levels)]
+        cce = next((c for c in range(0, n_cce - l + 1, l)
+                    if used.isdisjoint(range(c, c + l))), None)
+        if cce is None:
+            continue
+        used.update(range(cce, cce + l))
+        shape = (*lead, sizes[len(out) % len(sizes)])
+        bits = torch.randint(0, 2, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+        if kind != "random":
+            bits.fill_(int(kind == "ones"))
+        out.append((bits, rntis[len(out) % len(rntis)], cce, l))
+    return out
+
+
+def tx_twin_mismatch(g, cell, cfi: int, sf_idx: int, dcis, lead=()) -> int:
+    """The PDCCH kernel (``pdcch_encode_many``) and its plain twin run on
+    the card adding ``dcis`` onto the same random grid [*lead, P, S, K]:
+    -> the REs where they differ (-1 for another shape or type)."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import pdcch
+
+    shape = (*lead, cell.nof_ports, cell.nsymb_sf, cell.nof_re)
+    start = torch.complex(torch.randn(shape, generator=g, device="cuda"),
+                          torch.randn(shape, generator=g, device="cuda"))
+    got, want = start.clone(), start.clone()
+    pdcch.pdcch_encode_many(got, dcis, cell, cfi, sf_idx)
+    for bits, rnti, cce, l in dcis:
+        want += pdcch._pdcch_encode_plain(bits, rnti, cce, l, cell, cfi,
+                                          sf_idx)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return -1
+    return int((got != want).sum())
+
+
+def tx_kernel_alone(grid, dcis, cell, cfi: int, sf_idx: int):
+    """The PDCCH kernel's launches of ``dcis`` onto ``grid`` alone: the
+    DCIs checked and their places copied to the card once -> a function
+    that makes the launches (``pdcch_encode_at``)."""
+    from empower_srslte_tpu_torch.models import pdcch
+    from empower_srslte_tpu_torch.utils.device import host_ints
+
+    checked = pdcch.tx_dcis(dcis, cell, cfi, tuple(grid.shape[:-3]),
+                            grid.device)
+    bits = [b for b, *_ in checked]
+    places = host_ints([at for _, *at in checked], grid.device).to(
+        grid.device)
+    return lambda: pdcch.pdcch_encode_at(grid, bits, places, cell, cfi,
+                                         sf_idx)
+
+
+def tx_hold(cell, cfi: int, sf_idx: int, n: int, k: int, seed: int) -> dict:
+    """The PDCCH transmit kernel at one launch shape: ``n`` DCIs of random
+    payloads on ``cell``'s region (the first of K ``k``, the others of
+    the format-1A size), at the levels 4, 2, 8, 1 as they fit, against
+    the twin run on the card; timed by CUDA events (with the wrapper's
+    host cost) and by CUDA-graph replay."""
+    import torch
+
+    from empower_srslte_tpu_torch.models import dci as dci_mod
+    from empower_srslte_tpu_torch.models import pdcch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dcis = tx_dcis(g, cell, cfi, n, (4, 2, 8, 1),
+                   (k - 16, dci_mod.format0_1a_size(cell.nof_prb)))
+    grid = torch.zeros((1, cell.nof_ports, cell.nsymb_sf, cell.nof_re),
+                       dtype=torch.complex64, device="cuda")
+    run = tx_kernel_alone(grid, dcis, cell, cfi, sf_idx)
+    return {"dcis": len(dcis), "levels": [l for *_, l in dcis],
+            "mismatched": (tx_twin_mismatch(g, cell, cfi, sf_idx, dcis)
+                           if len(dcis) == n else -1),
+            "ms": cuda_ms(run, reps=50), "graph_ms": graph_ms(run, reps=20)}
+
+
+def phase_pdcch_tx():
+    """The PDCCH transmit kernel (``csrc/pdcch_tx.cu``) against its plain
+    twin run on the card, the grid bit for bit (REs that differ: 0): at 6,
+    25 and 100 PRB, 1, 2 and 4 ports, CFI 1-3, with random, all-zero and
+    all-one payloads of the format-1 and format-0/1A sizes, 1-3 DCIs at
+    the levels 1, 2, 4 and 8 on disjoint CCEs, added onto a random grid;
+    11 DCIs (two launches), leading dims (a DCI a row, and one for every
+    row), and ``pdcch_encode`` (a fresh grid) against the twin. Then at
+    the transmitter cell (``phybench/configs/enb_dl_tm4_20mhz.json``,
+    through ``phybench.drivers.enb_dl_tx_batch``): one launch an
+    ``enb_dl_tx_batch`` call for both DCIs; its control range
+    (``enb_dl_compose`` with no PDSCH) under
+    ``torch.cuda.set_sync_debug_mode("error")``; the host syncs a whole
+    call makes (the sync debug mode's warnings); a DCI's payload changed
+    between calls changing the samples and changed back restoring them
+    (so the chain copies the DCIs in every call); the kernel alone at
+    the cell's two DCIs, timed by CUDA events and by
+    CUDA-graph replay beside its bound and the twin (CUDA events: its
+    reads back to the host); ptxas' registers and spills. The batched
+    call's control range replays from its chain of CUDA graphs: its
+    samples equal the eager composer's, and a whole call runs under the
+    sync debug mode's "error" too. Calls whose RNTIs, CCEs, levels,
+    payloads, ACK and PHICH resource change every call replay the one
+    chain of their shapes (no chain added, the card's memory flat), each
+    equal to the eager composer, timed beside calls that repeat one set;
+    calls without DCIs, and without DCIs or HIs, equal it too."""
+    import json
+    import warnings
+
+    import torch
+
+    from empower_srslte_tpu_torch.models import dci as dci_mod
+    from empower_srslte_tpu_torch.models import enb_dl, pdcch, regs
+    from empower_srslte_tpu_torch.utils.cell import Cell
+    from phybench.drivers.enb_dl_tx_batch import Driver
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    cases = {}
+    for prb in (6, 25, 100):
+        sizes = (dci_mod.format1_size(prb), dci_mod.format0_1a_size(prb))
+        for ports in (1, 2, 4):
+            for cfi in (1, 2, 3):
+                cell = Cell(nof_prb=prb, nof_ports=ports,
+                            id=3 * prb + cfi % 2 + 1)
+                for j, kind in enumerate(("random", "zeros", "ones")):
+                    levels = ((1, 2, 4, 8), (8, 4, 2, 1), (2, 8, 1, 4))[
+                        (cfi + j) % 3]
+                    dcis = tx_dcis(g, cell, cfi, 1 + (prb + cfi + j) % 3,
+                                   levels, sizes, kind)
+                    cases[f"{prb}prb_{ports}p_cfi{cfi}_{kind}"] = {
+                        "levels": [l for *_, l in dcis],
+                        "mismatched": tx_twin_mismatch(g, cell, cfi, 1,
+                                                       dcis)}
+    cell = Cell(nof_prb=100, nof_ports=2, id=1)
+    sizes = (dci_mod.format1_size(100), dci_mod.format0_1a_size(100))
+    many = tx_dcis(g, cell, 3, 11, (1,), sizes)
+    rows = tx_dcis(g, cell, 2, 3, (4, 2, 1), sizes, lead=(4,))
+    shared = tx_dcis(g, cell, 2, 2, (8, 4), sizes)
+    bits, rnti, cce, l = rows[0]
+    one = pdcch.pdcch_encode(bits, rnti, cce, l, cell, 2, 1)
+    extra = {"dcis11": tx_twin_mismatch(g, cell, 3, 1, many),
+             "rows4": tx_twin_mismatch(g, cell, 2, 1, rows, lead=(4,)),
+             "rows4_shared": tx_twin_mismatch(g, cell, 2, 1, shared,
+                                              lead=(4,)),
+             "pdcch_encode_rows4": int((one != pdcch._pdcch_encode_plain(
+                 bits, rnti, cce, l, cell, 2, 1)).sum())}
+
+    conf = json.loads((ROOT / "phybench" / "configs"
+                       / "enb_dl_tm4_20mhz.json").read_text())
+    traffic = {"subframes_per_call": BATCH, "pool_subframes": BATCH,
+               "draw_subframes": BATCH, "check_calls": 1,
+               "check_subframes": 4}
+    drv = Driver(conf, traffic, 63, "cuda")
+    cell, cfi, sf = drv.cfg.cell, conf["cfi"], conf["sf_idx"]
+    per_call = launches_per_call(lambda: drv.call(0), ["pdcch_tx"])
+    open_counts()
+    drv.call(0)
+    call_shapes = read_counts()[1].get("pdcch_tx", {})
+
+    def control():
+        return enb_dl.enb_dl_compose(cell, sf, cfi, BATCH, dcis=drv.dcis,
+                                     phichs=drv.phichs, device="cuda")
+
+    def tx(dcis, phichs=drv.phichs):
+        rows_ = drv.rows(0)
+        return enb_dl.enb_dl_tx_batch(
+            drv.tb[0, rows_], drv.cfg, drv.plan, tb2=drv.tb[1, rows_],
+            dcis=dcis, phichs=phichs)
+
+    def eager_tx(dcis, phichs):
+        rows_ = drv.rows(0)
+        return enb_dl.enb_dl_gen_signal(enb_dl.enb_dl_compose(
+            cell, sf, cfi, BATCH, dcis=dcis, phichs=phichs,
+            pdschs=[(drv.tb[0, rows_], drv.cfg, drv.plan,
+                     drv.tb[1, rows_])], device="cuda"), cell)
+
+    control()
+    tx(drv.dcis)
+    torch.cuda.synchronize()
+    sync_error = {}
+    for name, fn in (("control_range", control),
+                     ("tx_call", lambda: tx(drv.dcis))):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            sync_error[name] = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            drv.call(0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs_a_call = sum("synchroniz" in str(w.message) for w in caught)
+
+    x0 = tx(drv.dcis)
+    flipped = [(1 - drv.dcis[0][0], *drv.dcis[0][1:]), *drv.dcis[1:]]
+    x1 = tx(flipped)
+    x2 = tx(drv.dcis)
+    moved = int((x1 != x0).any(-1).sum())
+    restored = bool(torch.equal(x2, x0))
+    rows_ = drv.rows(0)
+    eager = enb_dl.enb_dl_gen_signal(enb_dl.enb_dl_compose(
+        cell, sf, cfi, BATCH, dcis=drv.dcis, phichs=drv.phichs,
+        pdschs=[(drv.tb[0, rows_], drv.cfg, drv.plan, drv.tb[1, rows_])],
+        device="cuda"), cell)
+    chain_equal = bool(torch.equal(x0, eager))
+    del x1, x2, eager
+
+    # traffic whose control values change every call (RNTIs, CCEs,
+    # levels, payloads, the ACK and the PHICH resource): one chain for
+    # them all, each call's samples the eager composer's, the card's
+    # memory flat, and the calls timed beside calls that repeat one set
+    n_group = regs.nof_phich_groups(cell, 1.0)
+    assert regs.pdcch_nof_cces(cell, cfi) >= 16
+    varied = []
+    for j in range(8):
+        half = 8 * (j % 2)
+        varied.append((
+            [((1 - drv.dcis[0][0]) if j % 3 else drv.dcis[0][0],
+              (0x1234 + 97 * j) & 0xFFFF, half, (8, 4, 2, 1)[j % 4]),
+             (drv.dcis[1][0], (0xFFF0 - 13 * j) & 0xFFFF, 8 - half,
+              (1, 2, 4, 8)[j % 4])],
+            [((j + 1) % 2, (3 * j) % n_group, (5 * j) % 8)]))
+    chains_before = len(enb_dl._CHAINS)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    varied_equal = []
+    for dcis_j, phichs_j in varied:
+        got_j = tx(dcis_j, phichs_j)
+        varied_equal.append(bool(torch.equal(got_j,
+                                             eager_tx(dcis_j, phichs_j))))
+    del got_j
+    torch.cuda.synchronize()
+    mem_grew = torch.cuda.memory_allocated() - mem_before
+    chains_added = len(enb_dl._CHAINS) - chains_before
+
+    def calls_ms(sets, reps=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for dcis_j, phichs_j in sets:
+                tx(dcis_j, phichs_j)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (reps * len(sets))
+
+    varied_ms = calls_ms(varied)
+    fixed_ms = calls_ms([(drv.dcis, drv.phichs)] * len(varied))
+
+    # calls without DCIs, and without DCIs or HIs (the entry's defaults)
+    rows_ = drv.rows(0)
+    bare = {
+        "no_dcis": bool(torch.equal(tx((), drv.phichs),
+                                    eager_tx((), drv.phichs))),
+        "no_dcis_no_his": bool(torch.equal(
+            enb_dl.enb_dl_tx_batch(drv.tb[0, rows_], drv.cfg, drv.plan,
+                                   tb2=drv.tb[1, rows_]),
+            eager_tx((), ()))),
+    }
+
+    grid = torch.zeros((1, cell.nof_ports, cell.nsymb_sf, cell.nof_re),
+                       dtype=torch.complex64, device="cuda")
+    run = tx_kernel_alone(grid, drv.dcis, cell, cfi, sf)
+
+    def twin():
+        for b, r, c, lv in drv.dcis:
+            grid.add_(pdcch._pdcch_encode_plain(b, r, c, lv, cell, cfi, sf))
+
+    res = sum(36 * lv for *_, lv in drv.dcis)
+    nbytes = (res * cell.nof_ports * 16 + res * 4 + 2 * res * 4
+              + sum(b.numel() for b, *_ in drv.dcis))
+    main = {"dcis": len(drv.dcis), "ports": cell.nof_ports,
+            "levels": [lv for *_, lv in drv.dcis],
+            "mismatched": tx_twin_mismatch(g, cell, cfi, sf, drv.dcis),
+            "ms": cuda_ms(run, reps=200), "graph_ms": graph_ms(run, reps=50),
+            **bound(nbytes, 0), "twin_ms": cuda_ms(twin, reps=3)}
+    main["graph_over_bound"] = main["graph_ms"] / main["bound_ms"]
+    main["twin_over_kernel"] = main["twin_ms"] / main["ms"]
+    checks = {
+        "twin_every_case": all(v["mismatched"] == 0
+                               for v in cases.values()),
+        "every_level_and_count": {lv for v in cases.values()
+                                  for lv in v["levels"]} == {1, 2, 4, 8}
+        and {len(v["levels"]) for v in cases.values()} == {1, 2, 3},
+        "twin_many_and_rows": all(v == 0 for v in extra.values()),
+        "twin_cell_shape": main["mismatched"] == 0,
+        "one_launch_a_tx_call": per_call["pdcch_tx"] == 1,
+        "both_dcis_in_the_launch": call_shapes == {
+            (2, cell.nof_ports, max(b.shape[-1] for b, *_ in drv.dcis)
+             + 16): 1},
+        "control_range_and_call_without_sync": sync_error == {},
+        "changed_dci_changes_the_samples": moved > 0 and restored,
+        "control_chain_equals_eager": chain_equal,
+        "varied_values_equal_eager": all(varied_equal),
+        "varied_values_one_chain": chains_added == 0,
+        "varied_values_memory_flat": mem_grew < 2 ** 20,
+        "calls_without_dcis_equal_eager": all(bare.values()),
+    }
+    out = {"phase": "pdcch_tx", "cases": cases, "extra": extra,
+           "launches_per_tx_call": per_call["pdcch_tx"],
+           "tx_call_shapes": {str(k): v for k, v in call_shapes.items()},
+           "sync_error": sync_error, "syncs_a_tx_call": syncs_a_call,
+           "sync_warnings": sorted({str(w.message).splitlines()[0][:160]
+                                    for w in caught}),
+           "subframes_moved_by_a_changed_dci": moved,
+           "varied_values": {"calls": len(varied), "equal": varied_equal,
+                             "chains_added": chains_added,
+                             "memory_grew_bytes": mem_grew,
+                             "ms_a_call": varied_ms,
+                             "ms_a_call_one_set": fixed_ms},
+           "without_dcis": bare, "main": main,
+           "ptxas": PTXAS.get("pdcch_tx"), "checks": checks}
+    emit(out)
+    check("pdcch_tx", checks)
+    return out
+
+
 def phase_main_path():
     """The main path: TM4 transmitter (plain PyTorch) -> receiver."""
     import torch
@@ -1961,8 +2304,9 @@ def phase_enb_dl_tx():
     samples are held to ``phybench/references/dl_tx.py`` (their gap over
     the reference's largest magnitude under 1e-5, no RE decided apart).
     Its launches from the launch registry (the turbo encoder kernel, once
-    a call: one K) and, from one call under ``torch.profiler``, the
-    kernels a call launches."""
+    a call: one K; the PDCCH kernel, once a call for both DCIs, held to
+    its twin at each shape it launched, ``hold_shapes``) and, from one
+    call under ``torch.profiler``, the kernels a call launches."""
     import json
 
     import torch
@@ -1977,7 +2321,8 @@ def phase_enb_dl_tx():
                "draw_subframes": BATCH, "check_calls": 1,
                "check_subframes": 4}
     drv = Driver(conf, traffic, 61, "cuda")
-    res, launches, ms_first, ms, peak, _ = counted_run(lambda: drv.call(0))
+    res, launches, ms_first, ms, peak, shapes = counted_run(
+        lambda: drv.call(0))
     drv.tally(0, res)
     del res
     with profile(activities=[ProfilerActivity.CPU,
@@ -1990,13 +2335,19 @@ def phase_enb_dl_tx():
     t0 = time.perf_counter()
     readings = drv.check()
     ref_s = time.perf_counter() - t0
+    held = hold_shapes("enb_dl_tx", {"pdcch_tx": shapes.get("pdcch_tx", {})},
+                       seed=62, cell=drv.cfg.cell, cfi=conf["cfi"],
+                       sf_idx=conf["sf_idx"])["pdcch_tx"]
     checks = {
         "gap_samples_under_1e-5": readings["gap.samples"] < 1e-5,
         "no_re_decided_apart": readings["diff.re"] == 0,
         "replay_equal": readings["replay"] == 0,
         "every_call_equal_the_first": all(bool(e.all())
                                           for e, *_ in drv.log),
-        "one_turbo_enc_launch_alone": dict(launches) == {"turbo_enc": 1},
+        "one_turbo_enc_and_one_pdcch_tx_launch": dict(launches)
+        == {"turbo_enc": 1, "pdcch_tx": 1},
+        "pdcch_tx_twin_every_shape": bool(held) and all(
+            v["mismatched"] == 0 for v in held.values()),
     }
     emit({"phase": "enb_dl_tx", "batch": BATCH, "nof_prb": conf["nof_prb"],
           "mcs": conf["mcs"], "tbs": conf["tbs"], "codewords": 2,
@@ -2004,7 +2355,7 @@ def phase_enb_dl_tx():
           "mbps": BATCH * 2 * conf["tbs"] / (ms * 1e-3) / 1e6,
           "launches": dict(launches), "kernels_per_call": kernels,
           "peak_mem_gb": peak, "reference_s": round(ref_s, 2),
-          "readings": readings, "checks": checks})
+          "readings": readings, "pdcch_tx_held": held, "checks": checks})
     check("enb_dl_tx", checks)
     return launches
 
@@ -3076,13 +3427,16 @@ def hold_shapes(phase: str, shapes: dict, seed: int, cell=None,
     (the name of a shape launched off the default bounds (0, W-1) ends in
     ``_bounds{first}_{last}``): -> {"turbo_nii": {...}, "turbo_win":
     {...}, "viterbi37": {...}, "pdcch": {...}, "sch_derm": {...},
-    "ctrl_llr": {...}, "chest_dl": {...}} per shape, with its launches;
+    "ctrl_llr": {...}, "chest_dl": {...}, "pdcch_tx": {...}} per shape,
+    with its launches;
     the blind-search kernel (``pdcch``, a shape being its DCI sizes,
     candidates and subframes) on noisy LLRs (``blind_hold``); the
     de-rate-matching kernel on random LLRs (``derm_hold``); given the
     phase's ``cell`` (and its CFI and subframe), the control LLR kernel
     (``ctrl_hold``) and the CRS estimate kernel (``chest_shape``) on
-    random grids and channels of that cell. The phase's checks require
+    random grids and channels of that cell, and the PDCCH transmit kernel
+    (``tx_hold``, a shape being its DCIs, ports and largest K) on random
+    DCIs of that cell. The phase's checks require
     every error to be 0, the de-rate-matching kernel's to be 0 or within
     its stated tolerance, and the control and estimate kernels' within
     theirs (``turbo_checks``, ``shape_checks``)."""
@@ -3092,7 +3446,7 @@ def hold_shapes(phase: str, shapes: dict, seed: int, cell=None,
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {"turbo_nii": {}, "turbo_win": {}, "viterbi37": {}, "pdcch": {},
-           "sch_derm": {}, "ctrl_llr": {}, "chest_dl": {}}
+           "sch_derm": {}, "ctrl_llr": {}, "chest_dl": {}, "pdcch_tx": {}}
     i = 0
     for (n, ports, n_re), c in sorted(shapes.get("ctrl_llr", {}).items()):
         if cell is None:
@@ -3151,6 +3505,15 @@ def hold_shapes(phase: str, shapes: dict, seed: int, cell=None,
                                   "launches": c}
         PATH_TWIN["viterbi37"][f"{phase}_{name}"] = \
             out["viterbi37"][name]["mismatched_bits"]
+        i += 1
+    for (n, ports, k), c in sorted(shapes.get("pdcch_tx", {}).items()):
+        if cell is None:
+            break
+        name = f"dcis{n}_p{ports}_k{k}"
+        out["pdcch_tx"][name] = {
+            **tx_hold(cell, cfi, sf_idx, n, k, seed + i), "launches": c}
+        PATH_TWIN["pdcch_tx"][f"{phase}_{name}"] = \
+            out["pdcch_tx"][name]["mismatched"]
         i += 1
     for (sizes, cands, n), c in sorted(
             shapes.get("pdcch_blind", {}).items()):
@@ -4372,6 +4735,7 @@ def main() -> int:
                  "pdcch_rx": phase_pdcch_rx,
                  "sch_derm": phase_sch_derm,
                  "turbo_enc": phase_turbo_enc,
+                 "pdcch_tx": phase_pdcch_tx,
                  "main_path": phase_main_path,
                  "dl_tm2_batch": phase_dl_tm2_batch,
                  "enb_dl_tx": phase_enb_dl_tx,
@@ -4410,6 +4774,7 @@ def main() -> int:
     pdcch_out = phase_pdcch_rx()
     derm_out = phase_sch_derm()
     enc_out = phase_turbo_enc()
+    tx_out = phase_pdcch_tx()
     turbo, turbo16 = turbo_kernel_check()
     words = BATCH * n_candidates()
     vit = viterbi_kernel_check(
@@ -4570,6 +4935,13 @@ def main() -> int:
          "launches_by_path": per_path("turbo_enc"),
          **{k: enc_out[k] for k in ("shapes", "mismatched_by_k",
                                     "mismatched_by_dtype", "main", "ptxas")},
+         "library_ms": None},
+        {"name": "pdcch_tx", "route": "cuda",
+         "source": "empower_srslte_tpu_torch/csrc/pdcch_tx.cu",
+         "replaces": None, "launches": tx_launches["pdcch_tx"],
+         "launches_by_path": per_path("pdcch_tx"),
+         "mismatched_by_path_shape": PATH_TWIN["pdcch_tx"],
+         **{k: tx_out[k] for k in ("cases", "extra", "main", "ptxas")},
          "library_ms": None},
         {"name": "recursion_probe", "route": "cuda",
          "source": "empower_srslte_tpu_torch/csrc/recursion_probe.cu",

@@ -35,9 +35,9 @@ import numpy as np
 import torch
 
 from ..ops.ofdm import ofdm_tx_sf
-from ..runtime import trace
+from ..runtime import graphs, trace
 from ..utils.cell import Cell
-from ..utils.device import device_table, resolve_device
+from ..utils.device import device_table, host_ints, resolve_device
 from . import ra
 from .refsignal import crs_pilots
 
@@ -198,34 +198,92 @@ def tm4_stimulus(batch: int, *, device=None) -> Tm4Stimulus:
 
 
 def enb_dl_compose(cell: Cell, sf_idx: int, cfi: int, batch: int, *,
-                   dcis=(), phichs=(), pdschs=(), device=None):
+                   dcis=(), phichs=(), pdschs=(), device=None,
+                   stages=graphs.EAGER):
     """``batch`` subframes' per-port grids [batch, P, nsymb, nre], in
     enb_dl.c's order (put_base, put_pcfich, put_phich, put_pdcch_dl /
     put_pdcch_ul, put_pdsch): CRS, the CFI, each HI of ``phichs`` as
     (ack, group, seq) and each DCI of ``dcis`` as (bits, rnti, cce, L),
-    the same in every subframe, in the range ``enb_dl.control_tx``; then
-    each PDSCH of ``pdschs`` as (tb [batch, tbs], PdschConfig, DlschPlan,
-    tb2 [batch, tbs] or None), written onto the ports its scheme uses
-    (``pdsch_encode``'s ``dlsch.*`` and ``pdsch.map`` ranges)."""
-    from .pcfich import pcfich_put
-    from .pdcch import pdcch_encode
+    the same in every subframe, in the range ``enb_dl.control_tx`` (a
+    stage of ``stages``); then each PDSCH of ``pdschs`` as (tb [batch,
+    tbs], PdschConfig, DlschPlan, tb2 [batch, tbs] or None), written onto
+    the ports its scheme uses (``pdsch_encode``'s ``dlsch.*`` and
+    ``pdsch.map`` ranges). On the card the control region reads nothing
+    back to the host: the HIs' and DCIs' values go to the card in one
+    copy a call from pinned memory, its tables are uploaded once, and
+    every DCI goes into one launch of the PDCCH kernel
+    (``pdcch_encode_at``)."""
     from .pdsch import pdsch_encode
-    from .phich import phich_put
 
-    with trace.span("enb_dl.control_tx"):
-        grid = pcfich_put(enb_dl_base_grid(cell, sf_idx, (1,), device),
-                          cfi, cell, sf_idx)
-        for ack, group, seq in phichs:
-            grid = phich_put(grid, ack, cell, sf_idx, group, seq)
-        for bits, rnti, cce, l in dcis:
-            grid = grid + pdcch_encode(
-                torch.as_tensor(bits, device=grid.device), rnti, cce, l,
-                cell, cfi, sf_idx)
-        grid = grid.expand(batch, -1, -1, -1).contiguous()
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:  # the bits name the card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    bits, values = _control_values(cell, cfi, dcis, phichs, dev)
+    grid = stages("enb_dl.control_tx", _control_region, cell, sf_idx, cfi,
+                  batch, len(phichs), dev, values, *bits)
     for tb, cfg, plan, tb2 in pdschs:
         pdsch_encode(tb, cfg, plan, tb2, None if tb2 is None else plan,
                      grid=grid)
     return grid
+
+
+def _control_values(cell: Cell, cfi: int, dcis, phichs, device):
+    """The control region's per-call values, checked: -> (each DCI's bits
+    on ``device``, int32 [HIs + DCIs, 3] on the host (``host_ints``):
+    each HI's (ack, group, seq), then each DCI's (rnti, cce, L))."""
+    from .pdcch import tx_dcis
+    from .phich import NSF
+    from .regs import nof_phich_groups
+
+    n_group = nof_phich_groups(cell, 1.0)
+    for ack, group, seq in phichs:
+        if ack not in (0, 1) or not 0 <= group < n_group \
+                or not 0 <= seq < 2 * NSF:
+            raise ValueError(f"HI {(ack, group, seq)}: ack 0 or 1, group "
+                             f"below {n_group}, sequence below {2 * NSF}")
+    dcis = tx_dcis([(b if isinstance(b, torch.Tensor) and b.device == device
+                     else torch.as_tensor(b, device=device), *at)
+                    for b, *at in dcis], cell, cfi, (), device)
+    return ([b for b, *_ in dcis],
+            host_ints([*phichs, *(at for _, *at in dcis)], device))
+
+
+def _control_region(cell: Cell, sf_idx: int, cfi: int, batch: int,
+                    n_hi: int, device, values, *bits):
+    """``enb_dl_compose``'s control region [batch, P, nsymb, nre] on
+    ``device``, of the ``_control_values`` ``values`` (copied there with
+    no wait, if a chain has not) and ``bits``, which it reads there."""
+    from .pcfich import pcfich_put
+    from .pdcch import pdcch_encode_at
+    from .phich import phich_put
+
+    values = values.to(device, non_blocking=True)
+    grid = pcfich_put(enb_dl_base_grid(cell, sf_idx, (1,), device), cfi,
+                      cell, sf_idx)
+    for hi in values[:n_hi]:
+        grid = phich_put(grid, hi[0:1], cell, sf_idx, hi[1:2], hi[2:3])
+    pdcch_encode_at(grid, list(bits), values[n_hi:], cell, cfi, sf_idx)
+    return grid.expand(batch, -1, -1, -1).contiguous()
+
+
+#: the batched transmitter's control-range chains on the card, by cell,
+#: subframe, CFI, batch, the number of HIs and the DCIs' sizes and types
+#: (``runtime.graphs.Stages``)
+_CHAINS: dict = {}
+
+
+def _control_chain(cell: Cell, sf_idx: int, cfi: int, batch: int, dcis,
+                   phichs, device):
+    """The control range of a batched call: on the card the chain of its
+    shapes (captured on its first call; every call copies its HIs' and
+    DCIs' values and bits into the chain's buffers, so a chain serves any
+    RNTIs, CCEs, levels, ACKs and PHICH resources), else ``EAGER``."""
+    if device.type != "cuda":
+        return graphs.EAGER
+    key = (cell, sf_idx, cfi, batch, len(phichs),
+           tuple((np.shape(b), str(getattr(b, "dtype", None)))
+                 for b, *_ in dcis), device)
+    return _CHAINS.setdefault(key, graphs.Stages(device)).start()
 
 
 def enb_dl_tx_batch(tb, cfg, plan, *, tb2=None, dcis=(), phichs=()):
@@ -238,14 +296,17 @@ def enb_dl_tx_batch(tb, cfg, plan, *, tb2=None, dcis=(), phichs=()):
     rnti, cce, L) and ``phichs`` (ack, group, seq) are one a call, the
     same in every subframe. The call runs ``enb_dl_compose`` then
     ``enb_dl_gen_signal`` in the range ``enb_dl.tx_batch`` (its self time
-    is the transmitter's glue); its stages in ``enb_dl.control_tx``,
+    is the transmitter's glue); its stages in ``enb_dl.control_tx`` (on
+    the card replayed from a CUDA graph, ``_control_chain``),
     ``dlsch.crc_attach``, ``dlsch.turbo_encode``, ``dlsch.rate_match``,
     ``pdsch.map`` and ``enb_dl.ofdm_tx``."""
     with trace.root("enb_dl.tx_batch", tb.device):
-        grid = enb_dl_compose(cfg.cell, cfg.sf_idx, cfg.cfi, tb.shape[0],
-                              dcis=dcis, phichs=phichs,
-                              pdschs=[(tb, cfg, plan, tb2)],
-                              device=tb.device)
+        cell, batch = cfg.cell, tb.shape[0]
+        grid = enb_dl_compose(
+            cell, cfg.sf_idx, cfg.cfi, batch, dcis=dcis, phichs=phichs,
+            pdschs=[(tb, cfg, plan, tb2)], device=tb.device,
+            stages=_control_chain(cell, cfg.sf_idx, cfg.cfi, batch, dcis,
+                                  phichs, tb.device))
         with trace.span("enb_dl.ofdm_tx"):
             return enb_dl_gen_signal(grid, cfg.cell)
 

@@ -48,7 +48,8 @@ def pcfich_put(grid, cfi: int, cell: Cell, sf_idx: int):
     port, 2-port SFBC or 4-port SFBC-FSTD (srslte_pcfich_encode). Returns
     a new grid."""
     dev = grid.device
-    bits = torch.as_tensor(CFI_CODEWORDS[cfi - 1], device=dev)
+    bits = device_table(("cfi_codeword", cfi), dev,
+                        lambda: CFI_CODEWORDS[cfi - 1])
     syms = modulate(scramble_bits(bits, cinit_pcfich(2 * sf_idx, cell.id)),
                     Mod.QPSK)
     if cell.nof_ports == 1:

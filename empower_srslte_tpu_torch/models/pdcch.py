@@ -9,16 +9,22 @@ search over candidate locations and formats (pdcch.c:341) — every
 candidate of every aggregation level decodes in one Viterbi batch per
 DCI size.
 
-On the card the control stages are two launches of ``csrc/pdcch_rx.cu``:
+On the card the encoder is one launch of ``csrc/pdcch_tx.cu`` for every
+DCI of a call (``pdcch_encode_many``, which ``pdcch_encode`` goes
+through), with no read back to the host, and the control stages are two
+launches of ``csrc/pdcch_rx.cu``:
 ``ctrl_llr_cuda`` (the PCFICH decode and the region's LLRs, which
 ``pcfich_decode`` and ``pdcch_extract_llr`` go through) and
 ``pdcch_blind_cuda`` (the rate de-matching, Viterbi decode and CRC16 of
 every candidate and DCI size, which ``pdcch_blind_bits`` and
 ``pdcch_blind_decode`` go through); ``control_rx`` is the batched
 receiver's entry to both. On the CPU each function runs its plain twin
-(``_pdcch_extract_llr_plain``, ``_pdcch_blind_bits_plain``). The tables
-the kernels read (candidates, the sizes' de-rate-matching and CRC
-tables, RE indices and descrambling signs) are built once per plan.
+(``_pdcch_encode_plain``, ``_pdcch_extract_llr_plain``,
+``_pdcch_blind_bits_plain``). The tables the kernels read (candidates,
+the sizes' de-rate-matching and CRC tables, the rate matching's circle,
+RE indices and scrambling signs) are built once per plan; a transmit
+call's RNTIs, CCEs and levels go to the card in one copy, and the
+kernel reads them there.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from ..utils.bits import uint_to_bits
 from ..utils.cell import Cell
 from ..utils.crc import CRC16
 from ..utils.cuda_build import Kernel
-from ..utils.device import MAX_SMEM, device_table
+from ..utils.device import MAX_SMEM, device_table, host_ints
 from ..utils.sequence import cinit_pdcch, gold_sequence
 from . import pcfich
 from .regs import RE_PER_CCE, pdcch_nof_cces, pdcch_reg_map
@@ -64,9 +70,19 @@ CTRL_LLR = Kernel("pdcch_rx", "ctrl_llr_launch",
 PDCCH_BLIND = Kernel("pdcch_rx", "pdcch_blind_launch",
                      [_P, _I64, _I32, _P, _I32, _P, _P, _I32, _I32, _P, _P,
                       _P, _I32, _I32])
+#: the transmit kernel's launcher: grid, its row and port strides, ports,
+#: rows, the region's REs and scrambling signs, their count, DCIs, then
+#: per DCI (host arrays) its bits' pointer, their row stride, its size and
+#: its circle table's pointer, and the card's [DCIs, 3] (rnti, cce, L). A
+#: launch's shape in the launch registry is (DCIs, ports, the largest K)
+PDCCH_TX = Kernel("pdcch_tx", "pdcch_tx_launch",
+                  [_P, _I64, _I64, _I32, _I32, _P, _P, _I32, _I32, _P, _P,
+                   _P, _P, _P])
 #: the blind kernel's limits (csrc/pdcch_rx.cu): warps a block, DCI sizes
-#: a launch, K = size + 16
+#: a launch, K = size + 16 (the transmit kernel's too)
 MAX_BLIND_WARPS, MAX_SIZES, MAX_K = 32, 4, 128
+#: DCIs a transmit launch takes (csrc/pdcch_tx.cu MAX_DCIS)
+MAX_TX_DCIS = 8
 #: ints of a size's header in the size table: K, halo, the offset of its
 #: inverse circle (its syndromes follow), the RNTI mask's syndrome
 SIZE_HDR = 4
@@ -112,7 +128,23 @@ def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
     scrambling sequence offset follows the CCE position so independent
     PDCCHs compose additively. Transmit diversity as 36.211 6.8.4 asks:
     SFBC on a 2-port cell, SFBC-FSTD on a 4-port one (6.3.3.3, 6.3.4.3;
-    a CCE is 9 quadruplets, so each quadruplet is one SFBC-FSTD group)."""
+    a CCE is 9 quadruplets, so each quadruplet is one SFBC-FSTD group).
+    On the card ``pdcch_encode_many`` onto a fresh zero grid (one launch),
+    on the CPU the plain twin."""
+    if not _on_card(dci_bits):
+        return _pdcch_encode_plain(dci_bits, rnti, cce, l, cell, cfi, sf_idx,
+                                   ng)
+    grid = torch.zeros((*dci_bits.shape[:-1], cell.nof_ports, cell.nsymb_sf,
+                        cell.nof_re), dtype=torch.complex64,
+                       device=dci_bits.device)
+    pdcch_encode_many(grid, [(dci_bits, rnti, cce, l)], cell, cfi, sf_idx,
+                      ng)
+    return grid
+
+
+def _pdcch_encode_plain(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
+                        cfi: int, sf_idx: int, ng: float = 1.0):
+    """``pdcch_encode`` in plain PyTorch (the transmit kernel's twin)."""
     dev = dci_bits.device
     e = l * BITS_PER_CCE
     crc = CRC16.compute(dci_bits).to(torch.int8)
@@ -134,6 +166,81 @@ def pdcch_encode(dci_bits, rnti: int, cce: int, l: int, cell: Cell,
     return grid.reshape(*lead, cell.nof_ports, cell.nsymb_sf, cell.nof_re)
 
 
+def pdcch_encode_many(grid, dcis, cell: Cell, cfi: int, sf_idx: int,
+                      ng: float = 1.0) -> None:
+    """Add every DCI of ``dcis``, each (bits, rnti, cce, L), onto grid
+    [..., P, nsymb, nre] complex64 in place, as ``pdcch_encode``'s
+    contributions would add: bits [size] 0/1 (the same DCI in every row of
+    the grid) or [..., size] (the grid's leading dims), on the grid's
+    device, their CCEs disjoint (``tx_dcis``), then ``pdcch_encode_at``.
+    Raises ``ValueError`` on a grid or DCI the kernel does not take."""
+    _check_tx_grid(grid, cell)
+    dcis = tx_dcis(dcis, cell, cfi, tuple(grid.shape[:-3]), grid.device, ng)
+    places = host_ints([at for _, *at in dcis], grid.device)
+    pdcch_encode_at(grid, [b for b, *_ in dcis],
+                    places.to(grid.device, non_blocking=True), cell, cfi,
+                    sf_idx, ng)
+
+
+def pdcch_encode_at(grid, bits, places, cell: Cell, cfi: int, sf_idx: int,
+                    ng: float = 1.0) -> None:
+    """``pdcch_encode_many`` of DCIs ``tx_dcis`` checked: bits[i] at
+    places[i] = (rnti, cce, L), places int32 [len(bits), 3] on the grid's
+    device, read there. On the card (a contiguous grid) one launch of
+    ``csrc/pdcch_tx.cu`` a MAX_TX_DCIS DCIs, with no read back to the
+    host, whatever the places hold (a CUDA graph replays it with others);
+    on the CPU the plain twin, DCI by DCI."""
+    if not _on_card(grid):
+        for b, (rnti, cce, l) in zip(bits, places.tolist()):
+            grid += _pdcch_encode_plain(b, rnti, cce, l, cell, cfi, sf_idx,
+                                        ng)
+        return
+    if not grid.is_contiguous():
+        raise ValueError("grid must be contiguous on the card")
+    for i in range(0, len(bits), MAX_TX_DCIS):
+        _pdcch_tx_launch(grid, bits[i:i + MAX_TX_DCIS],
+                         places[i:i + MAX_TX_DCIS], cell, cfi, sf_idx, ng)
+
+
+def _check_tx_grid(grid, cell: Cell) -> None:
+    if grid.dtype != torch.complex64:
+        raise ValueError(f"grid must be complex64, not {grid.dtype}")
+    plane = (cell.nof_ports, cell.nsymb_sf, cell.nof_re)
+    if grid.dim() < 3 or tuple(grid.shape[-3:]) != plane:
+        raise ValueError(f"grid shape {tuple(grid.shape)}, want "
+                         f"[..., {', '.join(map(str, plane))}]")
+
+
+def tx_dcis(dcis, cell: Cell, cfi: int, lead: tuple, device,
+            ng: float = 1.0) -> list:
+    """``dcis`` as [(bits, rnti & 0xFFFF, cce, L)] after the checks of
+    ``pdcch_encode_many``: each DCI's bits an integer or bool tensor on
+    ``device``, [size] or [*lead, size], K = size + 16 at most MAX_K; L 1,
+    2, 4 or 8 inside the region's CCEs and clear of the other DCIs'."""
+    n_cce = pdcch_nof_cces(cell, cfi, ng)
+    out, used = [], set()
+    for bits, rnti, cce, l in dcis:
+        if not isinstance(bits, torch.Tensor) or bits.device != device:
+            raise ValueError("DCI bits must be a tensor on the grid's "
+                             "device")
+        if bits.dtype.is_floating_point or bits.dtype.is_complex:
+            raise ValueError(f"DCI bits must be integers, not {bits.dtype}")
+        if bits.dim() < 1 or tuple(bits.shape[:-1]) not in ((), lead):
+            raise ValueError(f"DCI bits shape {tuple(bits.shape)} for a "
+                             f"grid of leading dims {lead}")
+        if not 1 <= bits.shape[-1] <= MAX_K - 16:
+            raise ValueError(f"a DCI of {bits.shape[-1]} bits: its size + 16 "
+                             f"must lie in 17-{MAX_K}")
+        cce, l = int(cce), int(l)
+        if l not in (1, 2, 4, 8) or cce < 0 or cce + l > n_cce:
+            raise ValueError(f"L {l} at CCE {cce} does not fit the region's "
+                             f"{n_cce} CCEs")
+        taken = used.intersection(range(cce, cce + l))
+        if taken:
+            raise ValueError(f"DCIs overlap at CCEs {sorted(taken)}")
+        used.update(range(cce, cce + l))
+        out.append((bits, int(rnti) & 0xFFFF, cce, l))
+    return out
 
 def pdcch_extract_llr(grid, h, cell: Cell, cfi: int, sf_idx: int,
                       noise_est=0.0, ng: float = 1.0):
@@ -302,6 +409,15 @@ def region_signs(cell: Cell, cfi: int, ng: float, sf_idx: int):
              ).astype(np.float32))
 
 
+def _region_tables(cell: Cell, cfi: int, ng: float, sf_idx: int, device):
+    """``region_signs`` on ``device``, uploaded once: (RE indices int32,
+    scrambling signs float32), which both control kernels read."""
+    key = (cell, cfi, ng, sf_idx)
+    return tuple(device_table((name,) + key, device,
+                              lambda i=i: region_signs(*key)[i])
+                 for i, name in enumerate(("pdcch_k_re", "pdcch_k_signs")))
+
+
 def candidate_table(cands: tuple) -> np.ndarray:
     """int32 [n_cand, 2]: each candidate's first LLR (cce * 72) and E
     (L * 72), in ``cands`` order."""
@@ -432,12 +548,7 @@ def ctrl_llr_cuda(grid, h, cell: Cell, sf_idx: int, noise_est=0.0,
     llr = pd_re = pd_sgn = None
     n_re = 0
     if region is not None:
-        rcfi, ng = region
-        key = (cell, rcfi, ng, sf_idx)
-        pd_re, pd_sgn = (device_table((name,) + key, dev,
-                                      lambda i=i: region_signs(*key)[i])
-                         for i, name in enumerate(("pdcch_k_re",
-                                                   "pdcch_k_signs")))
+        pd_re, pd_sgn = _region_tables(cell, *region, sf_idx, dev)
         n_re = pd_re.shape[0]
         llr = torch.empty((n, 2 * n_re), dtype=torch.float32, device=dev)
     if n:
@@ -491,3 +602,32 @@ def pdcch_blind_cuda(llr, cands: tuple, sizes: tuple, rnti: int):
     bits = [buf[offs[i]:offs[i + 1]].view(*lead, nc, k)
             for i, k in enumerate(ks)]
     return bits, ok.reshape(len(sizes), *lead, nc), hits.reshape(lead)
+
+
+def _pdcch_tx_launch(grid, bits, places, cell: Cell, cfi: int, sf_idx: int,
+                     ng: float) -> None:
+    """One launch of ``csrc/pdcch_tx.cu``'s ``pdcch_tx_kernel``: the 1 to
+    MAX_TX_DCIS DCIs ``bits`` at ``places`` (``pdcch_encode_at``) added
+    onto the contiguous CUDA grid [..., P, nsymb, nre] in place. Bits of
+    another integer type are cast to int8 on the card first; nothing is
+    read back to the host."""
+    ports, plane = cell.nof_ports, cell.nsymb_sf * cell.nof_re
+    dev = grid.device
+    pd_re, pd_sgn = _region_tables(cell, cfi, ng, sf_idx, dev)
+    bits = [b.to(torch.int8).contiguous() for b in bits]
+    places = places.to(torch.int32).contiguous()
+    ks = [b.shape[-1] + 16 for b in bits]
+    circles = [device_table(("rmc_circle", k), dev, lambda k=k: _circle(k))
+               for k in ks]
+    n, rows = len(bits), grid.numel() // (ports * plane)
+    if rows:
+        PDCCH_TX.launch(
+            dev, (n, ports, max(ks)),
+            grid.data_ptr(), ports * plane, plane, ports, rows,
+            pd_re.data_ptr(), pd_sgn.data_ptr(), pd_re.shape[0], n,
+            (ctypes.c_void_p * n)(*(b.data_ptr() for b in bits)),
+            (ctypes.c_longlong * n)(*(0 if b.dim() == 1 else b.shape[-1]
+                                      for b in bits)),
+            (ctypes.c_int * n)(*(k - 16 for k in ks)),
+            (ctypes.c_void_p * n)(*(c.data_ptr() for c in circles)),
+            places.data_ptr())

@@ -64,31 +64,45 @@ def _scramble_seq(cell: Cell, sf_idx: int) -> np.ndarray:
     return (1.0 - 2.0 * c).astype(np.float32)
 
 
-def _group_idx(cell: Cell, ng: float, group: int, device) -> torch.Tensor:
-    return device_table(("phich_re", cell, ng, group), device,
-                        lambda: _group_re_indices(cell, ng, group))
+def _group_idx(cell: Cell, ng: float, group, device) -> torch.Tensor:
+    """The REs of ``group`` (an int, or an int tensor [1] on ``device``)
+    from the table of every group's, uploaded once."""
+    table = device_table(
+        ("phich_re", cell, ng), device,
+        lambda: np.stack([_group_re_indices(cell, ng, g)
+                          for g in range(nof_phich_groups(cell, ng))]))
+    return table[group].reshape(12)
 
 
-def _fstd_alternate(ports: torch.Tensor, group: int) -> torch.Tensor:
+def _fstd_alternate(ports: torch.Tensor, group) -> torch.Tensor:
     """[..., 4, 12] by port: the quadruplets i with (i + group) odd take
     ports 1, 0, 3, 2 in place of 0, 1, 2, 3 (36.211 6.9.2). Its own
-    inverse, and the same for a 4-port channel as for the symbols."""
+    inverse, and the same for a 4-port channel as for the symbols.
+    ``group`` an int, or an int tensor [1] on the device of ``ports``."""
     quads = ports.reshape(*ports.shape[:-1], 3, 4)         # [..., 4, 3, 4]
-    odd = torch.tensor([[(i + group) % 2 == 1] for i in range(3)],
-                       device=ports.device)
+    odd = ((torch.arange(3, device=ports.device) + group) % 2 == 1)[:, None]
     return torch.where(odd, quads[..., [1, 0, 3, 2], :, :],
                        quads).reshape(ports.shape)
 
 
-def phich_put(grid, ack: int, cell: Cell, sf_idx: int, group: int = 0,
-              seq_idx: int = 0, ng: float = 1.0):
+def phich_put(grid, ack, cell: Cell, sf_idx: int, group=0, seq_idx=0,
+              ng: float = 1.0):
     """Add one HI, ACK (1) or NACK (0), to grid [..., P, nsymb, nre]: the
     one port, SFBC on 2 ports, SFBC-FSTD on 4 with the port pairs of
-    36.211 6.9.2. Returns a new grid."""
-    z = np.tile(_W[seq_idx], 3) * _scramble_seq(cell, sf_idx) * (
-        -_BPSK0 if ack else _BPSK0)
-    zt = torch.as_tensor(z.astype(np.complex64), device=grid.device)
-    port_syms = precode_diversity(zt, cell.nof_ports)
+    36.211 6.9.2. ``ack``, ``group`` and ``seq_idx`` are ints, or int
+    tensors [1] on the grid's device, read there and not on the host (so a
+    CUDA graph that captured the put serves any HI). Returns a new grid."""
+    # every sequence's NACK symbols, uploaded once; an ACK's are their
+    # negation
+    nack = device_table(("phich_nack", cell, sf_idx), grid.device,
+                        lambda: (np.tile(_W, 3) * _scramble_seq(cell, sf_idx)
+                                 * _BPSK0).astype(np.complex64)
+                        )[seq_idx].reshape(12)
+    if isinstance(ack, torch.Tensor):
+        syms = torch.where(ack.bool(), -nack, nack)
+    else:
+        syms = -nack if ack else nack
+    port_syms = precode_diversity(syms, cell.nof_ports)
     if cell.nof_ports == 4:
         port_syms = _fstd_alternate(port_syms, group)
     idx = _group_idx(cell, ng, group, grid.device)

@@ -12,7 +12,8 @@ registry the hand-written kernels its capture recorded.
 
 A stage's tensor arguments that an earlier stage of the chain returned,
 or views of them, are read where they lie; any other is copied, on every
-call, into a buffer taken at the capture. Its other arguments must be
+call, into a buffer on the chain's device taken at the capture (a host
+tensor from pinned memory, with no wait). Its other arguments must be
 those of the capture. Its results are the graph's own buffers, which the
 next call overwrites: a caller that keeps one past the call takes
 ``keep(result)``, a copy.
@@ -59,12 +60,14 @@ EAGER = Eager()
 
 
 class Stages:
-    """A chain of stages on one CUDA device, captured on its first call
+    """A chain of stages on one CUDA device (``device``, or by default its
+    first stage's first tensor argument's), captured on its first call
     and replayed on the later ones. ``start()`` begins a call; each stage
     is then ``stages(name, fn, *args, **kwargs)``, in the capture's
     order."""
 
-    def __init__(self):
+    def __init__(self, device=None):
+        self._device = device
         #: per stage: (name, replay, static tensor arguments, result,
         #: launches of hand-written kernels)
         self._graphs: list = []
@@ -97,20 +100,25 @@ class Stages:
                     raise ValueError(f"stage {name!r}: an argument of shape "
                                      f"{tuple(a.shape)} where the chain "
                                      f"captured {tuple(s.shape)}")
-                if a.data_ptr() != s.data_ptr() or a.stride() != s.stride():
+                if a.device != s.device:
+                    s.copy_(a, non_blocking=True)
+                elif a.data_ptr() != s.data_ptr() or a.stride() != s.stride():
                     s.copy_(a)
             replay()
             trace.count_launches(launches)
             return result
 
     def _capture(self, name: str, fn, args, kwargs) -> None:
+        tensors = _tensors(args, kwargs)
+        if self._device is None:
+            self._device = tensors[0].device
         static = [a if a.untyped_storage().data_ptr() in self._owned
-                  else a.clone() for a in _tensors(args, kwargs)]
+                  else a.to(self._device, copy=True) for a in tensors]
         it = iter(static)
         args = [next(it) if isinstance(a, torch.Tensor) else a for a in args]
         kwargs = {k: next(it) if isinstance(v, torch.Tensor) else v
                   for k, v in kwargs.items()}
-        replay, result, launches = self._record(static[0].device, fn, args,
+        replay, result, launches = self._record(self._device, fn, args,
                                                 kwargs)
         self._owned.update(t.untyped_storage().data_ptr()
                            for t in _flat(result))

@@ -39,11 +39,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the host C++ sources' flags (those of the JAX package's native/Makefile)
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 
-#: the port's CUDA kernels on its paths, the receivers' and the turbo
-#: encoder: the first ``load`` of one of them builds each of them not built
-#: yet, all compilers started together
-KERNELS = ("chest_dl", "pdcch_rx", "sch_derm", "turbo_enc", "turbo_nii",
-           "turbo_win", "viterbi37")
+#: the port's CUDA kernels on its paths, the receivers' and the
+#: transmitter's (the PDCCH and turbo encoders): the first ``load`` of one
+#: of them builds each of them not built yet, all compilers started together
+KERNELS = ("chest_dl", "pdcch_rx", "pdcch_tx", "sch_derm", "turbo_enc",
+           "turbo_nii", "turbo_win", "viterbi37")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -40,6 +40,15 @@ def as_samples(samples, device=None) -> torch.Tensor:
                            device=resolve_device(device))
 
 
+def host_ints(rows, device) -> torch.Tensor:
+    """A call's few integers, ``rows`` of 3, as int32 [len(rows), 3] on
+    the host, pinned where ``device`` is a card, so that a copy to it
+    (``non_blocking``) needs no wait: a copy from pageable memory waits
+    for the card's queue. Made from NumPy, with no op of its own."""
+    t = torch.from_numpy(np.asarray(list(rows), np.int32).reshape(-1, 3))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
 _TABLES: dict = {}
 
 

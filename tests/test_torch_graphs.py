@@ -126,3 +126,15 @@ def test_what_a_caller_keeps_is_a_copy_of_the_graph_buffer():
     assert graphs.EAGER.keep(x) is x
     kept = graphs.Stages.keep(x)
     assert kept is not x and torch.equal(kept, x)
+
+
+def test_a_chain_given_its_device_takes_a_stage_without_tensors(
+        fresh_registry):
+    """A chain made for its device captures a stage with no tensor
+    argument (a transmitter call with no DCI and no HI)."""
+    chain = RerunStages(torch.device("cpu"))
+    for n in (3, 3):
+        chain.start()
+        out = chain("t.made", lambda v: torch.full((2,), float(v)), n)
+        assert torch.equal(out, torch.full((2,), 3.0))
+    assert len(chain._graphs) == 1 and chain._graphs[0][2] == []
